@@ -9,7 +9,10 @@ git-ignored ``build/``), then runs these phases, one or more lines each:
    the kernel build time;
 2. every kernel against its plain PyTorch version on the card, with its
    time, the plain version's, a PyTorch library call's (a yardstick only)
-   and the least time the card could take (``bound_ms``);
+   and the least time the card could take (``bound_ms``): the solve's
+   ``bid_top2`` and ``gather_rows``, then the kernel entry point's
+   ``cdist``, ``cdist_gather``, ``bid_top2_gather`` and ``ssm_scan`` at the
+   shapes phase 5 gives them;
 3. the main path: ``anticluster(x, k=256, chunk_size="auto")`` on the
    paper's *diabetes* shape (n = 253 680, d = 22), which takes the
    ``"stream"`` route with the ``"auction_fused"`` solver.  First the
@@ -19,6 +22,11 @@ git-ignored ``build/``), then runs these phases, one or more lines each:
    kernels' launch counters zeroed just before it and read just after, then
    a profile of the first few batches of one chunk;
 4. the same path at n = 16 384 against the plain kernels;
+5. the kernel entry point ``repro_torch.kernels`` at full size, driven
+   once with the launch counters zeroed just before and read just after:
+   ``cdist`` of the diabetes rows against k = 256 centroids,
+   ``cdist(idx=)`` and ``bid_top2(idx=)`` on one streaming chunk's 8192
+   indices, and ``ssm_scan`` at one falcon-mamba-7b layer's width;
 
 then one JSON line describing every kernel, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises, exits non-zero and
@@ -47,10 +55,17 @@ from repro_torch.core.aba import aba_stream  # noqa: E402
 from repro_torch.core.objective import (balance_ok,  # noqa: E402
                                         objective_centroid)
 from repro_torch.data.synthetic import PRESETS, make  # noqa: E402
+import repro_torch.kernels as K  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
-from repro_torch.kernels import bid_top2 as bid_mod  # noqa: E402
-from repro_torch.kernels import gather as gather_mod  # noqa: E402
-from repro_torch.kernels.ref import bid_top2_ref, gather_rows_ref  # noqa: E402
+from repro_torch.kernels.bid_top2 import bid_top2 as cuda_bid_top2  # noqa: E402
+from repro_torch.kernels.cdist import cdist as cuda_cdist  # noqa: E402
+from repro_torch.kernels.gather import (  # noqa: E402
+    bid_top2_gather as cuda_bid_top2_gather, cdist_gather as cuda_cdist_gather,
+    gather_rows as cuda_gather_rows)
+from repro_torch.kernels.ref import (  # noqa: E402
+    bid_top2_gather_ref, bid_top2_ref, cdist_gather_ref, cdist_ref,
+    gather_rows_ref, ssm_scan_chunk_ref, ssm_scan_ref)
+from repro_torch.kernels.ssm_scan import ssm_scan_chunk  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and fp32 outside the
 # tensor cores.
@@ -125,14 +140,13 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
 
 
 def reset_counts():
-    bid_mod.launches = 0
-    gather_mod.launches = 0
+    for name in _build.launches:
+        _build.launches[name] = 0
     asg.rounds_executed = 0
 
 
 def counts() -> dict:
-    return {"bid_top2": bid_mod.launches, "gather_rows": gather_mod.launches,
-            "rounds": asg.rounds_executed}
+    return {**_build.launches, "rounds": asg.rounds_executed}
 
 
 def check(cond: bool, what: str):
@@ -162,13 +176,13 @@ def check_bid_top2(dev) -> float:
     for G, m, k, d in [(1, 256, 256, 22), (1, 256, 256, 32), (4, 256, 256, 32),
                        (1, 37, 37, 5), (1, 256, 513, 22), (1, 64, 513, 200)]:
         x, c, p = bid_inputs(gen, G, m, k, d, True, dev)
-        got, want = bid_mod.bid_top2(x, c, p), bid_top2_ref(x, c, p)
+        got, want = cuda_bid_top2(x, c, p), bid_top2_ref(x, c, p)
         torch.cuda.synchronize()
         for g, w, what in zip(got, want, ("v1", "j1", "v2")):
             check(torch.equal(g, w), f"bid_top2 {what} differs on integers "
                                      f"at G={G} m={m} k={k} d={d}")
         x, c, p = bid_inputs(gen, G, m, k, d, False, dev)
-        (v1, j1, v2), (w1, wj, w2) = bid_mod.bid_top2(x, c, p), bid_top2_ref(x, c, p)
+        (v1, j1, v2), (w1, wj, w2) = cuda_bid_top2(x, c, p), bid_top2_ref(x, c, p)
         scale = w1.abs().max().item()
         err = max((v1 - w1).abs().max().item(), (v2 - w2).abs().max().item())
         tol = (1e-4 * scale + 1e-5 * torch.maximum(w1.abs(), w2.abs())).max()
@@ -189,8 +203,8 @@ def measure_bid_top2(dev, err) -> dict:
     G, m, k, d = 1, 256, 256, 22
     gen = torch.Generator().manual_seed(1)
     x, c, p = (t[0] for t in bid_inputs(gen, G, m, k, d, False, dev))
-    ms = time_ms(lambda: bid_mod.bid_top2(x, c, p))
-    dms = device_ms(lambda: bid_mod.bid_top2(x, c, p), "bid_top2_kernel")
+    ms = time_ms(lambda: cuda_bid_top2(x, c, p))
+    dms = device_ms(lambda: cuda_bid_top2(x, c, p), "bid_top2_kernel")
     plain = time_ms(lambda: bid_top2_ref(x, c, p))
     bias = (c * c).sum(1) - p
 
@@ -215,17 +229,17 @@ def check_and_measure_gather(dev) -> dict:
     x = torch.randn((n, d), generator=gen).to(dev)
     idx = torch.randint(-100, n + 100, (m,), generator=gen).to(dev)
     for index in (idx, idx.int()):
-        got, want = gather_mod.gather_rows(x, index), gather_rows_ref(x, index)
+        got, want = cuda_gather_rows(x, index), gather_rows_ref(x, index)
         torch.cuda.synchronize()
         check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
               f"gather_rows differs ({index.dtype})")
     x32 = torch.randn((n, 32), generator=gen).to(dev)  # the float4 path
-    check(torch.equal(gather_mod.gather_rows(x32, idx),
+    check(torch.equal(cuda_gather_rows(x32, idx),
                       gather_rows_ref(x32, idx)), "gather_rows d=32 differs")
     log(f"gather_rows n={n} m={m} d={d} (clipped int64 and int32 indices) "
         f"and d=32: bitwise equal")
-    ms = time_ms(lambda: gather_mod.gather_rows(x, idx))
-    dms = device_ms(lambda: gather_mod.gather_rows(x, idx),
+    ms = time_ms(lambda: cuda_gather_rows(x, idx))
+    dms = device_ms(lambda: cuda_gather_rows(x, idx),
                     "gather_rows_kernel")
     plain = time_ms(lambda: gather_rows_ref(x, idx))
     clipped = idx.clamp(0, n - 1)
@@ -381,6 +395,252 @@ def against_plain(dev):
     return {"agree": agree, "rel": abs(o_k - o_p) / o_p}
 
 
+# ---------------------------------------------------------------------------
+# phase 2, continued, and phase 5: the kernel entry point repro_torch.kernels
+# ---------------------------------------------------------------------------
+
+CHUNK_ROWS = 8192          # one streaming chunk of the main path
+SSM_SHAPE = (2, 2048, 8192, 16)  # B, S, d_inner, d_state: falcon-mamba-7b
+SSM_REPS = dict(reps=3, warmup=1)  # the plain scan loops 2048 steps
+
+
+def ints(gen, shape, lo, hi, dev):
+    return torch.randint(lo, hi, shape, generator=gen).float().to(dev)
+
+
+def cdist_err(got, want, x_rows, c) -> float:
+    """Max |got - want|; raises past 1e-5 (||x||^2 + ||c||^2) + 1e-6 (the
+    scale is the norms the entries cancel, not the entries)."""
+    tol = 1e-5 * ((x_rows * x_rows).sum(1)[:, None]
+                  + (c * c).sum(1)[None, :]) + 1e-6
+    diff = (got - want).abs()
+    check(bool((diff <= tol).all()), f"cdist float error {diff.max().item()}")
+    return diff.max().item()
+
+
+def top2_err(got, want, what) -> float:
+    """bid_top2's tolerance: values within 1e-4*scale + 1e-5*|v|, argmax
+    equal where the top-2 gap exceeds 1e-4*scale."""
+    (v1, j1, v2), (w1, wj, w2) = got, want
+    scale = w1.abs().max().item()
+    err = max((v1 - w1).abs().max().item(), (v2 - w2).abs().max().item())
+    tol = (1e-4 * scale + 1e-5 * torch.maximum(w1.abs(), w2.abs())).max()
+    check(err <= tol.item(), f"{what} float error {err} > {tol.item()}")
+    clear = (w1 - w2) > 1e-4 * scale
+    check(torch.equal(j1[clear], wj[clear]), f"{what} argmax differs")
+    return err
+
+
+def equal(got, want, what):
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    check(all(torch.equal(g, w) for g, w in zip(got, want)),
+          f"{what} differs")
+
+
+def check_entry_kernels(dev, gen) -> dict:
+    """Each new kernel against its plain version; returns the float max
+    error of each at its main-path shape."""
+    n, d, _ = PRESETS["diabetes"]
+    errs = {}
+    for dd in (d, 32, 200):
+        x, c = ints(gen, (n, dd), -2, 3, dev), ints(gen, (256, dd), -1, 2, dev)
+        p = ints(gen, (256,), -2, 3, dev)
+        idx = torch.randint(-100, n + 100, (CHUNK_ROWS,), generator=gen).to(dev)
+        equal(cuda_cdist(x, c), cdist_ref(x, c), f"cdist d={dd} integers")
+        for index in (idx, idx.int()):
+            what = f"d={dd} {index.dtype} integers"
+            got = cuda_cdist_gather(x, index, c)
+            equal(got, cdist_gather_ref(x, index, c), "cdist_gather " + what)
+            equal(got, cuda_cdist(cuda_gather_rows(x, index), c),
+                  "cdist_gather vs cdist(gather_rows) " + what)
+            got = cuda_bid_top2_gather(x, index, c, p)
+            equal(got, bid_top2_gather_ref(x, index, c, p),
+                  "bid_top2_gather " + what)
+            equal(got, cuda_bid_top2(cuda_gather_rows(x, index), c, p),
+                  "bid_top2_gather vs bid_top2(gather_rows) " + what)
+    log(f"cdist n={n} k=256, cdist_gather and bid_top2_gather on {CHUNK_ROWS} "
+        f"clipped int64/int32 indices, d={d}/32/200, integer inputs: bitwise "
+        f"equal to the plain versions and to the kernels on gather_rows")
+
+    x = torch.randn((n, d), generator=gen).to(dev)
+    c = torch.randn((256, d), generator=gen).to(dev)
+    p = torch.randn((256,), generator=gen).to(dev)
+    idx = torch.randint(-100, n + 100, (CHUNK_ROWS,), generator=gen).to(dev)
+    rows = gather_rows_ref(x, idx)
+    errs["cdist"] = cdist_err(cuda_cdist(x, c), cdist_ref(x, c), x, c)
+    errs["cdist_gather"] = cdist_err(cuda_cdist_gather(x, idx, c),
+                                     cdist_gather_ref(x, idx, c), rows, c)
+    equal(cuda_cdist_gather(x, idx, c),
+          cuda_cdist(cuda_gather_rows(x, idx), c), "cdist_gather floats")
+    errs["bid_top2_gather"] = top2_err(cuda_bid_top2_gather(x, idx, c, p),
+                                       bid_top2_gather_ref(x, idx, c, p),
+                                       "bid_top2_gather")
+    equal(cuda_bid_top2_gather(x, idx, c, p),
+          cuda_bid_top2(cuda_gather_rows(x, idx), c, p),
+          "bid_top2_gather floats")
+    log(f"Gaussian floats: cdist max_abs_err {errs['cdist']:.3e}, "
+        f"cdist_gather {errs['cdist_gather']:.3e} (tol 1e-5*(|x|^2+|c|^2)"
+        f"+1e-6), bid_top2_gather {errs['bid_top2_gather']:.3e} (bid_top2's "
+        f"tol, argmax equal where the gap > 1e-4*scale); both fused kernels "
+        f"bitwise equal to the unfused kernel on gather_rows")
+
+    args = ssm_inputs(gen, SSM_SHAPE, dev)
+    y, h = K.ssm_scan(*args)
+    want_y, want_h = ssm_scan_ref(*args)
+    torch.testing.assert_close(y, want_y, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(h, want_h, rtol=1e-4, atol=1e-4)
+    errs["ssm_scan"] = max((y - want_y).abs().max().item(),
+                           (h - want_h).abs().max().item())
+    small = ssm_inputs(gen, (2, 64, 512, 16), dev)
+    tm = [t.transpose(0, 1).contiguous() for t in small[:4]]
+    h0 = torch.randn((2, 512, 16), generator=gen).to(dev)
+    got, want = ssm_scan_chunk(*tm, small[4], h0), ssm_scan_chunk_ref(
+        *tm, small[4], h0)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+    log(f"ssm_scan B,S,di,ds={SSM_SHAPE}: within rtol/atol 1e-4 of "
+        f"ssm_scan_ref, max_abs_err {errs['ssm_scan']:.3e}; ssm_scan_chunk "
+        f"C=64 B=2 di=512 ds=16 from a nonzero h0: within rtol/atol 1e-4")
+
+    wide = torch.randn((4096, 600), generator=gen).to(dev)
+    cw, pw = wide[:64].clone(), torch.randn((64,), generator=gen).to(dev)
+    iw = torch.randint(0, 4096, (1024,), generator=gen).to(dev)
+    reset_counts()
+    dist, bids = K.cdist(wide, cw, idx=iw), K.bid_top2(wide, cw, pw, idx=iw)
+    used = counts()
+    check(used["gather_rows"] == 2 and used["cdist"] == 1
+          and used["bid_top2"] == 1 and used["cdist_gather"] == 0
+          and used["bid_top2_gather"] == 0,
+          f"d=600 did not take gather + unfused kernels: {used}")
+    cdist_err(dist, cdist_gather_ref(wide, iw, cw), wide[iw], cw)
+    top2_err(bids, bid_top2_gather_ref(wide, iw, cw, pw), "bid_top2 d=600")
+    log(f"d=600: cdist(idx=) / bid_top2(idx=) took gather_rows + the unfused "
+        f"kernels (launches {used})")
+    return errs
+
+
+def ssm_inputs(gen, shape, dev):
+    bsz, s, di, ds = shape
+    dt = torch.rand((bsz, s, di), generator=gen) * 0.1
+    b, c = (torch.randn((bsz, s, ds), generator=gen) for _ in range(2))
+    x = torch.randn((bsz, s, di), generator=gen)
+    a = -torch.rand((di, ds), generator=gen) * 4.0
+    return [t.to(dev) for t in (dt, b, c, x, a)]
+
+
+def entry_inputs(dev) -> dict:
+    """Phase 5's inputs, made from a seed: the diabetes rows, 256 centroids
+    drawn from them, prices, one chunk's 8192 indices, a scan's inputs."""
+    gen = torch.Generator().manual_seed(5)
+    n, d, _ = PRESETS["diabetes"]
+    x = torch.from_numpy(make("mixture", n, d, seed=0)).to(dev)
+    return {"x": x, "c": x[torch.randperm(n, generator=gen)[:256].to(dev)],
+            "p": torch.rand((256,), generator=gen).to(dev),
+            "idx": torch.randperm(n, generator=gen)[:CHUNK_ROWS].to(dev),
+            "ssm": ssm_inputs(gen, SSM_SHAPE, dev)}
+
+
+def entry_point(dev) -> dict:
+    """The entry point as a user calls it, at full size, with the counters
+    zeroed just before and read just after."""
+    inp = entry_inputs(dev)
+    x, c, p, idx = inp["x"], inp["c"], inp["p"], inp["idx"]
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    dist = K.cdist(x, c)
+    chunk_dist = K.cdist(x, c, idx=idx)
+    bids = K.bid_top2(x, c, p, idx=idx)
+    y, h = K.ssm_scan(*inp["ssm"])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    used = counts()
+    for name in ("cdist", "cdist_gather", "bid_top2_gather", "ssm_scan"):
+        check(used[name] > 0, f"{name} not launched by the entry point")
+    n = x.shape[0]
+    bsz, s, di, ds = SSM_SHAPE
+    check(dist.shape == (n, 256) and chunk_dist.shape == (CHUNK_ROWS, 256)
+          and y.shape == (bsz, s, di) and h.shape == (bsz, di, ds),
+          "entry point output shapes")
+    check(all(bool(t.isfinite().all()) for t in (dist, chunk_dist, *bids, y, h)),
+          "entry point outputs not finite")
+    check(bool((dist.min(1).values > -1e-3).all()), "negative distances")
+    check(torch.equal(chunk_dist, dist[idx]), "cdist(idx=) != cdist rows")
+    check(bool((bids[0] >= bids[2]).all()) and bool((bids[1] >= 0).all())
+          and bool((bids[1] < 256).all()), "bid_top2(idx=) not a top-2")
+    log(f"entry point n={n} d={x.shape[1]} k=256 idx={CHUNK_ROWS} "
+        f"ssm={SSM_SHAPE}: {run_s:.3f} s, launches {used}")
+    return {"seconds": run_s, "launches": used}
+
+
+def measure_entry_kernels(dev, errs) -> list:
+    """Each of the entry point's kernels timed on phase 5's inputs."""
+    inp = entry_inputs(dev)
+    x, c, p, idx, ssm = (inp[k] for k in ("x", "c", "p", "idx", "ssm"))
+    n, d = x.shape
+    rows = []
+    xn, cn = (x * x).sum(1), (c * c).sum(1)
+    m, k = n, 256
+    b_cd, by_cd = bound_ms(4 * (m * d + k * d + m * k),
+                           2 * m * k * d + 2 * (m + k) * d + 3 * m * k)
+    rows.append(timed_row(
+        "cdist", "cdist.cu", "src/repro/kernels/cdist.py:29",
+        f"m={m} n={k} d={d}", errs, lambda: cuda_cdist(x, c), "cdist_kernel",
+        lambda: cdist_ref(x, c),
+        lambda: torch.addmm(xn[:, None] + cn, x, c.T, alpha=-2.0),
+        b_cd, by_cd))
+    mi = CHUNK_ROWS
+    b_cg, by_cg = bound_ms(8 * mi + 4 * (mi * d + k * d + mi * k),
+                           2 * mi * k * d + 2 * (mi + k) * d + 3 * mi * k)
+    rows.append(timed_row(
+        "cdist_gather", "cdist_gather.cu", "src/repro/kernels/gather.py:238",
+        f"n={n} m={mi} nc={k} d={d} (int64 idx)", errs,
+        lambda: cuda_cdist_gather(x, idx, c), "cdist_kernel",
+        lambda: cdist_gather_ref(x, idx, c), None, b_cg, by_cg))
+    b_bg, by_bg = bound_ms(8 * mi + 4 * (mi * d + k * d + k) + mi * 16,
+                           2 * mi * k * d + 2 * k * d + 2 * mi * k)
+    rows.append(timed_row(
+        "bid_top2_gather", "bid_top2_gather.cu",
+        "src/repro/kernels/gather.py:129", f"n={n} m={mi} k={k} d={d} "
+        f"(int64 idx)", errs, lambda: cuda_bid_top2_gather(x, idx, c, p),
+        "bid_top2_kernel", lambda: bid_top2_gather_ref(x, idx, c, p), None,
+        b_bg, by_bg))
+    bsz, s, di, ds = SSM_SHAPE
+    b_ss, by_ss = bound_ms(4 * (3 * bsz * s * di + 2 * bsz * s * ds + di * ds
+                                + bsz * di * ds),
+                           7 * bsz * s * di * ds + bsz * s * di)
+    rows.append(timed_row(
+        "ssm_scan", "ssm_scan.cu", "src/repro/kernels/ssm_scan.py:28",
+        "B={} S={} di={} ds={}".format(*SSM_SHAPE), errs,
+        lambda: K.ssm_scan(*ssm), "ssm_scan_kernel",
+        lambda: ssm_scan_ref(*ssm), None, b_ss, by_ss, plain_reps=SSM_REPS))
+    return rows
+
+
+def timed_row(name, source, replaces, shape, errs, fn, kernel, plain,
+              library, b, by, plain_reps=None) -> dict:
+    return {"name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{source}",
+            "replaces": replaces, "shape": shape,
+            "max_abs_err": errs[name], "ms": time_ms(fn),
+            "device_ms": device_ms(fn, kernel),
+            "plain_ms": time_ms(plain, **(plain_reps or {})),
+            "bound_ms": b, "bound_by": by,
+            "library_ms": time_ms(library) if library else None,
+            "launches_in": "phase 5: the repro_torch.kernels entry point "
+                           "(no anticluster path runs this kernel)"}
+
+
+def log_rows(rows):
+    for r in rows:
+        lib = ("none" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f} ms")
+        log(f"{r['name']} {r['shape']}: kernel {r['ms']:.4f} ms (device "
+            f"{r['device_ms']} ms), plain {r['plain_ms']:.4f} ms, library "
+            f"{lib}, bound {r['bound_ms']:.6f} ms ({r['bound_by']})")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=PRESETS["diabetes"][0],
@@ -407,22 +667,27 @@ def main():
 
     phase("phase 2: kernels against their plain versions")
     err = check_bid_top2(dev)
-    rows = [measure_bid_top2(dev, err), check_and_measure_gather(dev)]
-    for r in rows:
-        log(f"{r['name']} {r['shape']}: kernel {r['ms']:.4f} ms (device "
-            f"{r['device_ms']} ms), plain {r['plain_ms']:.4f} ms, library "
-            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms "
-            f"({r['bound_by']})")
+    solve_rows = [measure_bid_top2(dev, err), check_and_measure_gather(dev)]
+    errs = check_entry_kernels(dev, torch.Generator().manual_seed(4))
+    entry_rows = measure_entry_kernels(dev, errs)
+    rows = solve_rows + entry_rows
+    log_rows(rows)
 
     phase("phase 3: the main path")
     main_run = main_path(dev, args.n)
+    for r in solve_rows:
+        r["launches"] = main_run["launches"][r["name"]]
+        r["launches_in"] = "phase 3: the anticluster main path"
     phase("phase 4: the path against its plain kernels")
     plain_run = against_plain(dev)
+    phase("phase 5: the kernel entry point repro_torch.kernels")
+    entry_run = entry_point(dev)
+    for r in entry_rows:
+        r["launches"] = entry_run["launches"][r["name"]]
     phase("done")
 
-    for r in rows:
-        r["launches"] = main_run["launches"][r["name"]]
-    log(json.dumps({"main_path": main_run, "against_plain": plain_run}))
+    log(json.dumps({"main_path": main_run, "against_plain": plain_run,
+                    "entry_point": entry_run}))
     log(smi)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

@@ -2,10 +2,15 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C function and becomes its own
 shared library, ``build/kernels/<name>-<hash>.so`` under the checkout's
-root (the ``build/`` directory is git-ignored).  The hash covers the source
-and the compiler flags, so an edited source is rebuilt and a stale library
-is never loaded.  All missing libraries are compiled at once, one nvcc
-process per source, at first use; nothing is compiled at import time.
+root (the ``build/`` directory is git-ignored).  The hash covers the source,
+every header in ``csrc/`` and the compiler flags, so an edited source or
+header is rebuilt and a stale library is never loaded.  All missing
+libraries are compiled at once, one nvcc process per source, at first use;
+nothing is compiled at import time.
+
+:func:`launch` calls a kernel's C function, raises on a launch error and
+counts the launch in :data:`launches`, the one place the port counts
+kernel launches.
 """
 
 from __future__ import annotations
@@ -18,6 +23,8 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 _CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -29,7 +36,18 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _SYMBOLS = {
     "bid_top2": ("bid_top2_f32", (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)),
     "gather_rows": ("gather_rows_f32", (_P, _P, _I, _P, _L, _L, _L, _P)),
+    "bid_top2_gather": ("bid_top2_gather_f32",
+                        (_P, _P, _I, _P, _P, _P, _P, _P, _L, _I, _I, _I, _P)),
+    "cdist": ("cdist_f32", (_P, _P, _P, _L, _I, _I, _P)),
+    "cdist_gather": ("cdist_gather_f32", (_P, _P, _I, _P, _P, _L, _L, _I, _I,
+                                          _P)),
+    "ssm_scan": ("ssm_scan_f32", (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                  _I, _L, _L, _L, _L, _P)),
 }
+
+# kernel name -> launches since the count was last zeroed; every wrapper
+# counts here through launch(), and nowhere else
+launches = dict.fromkeys(_SYMBOLS, 0)
 
 _functions: dict = {}
 build_log: dict = {}      # name -> nvcc's output (ptxas registers / spills)
@@ -47,9 +65,14 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (_CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    """Where source ``name``'s library lives, keyed by a hash of the source,
+    of every header in ``csrc/`` (a source may include any of them) and of
+    the compiler flags."""
+    h = hashlib.sha256((_CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(_CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all() -> dict:
@@ -98,3 +121,29 @@ def function(name: str):
         fn.restype = ctypes.c_int
         _functions[name] = fn
     return fn
+
+
+def launch(name: str, *args) -> None:
+    """Launch kernel ``name`` with its C arguments; raise if the launch
+    failed, else count it."""
+    err = function(name)(*args)
+    if err:
+        raise RuntimeError(f"{name} kernel launch failed (cudaError {err})")
+    launches[name] += 1
+
+
+def check_operands(kernel: str, device: torch.device, **tensors) -> None:
+    """Raise ValueError unless every tensor is contiguous, on ``device``
+    (the current CUDA device) and float32, or int32 / int64 for ``idx``."""
+    if device.index != torch.cuda.current_device():
+        raise ValueError(f"{kernel}: tensors on {device} but the current "
+                         f"device is cuda:{torch.cuda.current_device()}")
+    for name, t in tensors.items():
+        types = ((torch.int32, torch.int64) if name == "idx"
+                 else (torch.float32,))
+        if t.dtype not in types or not t.is_contiguous():
+            raise ValueError(f"{kernel}: {name} must be contiguous "
+                             f"{' or '.join(map(str, types))}, got {t.dtype}")
+        if t.device != device:
+            raise ValueError(f"{kernel}: {name} is on {t.device}, expected "
+                             f"{device}")

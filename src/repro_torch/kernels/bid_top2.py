@@ -2,8 +2,8 @@
 
 Counterpart of ``repro/kernels/bid_top2.py``'s ``bid_top2_pallas``.  A CUDA
 tensor launches the kernel (or raises); a CPU tensor runs the plain version
-``repro_torch.kernels.ref.bid_top2_ref``.  ``launches`` counts the kernel
-launches and nothing else.
+``repro_torch.kernels.ref.bid_top2_ref``.  Launches are counted in
+``_build.launches["bid_top2"]``.
 """
 
 from __future__ import annotations
@@ -12,8 +12,6 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import bid_top2_ref
-
-launches = 0
 
 
 def bid_top2(x: torch.Tensor, c: torch.Tensor, prices: torch.Tensor):
@@ -29,7 +27,6 @@ def bid_top2(x: torch.Tensor, c: torch.Tensor, prices: torch.Tensor):
 
 
 def _launch(x, c, prices):
-    global launches
     squeeze = x.dim() == 2
     if squeeze:
         x, c, prices = x[None], c[None], prices[None]
@@ -44,24 +41,16 @@ def _launch(x, c, prices):
                          f"c {tuple(c.shape)}, prices {tuple(prices.shape)}")
     if G > 65535:
         raise ValueError(f"bid_top2 takes at most 65535 groups, got {G}")
-    for name, t in (("x", x), ("c", c), ("prices", prices)):
-        if t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"bid_top2: {name} must be contiguous float32, "
-                             f"got {t.dtype}")
-        if t.device != x.device:
-            raise ValueError(f"bid_top2: {name} is on {t.device}, x on "
-                             f"{x.device}")
-    if x.device.index != torch.cuda.current_device():
-        raise ValueError(f"bid_top2: tensors on {x.device} but the current "
-                         f"device is cuda:{torch.cuda.current_device()}")
-    v1 = torch.empty((G, m), dtype=torch.float32, device=x.device)
-    j1 = torch.empty((G, m), dtype=torch.int64, device=x.device)
-    v2 = torch.empty((G, m), dtype=torch.float32, device=x.device)
-    err = _build.function("bid_top2")(
-        x.data_ptr(), c.data_ptr(), prices.data_ptr(), v1.data_ptr(),
-        j1.data_ptr(), v2.data_ptr(), G, m, k, d,
-        torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"bid_top2 kernel launch failed (cudaError {err})")
-    launches += 1
+    _build.check_operands("bid_top2", x.device, x=x, c=c, prices=prices)
+    v1, j1, v2 = top2_outputs((G, m), x.device)
+    _build.launch("bid_top2", x.data_ptr(), c.data_ptr(), prices.data_ptr(),
+                  v1.data_ptr(), j1.data_ptr(), v2.data_ptr(), G, m, k, d,
+                  torch.cuda.current_stream().cuda_stream)
     return (v1[0], j1[0], v2[0]) if squeeze else (v1, j1, v2)
+
+
+def top2_outputs(shape, device):
+    """Empty (v1 float32, j1 int64, v2 float32) of ``shape``."""
+    return (torch.empty(shape, dtype=torch.float32, device=device),
+            torch.empty(shape, dtype=torch.int64, device=device),
+            torch.empty(shape, dtype=torch.float32, device=device))

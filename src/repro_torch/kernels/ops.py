@@ -6,6 +6,13 @@ plain PyTorch version (``"ref"``).  The :func:`forced_path` context selects
 the plain version on the card too; it exists so that ``chip_smoke.py`` can
 run the whole path against the plain versions, the counterpart of JAX's
 ``force=``.
+
+``cdist`` and ``bid_top2`` take the reference's ``idx=``: the rows are
+``x[clip(idx, 0, n - 1)]``, read by the fused gather kernels for
+``d <= _GATHER_FUSE_MAX_D`` and by ``gather_rows`` followed by the unfused
+kernel above it, the reference's dispatch table.  (The reference's jnp path
+wraps a negative index the numpy way instead of clipping it; its Pallas
+kernels clip, and so does every path here.)
 """
 
 from __future__ import annotations
@@ -14,9 +21,12 @@ import contextlib
 
 import torch
 
-from repro_torch.kernels import bid_top2 as _bid
 from repro_torch.kernels import gather as _gather
-from repro_torch.kernels.ref import bid_top2_ref, gather_rows_ref
+from repro_torch.kernels.bid_top2 import bid_top2 as _bid_top2
+from repro_torch.kernels.cdist import cdist as _cdist
+from repro_torch.kernels.ref import bid_top2_ref, cdist_ref, gather_rows_ref
+
+_GATHER_FUSE_MAX_D = 512  # the reference's full-row limit of the fused kernels
 
 _forced: str | None = None
 
@@ -36,8 +46,8 @@ def forced_path(path: str):
 
 def resolve_path(t: torch.Tensor) -> str:
     """``"cuda"`` for a CUDA tensor, ``"ref"`` for a CPU tensor or inside
-    :func:`forced_path`.  The single copy of the rule; both dispatchers
-    branch on it."""
+    :func:`forced_path`.  The single copy of the rule; every dispatcher
+    branches on it."""
     if _forced == "ref" or not t.is_cuda:
         return "ref"
     return "cuda"
@@ -46,17 +56,51 @@ def resolve_path(t: torch.Tensor) -> str:
 gather_path = resolve_path  # the row gather follows the same rule
 
 
-def bid_top2(x: torch.Tensor, c: torch.Tensor, prices: torch.Tensor):
-    """Fused auction bidding reduction (v1, j1, v2 per row); flat
-    ``(m, d) x (k, d)`` or stacked ``(G, m, d) x (G, k, d)`` with ``(G, k)``
-    prices (the stack is a grid axis of the kernel)."""
-    if resolve_path(x) == "ref":
-        return bid_top2_ref(x, c, prices)
-    return _bid.bid_top2(x, c, prices)
-
-
 def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``x[clip(idx, 0, n - 1)]`` as float32: (n, d), (m,) -> (m, d)."""
     if gather_path(x) == "ref":
         return gather_rows_ref(x, idx)
     return _gather.gather_rows(x, idx)
+
+
+def cdist(x: torch.Tensor, c: torch.Tensor, *,
+          idx: torch.Tensor | None = None) -> torch.Tensor:
+    """Squared-distance cost matrix ``(..., m, d) x (n, d) -> (..., m, n)``;
+    leading chunk dims are flattened into one launch and restored.
+
+    With ``idx`` the rows are ``x[clip(idx)]`` (x must be flat (n, d)),
+    gathered inside the fused kernel for ``d <= 512``.
+    """
+    if idx is not None:
+        if x.dim() != 2:
+            raise ValueError(f"cdist(idx=) needs flat (n, d) x, got "
+                             f"{tuple(x.shape)}")
+        if resolve_path(x) == "ref" or x.shape[1] > _GATHER_FUSE_MAX_D:
+            return cdist(gather_rows(x, idx), c)
+        return _gather.cdist_gather(x, idx, c)
+    lead = x.shape[:-2]
+    if lead:
+        x = x.reshape(-1, x.shape[-1])
+    out = cdist_ref(x, c) if resolve_path(x) == "ref" else _cdist(x, c)
+    return out.reshape(*lead, -1, out.shape[-1]) if lead else out
+
+
+def bid_top2(x: torch.Tensor, c: torch.Tensor, prices: torch.Tensor, *,
+             idx: torch.Tensor | None = None):
+    """Fused auction bidding reduction (v1, j1, v2 per row); flat
+    ``(m, d) x (k, d)`` or stacked ``(G, m, d) x (G, k, d)`` with ``(G, k)``
+    prices (the stack is a grid axis of the kernel).
+
+    With ``idx`` the rows are ``x[clip(idx)]`` (x must be flat (n, d)),
+    gathered inside the fused kernel for ``d <= 512``.
+    """
+    if idx is not None:
+        if x.dim() != 2:
+            raise ValueError(f"bid_top2(idx=) needs flat (n, d) x, got "
+                             f"{tuple(x.shape)}")
+        if resolve_path(x) == "ref" or x.shape[1] > _GATHER_FUSE_MAX_D:
+            return bid_top2(gather_rows(x, idx), c, prices)
+        return _gather.bid_top2_gather(x, idx, c, prices)
+    if resolve_path(x) == "ref":
+        return bid_top2_ref(x, c, prices)
+    return _bid_top2(x, c, prices)

@@ -13,10 +13,18 @@ import torch
 
 from repro_torch.anticluster import anticluster
 from repro_torch.core.objective import balance_ok
-from repro_torch.kernels import bid_top2 as bid_mod
-from repro_torch.kernels import gather as gather_mod
-from repro_torch.kernels import ops
-from repro_torch.kernels.ref import bid_top2_ref, gather_rows_ref
+import repro_torch.kernels as K
+from repro_torch.kernels import _build, ops
+from repro_torch.kernels.bid_top2 import bid_top2 as cuda_bid_top2
+from repro_torch.kernels.cdist import cdist as cuda_cdist
+from repro_torch.kernels.gather import bid_top2_gather as cuda_bid_gather
+from repro_torch.kernels.gather import cdist_gather as cuda_cdist_gather
+from repro_torch.kernels.gather import gather_rows as cuda_gather_rows
+from repro_torch.kernels.ref import (bid_top2_gather_ref, bid_top2_ref,
+                                     cdist_gather_ref, cdist_ref,
+                                     gather_rows_ref, ssm_scan_chunk_ref,
+                                     ssm_scan_ref)
+from repro_torch.kernels.ssm_scan import ssm_scan_chunk
 
 
 @pytest.fixture
@@ -41,14 +49,14 @@ def _int_inputs(seed, m, k, d, G):
                                      (1, 64, 513, 200), (2, 9, 1, 7)])
 def test_cuda_bid_top2_vs_plain(cuda, G, m, k, d):
     x, c, p = (t.to(cuda) for t in _int_inputs(G * m + k, m, k, d, G))
-    n0 = bid_mod.launches
-    got = bid_mod.bid_top2(x, c, p)
-    assert bid_mod.launches == n0 + 1
+    n0 = _build.launches["bid_top2"]
+    got = cuda_bid_top2(x, c, p)
+    assert _build.launches["bid_top2"] == n0 + 1
     want = bid_top2_ref(x, c, p)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     xf = x + torch.randn_like(x)
-    got = bid_mod.bid_top2(xf, c, p)
+    got = cuda_bid_top2(xf, c, p)
     w1, wj, w2 = bid_top2_ref(xf, c, p)
     scale = w1.abs().max().item()
     torch.testing.assert_close(got[0], w1, rtol=1e-5, atol=1e-4 * scale)
@@ -63,12 +71,12 @@ def test_cuda_bid_top2_vs_plain(cuda, G, m, k, d):
 def test_cuda_gather_rows_bitwise(cuda, d, idx_dtype):
     x = torch.randn(2537, d, device=cuda)
     idx = torch.randint(-50, 2600, (8192,), device=cuda, dtype=idx_dtype)
-    n0 = gather_mod.launches
-    got = gather_mod.gather_rows(x, idx)
-    assert gather_mod.launches == n0 + 1
+    n0 = _build.launches["gather_rows"]
+    got = cuda_gather_rows(x, idx)
+    assert _build.launches["gather_rows"] == n0 + 1
     assert torch.equal(got, gather_rows_ref(x, idx))
     with pytest.raises(ValueError):
-        gather_mod.gather_rows(x.double(), idx)
+        cuda_gather_rows(x.double(), idx)
 
 
 @pytest.mark.cuda
@@ -76,13 +84,119 @@ def test_cuda_stream_path_launches_kernels_and_matches_plain(cuda):
     rng = np.random.default_rng(0)
     x = torch.from_numpy(rng.normal(size=(4096, 22)).astype(np.float32))
     kw = dict(k=64, chunk_size=1024, solver="auction_fused", device=cuda)
-    n0 = (bid_mod.launches, gather_mod.launches)
+    n0 = dict(_build.launches)
     res = anticluster(x.to(cuda), **kw)
-    assert bid_mod.launches > n0[0] and gather_mod.launches > n0[1]
+    assert (_build.launches["bid_top2"] > n0["bid_top2"]
+            and _build.launches["gather_rows"] > n0["gather_rows"])
     with ops.forced_path("ref"):
-        n1 = (bid_mod.launches, gather_mod.launches)
+        n1 = dict(_build.launches)
         plain = anticluster(x.to(cuda), **kw)
-        assert (bid_mod.launches, gather_mod.launches) == n1
+        assert _build.launches == n1
     for r in (res, plain):
         assert balance_ok(r.labels.cpu(), 64)
     assert torch.equal(anticluster(x.to(cuda), **kw).labels, res.labels)
+
+
+def _counted(name, fn, *args, **kw):
+    """fn(*args, **kw), checking that it launched kernel ``name`` once."""
+    n0 = _build.launches[name]
+    out = fn(*args, **kw)
+    assert _build.launches[name] == n0 + 1
+    return out
+
+
+def _assert_cdist_close(got, want, x_rows, c):
+    """Within 1e-5 (||x||^2 + ||c||^2) + 1e-6 per entry (the sums run in
+    another order than the plain version's)."""
+    tol = 1e-5 * ((x_rows * x_rows).sum(1)[:, None]
+                  + (c * c).sum(1)[None, :]) + 1e-6
+    assert ((got - want).abs() <= tol).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,d", [(2000, 256, 22), (333, 70, 32),
+                                   (64, 5, 200), (1, 1, 1)])
+def test_cuda_cdist_vs_plain(cuda, m, n, d):
+    x, c, _ = (t[0].to(cuda) for t in _int_inputs(m + n + d, m, n, d, 1))
+    got = _counted("cdist", cuda_cdist, x, c)
+    assert torch.equal(got, cdist_ref(x, c))
+    xf, cf = torch.randn_like(x), torch.randn_like(c)
+    _assert_cdist_close(_counted("cdist", cuda_cdist, xf, cf),
+                        cdist_ref(xf, cf), xf, cf)
+    lead = _counted("cdist", K.cdist, xf.reshape(1, m, d), cf)
+    assert torch.equal(lead[0], cuda_cdist(xf, cf))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [22, 32, 200])
+@pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
+def test_cuda_cdist_gather_vs_plain(cuda, d, idx_dtype):
+    x, c, _ = (t[0].to(cuda) for t in _int_inputs(d, 2537, 256, d, 1))
+    idx = torch.randint(-50, 2600, (3000,), device=cuda, dtype=idx_dtype)
+    got = _counted("cdist_gather", cuda_cdist_gather, x, idx, c)
+    assert torch.equal(got, cdist_gather_ref(x, idx, c))
+    xf, cf = torch.randn_like(x), torch.randn_like(c)
+    got = _counted("cdist_gather", K.cdist, xf, cf, idx=idx)
+    assert torch.equal(got, cuda_cdist(cuda_gather_rows(xf, idx), cf))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,d", [(256, 22), (513, 32), (37, 200), (1, 5)])
+@pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
+def test_cuda_bid_top2_gather_vs_plain(cuda, k, d, idx_dtype):
+    x, c, p = (t[0].to(cuda) for t in _int_inputs(k * d, 2537, k, d, 1))
+    idx = torch.randint(-50, 2600, (3000,), device=cuda, dtype=idx_dtype)
+    got = _counted("bid_top2_gather", cuda_bid_gather, x, idx, c, p)
+    for g, w in zip(got, bid_top2_gather_ref(x, idx, c, p)):
+        assert torch.equal(g, w)
+    xf = x + torch.randn_like(x)
+    got = _counted("bid_top2_gather", K.bid_top2, xf, c, p, idx=idx)
+    for g, w in zip(got, cuda_bid_top2(cuda_gather_rows(xf, idx), c, p)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_cuda_wide_rows_take_gather_then_unfused_kernel(cuda):
+    """d > 512: gather_rows, then the unfused kernel, as in the reference's
+    dispatch table."""
+    x, c, p = (t[0].to(cuda) for t in _int_inputs(5, 300, 40, 600, 1))
+    idx = torch.randint(0, 300, (100,), device=cuda)
+    n0 = dict(_build.launches)
+    dist = K.cdist(x, c, idx=idx)
+    bids = K.bid_top2(x, c, p, idx=idx)
+    moved = {k: v - n0[k] for k, v in _build.launches.items()}
+    assert moved == {"gather_rows": 2, "cdist": 1, "bid_top2": 1,
+                     "cdist_gather": 0, "bid_top2_gather": 0, "ssm_scan": 0}
+    assert torch.equal(dist, cdist_gather_ref(x, idx, c))
+    for g, w in zip(bids, bid_top2_gather_ref(x, idx, c, p)):
+        assert torch.equal(g, w)
+
+
+def _ssm_inputs(lead, di, ds, device):
+    gen = torch.Generator().manual_seed(di * ds)
+    dt = torch.randn(*lead, di, generator=gen).abs() * 0.1
+    b, c = (torch.randn(*lead, ds, generator=gen) for _ in range(2))
+    x = torch.randn(*lead, di, generator=gen)
+    a = -torch.randn(di, ds, generator=gen).abs()
+    return [t.to(device) for t in (dt, b, c, x, a)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bsz,s,di,ds", [(2, 64, 512, 16), (3, 37, 100, 8),
+                                         (1, 20, 64, 24), (2, 9, 48, 64)])
+def test_cuda_ssm_scan_vs_plain(cuda, bsz, s, di, ds):
+    """Within rtol 1e-4 / atol 1e-4 (exp and the sum order of y_t differ),
+    in both layouts, and from a nonzero h0."""
+    args = _ssm_inputs((bsz, s), di, ds, cuda)
+    y, h = _counted("ssm_scan", K.ssm_scan, *args)
+    want_y, want_h = ssm_scan_ref(*args)
+    torch.testing.assert_close(y, want_y, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(h, want_h, rtol=1e-4, atol=1e-4)
+    tm = [t.transpose(0, 1).contiguous() for t in args[:4]]
+    h0 = torch.randn(bsz, di, ds, device=cuda)
+    y, h = _counted("ssm_scan", ssm_scan_chunk, *tm, args[4], h0)
+    want_y, want_h = ssm_scan_chunk_ref(*tm, args[4], h0)
+    torch.testing.assert_close(y, want_y, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(h, want_h, rtol=1e-4, atol=1e-4)
+    with pytest.raises(ValueError):
+        K.ssm_scan(args[0].transpose(0, 1), *args[1:])

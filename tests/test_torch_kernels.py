@@ -1,4 +1,5 @@
-"""The port's kernels (bid_top2, gather_rows) against the JAX package's.
+"""The port's kernels (bid_top2, gather_rows, bid_top2(idx=)) and its
+kernel entry point against the JAX package's.
 
 The same numpy inputs go through the JAX kernels (the Pallas bodies in
 interpret mode, and the jnp references) and through the port's plain
@@ -7,20 +8,26 @@ kernels themselves are held against those plain versions on the card by
 tests/test_torch_cuda.py and by ``chip_smoke.py``.
 """
 
+import shutil
+
 import numpy as np
 import pytest
 import torch
 
 import jax.numpy as jnp
 
+import repro.kernels as jax_kernels
 from repro.kernels.bid_top2 import bid_top2_pallas
+from repro.kernels.ops import bid_top2 as jax_bid_top2
 from repro.kernels.gather import gather_rows_pallas
 from repro.kernels.ref import bid_top2_ref as jax_bid_top2_ref
 
-from repro_torch.kernels import bid_top2 as bid_mod
-from repro_torch.kernels import gather as gather_mod
-from repro_torch.kernels import ops
-from repro_torch.kernels.ref import bid_top2_ref, gather_rows_ref
+from repro_torch.kernels import _build, ops
+from repro_torch.kernels.bid_top2 import bid_top2 as cuda_bid_top2
+from repro_torch.kernels.gather import gather_rows as cuda_gather_rows
+from repro_torch.kernels.gather import bid_top2_gather as cuda_bid_gather
+from repro_torch.kernels.ref import (bid_top2_gather_ref, bid_top2_ref,
+                                     gather_rows_ref)
 
 
 def _int_inputs(seed, m, k, d, G=None):
@@ -103,13 +110,117 @@ def test_bid_top2_stacked_equals_per_group():
 
 def test_cpu_tensors_take_the_plain_path_and_count_nothing():
     x, c, p = _t(*_int_inputs(5, 8, 9, 3))
-    before = (bid_mod.launches, gather_mod.launches)
+    before = dict(_build.launches)
     assert ops.resolve_path(x) == "ref" and ops.gather_path(x) == "ref"
     with ops.forced_path("ref"):
         assert ops.resolve_path(x) == "ref"
-    bid_mod.bid_top2(x, c, p)
-    gather_mod.gather_rows(c, torch.arange(3))
-    assert (bid_mod.launches, gather_mod.launches) == before
+    cuda_bid_top2(x, c, p)
+    cuda_gather_rows(c, torch.arange(3))
+    assert _build.launches == before
     with pytest.raises(ValueError):
         with ops.forced_path("pallas"):
             pass
+
+
+def _assert_top2(got, want, integer):
+    """Exact on integers; on floats the values within rtol 1e-5 / atol
+    1e-4*scale and the argmax equal where the top-2 gap exceeds
+    1e-4*scale (bid_top2's tolerance above)."""
+    v1, j1, v2 = (t.numpy() for t in got)
+    w1, wj, w2 = (np.asarray(w) for w in want)
+    if integer:
+        np.testing.assert_array_equal(v1, w1)
+        np.testing.assert_array_equal(j1, wj.astype(np.int64))
+        np.testing.assert_array_equal(v2, w2)
+        return
+    scale = float(np.abs(w1).max())
+    np.testing.assert_allclose(v1, w1, rtol=1e-5, atol=1e-4 * scale)
+    np.testing.assert_allclose(v2, w2, rtol=1e-5, atol=1e-4 * scale)
+    clear = (w1 - w2) > 1e-4 * scale
+    np.testing.assert_array_equal(j1[clear], wj[clear])
+
+
+def _idx_inputs(seed, n, k, d, integer):
+    x, c, p = _int_inputs(seed, n, k, d)
+    if not integer:
+        rng = np.random.default_rng(seed)
+        x, c, p = (rng.normal(size=a.shape).astype(np.float32)
+                   for a in (x, c, p))
+    return x, c, p
+
+
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("k,d", [(37, 5), (256, 22), (130, 600)])
+def test_bid_top2_idx_in_range_vs_jax(k, d, integer):
+    """In-range indices: against the reference's jnp take and its Pallas
+    kernels (the fused gather kernel at d <= 512, gather + bid_top2
+    above)."""
+    x, c, p = _idx_inputs(k + d, 60, k, d, integer)
+    idx = np.random.default_rng(d).integers(0, 60, size=(48,))
+    jargs = (jnp.asarray(x), jnp.asarray(c), jnp.asarray(p))
+    ji = jnp.asarray(idx.astype(np.int32))
+    wants = [jax_bid_top2(*jargs, idx=ji, force=f) for f in ("ref", "pallas")]
+    for dtype in (torch.int32, torch.int64):
+        got = ops.bid_top2(*_t(x, c, p), idx=torch.from_numpy(idx).to(dtype))
+        for want in wants:
+            _assert_top2(got, want, integer)
+
+
+@pytest.mark.parametrize("integer", [True, False])
+def test_bid_top2_idx_out_of_range_clips_like_pallas(integer):
+    """Out-of-range indices clip to [0, n - 1], as the Pallas kernel does
+    (the reference's jnp path wraps negatives instead: ROADMAP R4)."""
+    x, c, p = _idx_inputs(11, 60, 37, 22, integer)
+    idx = np.array([-1, 59, 60, -100, 3, 10**6, 0, -7] * 5)
+    want = jax_bid_top2(jnp.asarray(x), jnp.asarray(c), jnp.asarray(p),
+                        idx=jnp.asarray(idx.astype(np.int32)), force="pallas")
+    for dtype in (torch.int32, torch.int64):
+        ti = torch.from_numpy(idx).to(dtype)
+        for got in (ops.bid_top2(*_t(x, c, p), idx=ti),
+                    cuda_bid_gather(_t(x)[0], ti, *_t(c, p))):
+            _assert_top2(got, want, integer)
+
+
+def test_bid_top2_gather_equals_bid_top2_of_gathered_rows():
+    x, c, p = _t(*_idx_inputs(12, 30, 9, 6, False))
+    idx = torch.tensor([0, -3, 29, 30, 5, 5])
+    want = bid_top2_ref(x[idx.clamp(0, 29)], c, p)
+    for got in (bid_top2_gather_ref(x, idx, c, p),
+                ops.bid_top2(x, c, p, idx=idx)):
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    with pytest.raises(ValueError):
+        ops.bid_top2(x[None], c, p, idx=idx)
+
+
+def test_entry_point_exports_the_reference_names():
+    """``repro_torch.kernels`` exports the counterpart of every name of
+    ``repro.kernels`` (``ssm_scan`` for ``ssm_scan_pallas``), and all of
+    them run on CPU tensors without a build."""
+    import repro_torch.kernels as K
+    want = [n.replace("ssm_scan_pallas", "ssm_scan")
+            for n in jax_kernels.__all__]
+    assert sorted(K.__all__) == sorted(want)
+    assert all(callable(getattr(K, n)) for n in K.__all__)
+    assert K.bid_top2 is ops.bid_top2 and K.cdist is ops.cdist
+
+
+def test_library_path_hashes_sources_and_headers(tmp_path, monkeypatch):
+    """Editing a header that a source includes moves the library's path, so
+    a stale build is never loaded; so does editing the source itself."""
+    from repro_torch.kernels import _build
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build._CSRC, csrc)
+    monkeypatch.setattr(_build, "_CSRC", csrc)
+    assert '#include "bid_top2.cuh"' in (csrc / "bid_top2.cu").read_text()
+    paths = {name: _build.library_path(name) for name in _build._SYMBOLS}
+    assert len(set(paths.values())) == len(paths)
+    header = csrc / "bid_top2.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    for name in ("bid_top2", "bid_top2_gather"):
+        moved = _build.library_path(name)
+        assert moved != paths[name] and moved.parent == paths[name].parent
+    source = csrc / "cdist.cu"
+    before = _build.library_path("cdist")
+    source.write_text(source.read_text() + "\n// edited\n")
+    assert _build.library_path("cdist") != before
