@@ -10,17 +10,17 @@ git-ignored ``build/``), then runs these phases, one or more lines each:
 2. every kernel against its plain PyTorch version on the card, with its
    time, the plain version's, a PyTorch library call's (a yardstick only)
    and the least time the card could take (``bound_ms``): the solve's
-   ``bid_top2`` and ``gather_rows``, then the kernel entry point's
+   ``bid_top2``, ``gather_rows`` and ``auction_phase`` (every phase of 65
+   LAPs of the main data and a set of edge cases against the Python round
+   loop over ``bid_top2``, bitwise), then the kernel entry point's
    ``cdist``, ``cdist_gather``, ``bid_top2_gather`` and ``ssm_scan`` at the
    shapes phase 5 gives them;
 3. the main path: ``anticluster(x, k=256, chunk_size="auto")`` on the
    paper's *diabetes* shape (n = 253 680, d = 22), which takes the
    ``"stream"`` route with the ``"auction_fused"`` solver.  First the
-   process's first call of that path and a second, identical one on the
-   same first 16 384 rows (the one-time costs), then the full-size call,
-   with the
-   kernels' launch counters zeroed just before it and read just after, then
-   a profile of the first few batches of one chunk;
+   process's first call of that path, then a second, identical one (the
+   main call) with the kernels' launch counters zeroed just before it and
+   read just after, then a profile of the first few batches of one chunk;
 4. the same path at n = 16 384 against the plain kernels;
 5. the kernel entry point ``repro_torch.kernels`` at full size, driven
    once with the launch counters zeroed just before and read just after:
@@ -56,7 +56,8 @@ from repro_torch.core.objective import (balance_ok,  # noqa: E402
                                         objective_centroid)
 from repro_torch.data.synthetic import PRESETS, make  # noqa: E402
 import repro_torch.kernels as K  # noqa: E402
-from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels import auction_phase as phase_kernel  # noqa: E402
 from repro_torch.kernels.bid_top2 import bid_top2 as cuda_bid_top2  # noqa: E402
 from repro_torch.kernels.cdist import cdist as cuda_cdist  # noqa: E402
 from repro_torch.kernels.gather import (  # noqa: E402
@@ -71,13 +72,8 @@ from repro_torch.kernels.ssm_scan import ssm_scan_chunk  # noqa: E402
 # tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
-# Rows of the first/second call pair (two chunks), which are given the
-# chunk and solver that the auto route picks at full size.  Two full-size
-# calls do not fit the script's 1200 s: one took 353-619 s on the H100
-# machines measured (PERF.md).
-PAIR_ROWS = 1 << 14
-PAIR_ARGS = {"chunk_size": 8192, "solver": "auction_fused"}
-PROFILE_BATCHES = 4  # LAPs of the profiled run
+PROFILE_BATCHES = 4  # batches of the profiled run (the first has no LAP)
+CHECK_LAPS = 65  # LAPs of the main data held against the Python loop
 
 
 T_START = time.perf_counter()
@@ -142,11 +138,18 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
 def reset_counts():
     for name in _build.launches:
         _build.launches[name] = 0
-    asg.rounds_executed = 0
+    ref.rounds_executed = 0
+    phase_kernel.reset_totals()
 
 
 def counts() -> dict:
-    return {**_build.launches, "rounds": asg.rounds_executed}
+    """Launches per kernel, and the bidding rounds of the Python loop and
+    of the phase kernel (read from the card) with the kernel's bids and
+    rounds with a single bidder."""
+    kernel = phase_kernel.totals()
+    return {**_build.launches, "rounds": ref.rounds_executed
+            + kernel["rounds"], "bids": kernel["bids"],
+            "single_bidder_rounds": kernel["single_bidder_rounds"]}
 
 
 def check(cond: bool, what: str):
@@ -233,24 +236,212 @@ def check_and_measure_gather(dev) -> dict:
         torch.cuda.synchronize()
         check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
               f"gather_rows differs ({index.dtype})")
-    x32 = torch.randn((n, 32), generator=gen).to(dev)  # the float4 path
-    check(torch.equal(cuda_gather_rows(x32, idx),
-                      gather_rows_ref(x32, idx)), "gather_rows d=32 differs")
+    for dd in (1, 3, 32, 33, 200):  # 4-, 8- and 16-byte words, 1..32 lanes
+        xd = torch.randn((4099, dd), generator=gen).to(dev)
+        shifted = torch.randn((4099 * dd + 1,), generator=gen).to(dev)[1:]
+        for src in (xd, shifted.view(4099, dd)):  # aligned, and 4 bytes off
+            check(torch.equal(cuda_gather_rows(src, idx),
+                              gather_rows_ref(src, idx)),
+                  f"gather_rows d={dd} differs")
     log(f"gather_rows n={n} m={m} d={d} (clipped int64 and int32 indices) "
-        f"and d=32: bitwise equal")
-    ms = time_ms(lambda: cuda_gather_rows(x, idx))
+        f"and d=1/3/32/33/200 from aligned and unaligned rows: bitwise equal")
+    clipped = idx.clamp(0, n - 1)
+    # in turns: kernel, library, library, kernel
+    ms_a = time_ms(lambda: cuda_gather_rows(x, idx))
+    lib_a = time_ms(lambda: torch.index_select(x, 0, clipped))
+    lib_b = time_ms(lambda: torch.index_select(x, 0, clipped))
+    ms_b = time_ms(lambda: cuda_gather_rows(x, idx))
     dms = device_ms(lambda: cuda_gather_rows(x, idx),
                     "gather_rows_kernel")
+    # every kernel the call launches: its name varies with the PyTorch version
+    lib_dms = device_ms(lambda: torch.index_select(x, 0, clipped), "")
     plain = time_ms(lambda: gather_rows_ref(x, idx))
-    clipped = idx.clamp(0, n - 1)
-    lib = time_ms(lambda: torch.index_select(x, 0, clipped))
+    log(f"gather_rows vs index_select, event ms in turns: {ms_a:.4f} / "
+        f"{lib_a:.4f} / {lib_b:.4f} / {ms_b:.4f}; device ms {dms} vs "
+        f"{lib_dms}")
     b, by = bound_ms(2 * 4 * m * d + 8 * m, 0)
     return {"name": "gather_rows", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/gather_rows.cu",
             "replaces": "src/repro/kernels/gather.py:69",
-            "shape": f"n={n} m={m} d={d}", "max_abs_err": 0.0, "ms": ms,
-            "device_ms": dms, "plain_ms": plain, "bound_ms": b,
-            "bound_by": by, "library_ms": lib}
+            "shape": f"n={n} m={m} d={d}", "max_abs_err": 0.0,
+            "ms": min(ms_a, ms_b), "device_ms": dms, "plain_ms": plain,
+            "bound_ms": b, "bound_by": by, "library_ms": min(lib_a, lib_b),
+            "library_device_ms": lib_dms}
+
+
+class PhaseRecorder:
+    """Within the block every ``ops.auction_phase`` call (the factored
+    solver's phases) runs as usual and is recorded: its inputs, outputs and
+    the kernel's rounds and bids (a sync per phase: checks only)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        self.inner = ops.auction_phase
+
+        def recorded(x, c, is_real, prices, eps, max_rounds,
+                     fixed_rounds=0, *, skip=None, seed_top2=None):
+            kw = dict(x=x, c=c, is_real=is_real, prices=prices.clone(),
+                      eps=eps, max_rounds=max_rounds,
+                      fixed_rounds=fixed_rounds, skip=skip,
+                      seed_top2=seed_top2)
+            t0 = phase_kernel.totals()
+            out = self.inner(x, c, is_real, prices, eps, max_rounds,
+                             fixed_rounds, skip=skip, seed_top2=seed_top2)
+            t1 = phase_kernel.totals()
+            self.calls.append({"kw": kw, "out": out,
+                               "rounds": t1["rounds"] - t0["rounds"],
+                               "bids": t1["bids"] - t0["bids"]})
+            return out
+
+        ops.auction_phase = recorded
+        return self
+
+    def __exit__(self, *exc):
+        ops.auction_phase = self.inner
+
+
+def loop_over_bid_top2(x, c, is_real, prices, eps, max_rounds,
+                       fixed_rounds=0, skip=None, seed_top2=None):
+    """The Python round loop over the CUDA bid_top2 kernel: the port's
+    phase before the phase kernel."""
+    return ref.auction_rounds(ref.factored_top2(x, c, is_real, cuda_bid_top2),
+                              prices, eps, max_rounds, fixed_rounds, skip,
+                              seed_top2)
+
+
+def python_loop(kw, check_every=1):
+    """The Python round loop over the CUDA bid_top2 kernel, its predicate
+    tested every ``check_every`` rounds; returns (assign, prices, rounds)."""
+    saved, ref._CHECK_EVERY = ref._CHECK_EVERY, check_every
+    r0 = ref.rounds_executed
+    try:
+        a, p = loop_over_bid_top2(**kw)
+    finally:
+        ref._CHECK_EVERY = saved
+    return a, p, ref.rounds_executed - r0
+
+
+def check_phase_calls(calls, what) -> int:
+    """Each recorded kernel phase against the every-round Python loop:
+    assignments, prices and rounds equal.  Returns the phases checked."""
+    for i, call in enumerate(calls):
+        a, p, rounds = python_loop(call["kw"])
+        got_a, got_p = call["out"]
+        check(torch.equal(got_a, a) and torch.equal(got_p, p),
+              f"auction_phase differs from the Python loop: {what}, phase {i}")
+        check(call["rounds"] == rounds, f"auction_phase ran {call['rounds']} "
+              f"rounds, the Python loop {rounds}: {what}, phase {i}")
+    return len(calls)
+
+
+def check_auction_phase(dev) -> list:
+    """The phase kernel against the Python loop over the bid_top2 kernel,
+    bitwise: every phase of the first CHECK_LAPS LAPs of the main data (the
+    last with 16 dummy rows), then a G = 3 warm stack with skip and
+    seed_top2, fixed_rounds, a max_rounds cap that bites, and n = 512 with
+    d = 200 (x and c in device memory).  Returns the main data's phases."""
+    n, d, _ = PRESETS["diabetes"]
+    k = 256
+    rows = (CHECK_LAPS + 1) * k - 16
+    x = torch.from_numpy(make("mixture", n, d, seed=0)[:rows]).to(dev)
+    with PhaseRecorder() as rec:
+        aba_stream(x, k, 8192, solver="auction_fused", device=dev)
+    check(len(rec.calls) == 4 * CHECK_LAPS, f"{len(rec.calls)} phases")
+    check_phase_calls(rec.calls, "main data")
+    laps = rec.calls
+    log(f"auction_phase: {len(laps)} phases of the first {CHECK_LAPS} LAPs "
+        f"of the main data (n={k} d={d}, the last LAP with 16 dummy rows): "
+        f"assignments and prices bitwise equal to the every-round Python "
+        f"loop over bid_top2, rounds equal")
+
+    def lap(i, p):
+        return laps[4 * i + p]["kw"]
+    last = CHECK_LAPS - 1
+    xs = torch.stack([lap(i, 0)["x"][0] for i in (0, 1, last)])
+    cs = torch.stack([lap(i, 0)["c"][0] for i in (0, 1, last)])
+    real = torch.ones((3, k), dtype=torch.bool, device=dev)
+    real[2] = lap(last, 0)["is_real"][0]
+    warm = torch.stack([laps[4 * i + 3]["out"][1][0] for i in (0, 1, last)])
+    cfgs = {
+        "G=3 warm, skip, seed": asg.AuctionConfig(),
+        "G=3 fixed_rounds=60": asg.AuctionConfig(fixed_rounds=60),
+        "G=3 max_rounds=5": asg.AuctionConfig(max_rounds=5),
+    }
+    checked = 0
+    for what, cfg in cfgs.items():
+        with PhaseRecorder() as rec:
+            asg.auction_solve_factored(
+                xs, cs, is_real=real, config=cfg, device=dev,
+                prices=warm if "warm" in what else None)
+        if "warm" in what:
+            skips = [c["kw"]["skip"] for c in rec.calls]
+            check(any(s is not None and bool(s.any()) for s in skips)
+                  and rec.calls[0]["kw"]["seed_top2"] is not None,
+                  "the warm stack skipped no phase")
+        checked += check_phase_calls(rec.calls, what)
+    gen = torch.Generator().manual_seed(7)
+    xw = torch.randn((1, 512, 200), generator=gen).to(dev)
+    cw = torch.randn((1, 512, 200), generator=gen).to(dev)
+    with PhaseRecorder() as rec:
+        asg.auction_solve_factored(xw, cw, device=dev)
+    checked += check_phase_calls(rec.calls, "n=512 d=200")
+    # n = 8192: the per-row state lives in device memory too; the first
+    # phase, to its end and cut by a cap
+    xb = torch.randn((1, 8192, 5), generator=gen).to(dev)
+    cb = torch.randn((1, 8192, 5), generator=gen).to(dev)
+    eps = torch.full((1,), 2.0, device=dev)
+    big = []
+    for cap in (50 * 8192 + 1000, 40):
+        with PhaseRecorder() as rec:
+            ops.auction_phase(xb, cb, None, torch.zeros((1, 8192), device=dev),
+                              eps, cap)
+        checked += check_phase_calls(rec.calls, f"n=8192 max_rounds={cap}")
+        big.append(rec.calls[0]["rounds"])
+    log(f"auction_phase: {checked} more phases bitwise equal with equal "
+        f"rounds: {', '.join(cfgs)}, n=512 d=200, n=8192 d=5 (state in "
+        f"device memory; {big[0]} rounds to the end, cut at {big[1]})")
+    return laps
+
+
+def measure_auction_phase(dev, laps) -> dict:
+    """One LAP of the main data (its four phases) by the kernel and by the
+    Python loop over bid_top2 as the parent ran it (predicate every
+    _CHECK_EVERY rounds); the bound from the LAP's counted bids."""
+    lap = laps[4:8]  # the second LAP
+    x = lap[0]["kw"]["x"]
+    _, n, d = x.shape
+
+    def kernel():
+        for call in lap:
+            phase_kernel.auction_phase(**call["kw"])
+
+    def loop():
+        for call in lap:
+            loop_over_bid_top2(**call["kw"])
+
+    ms = time_ms(kernel)
+    dms = device_ms(kernel, "auction_phase_kernel")
+    plain = time_ms(loop, reps=3, warmup=1)
+    bids = sum(c["bids"] for c in lap)
+    rounds = sum(c["rounds"] for c in lap)
+    # per phase: x, c, prices and eps in; assignment (int64), prices out
+    n_bytes = 4 * (4 * (2 * n * d + n + 1) + 12 * n)
+    n_ops = bids * n * 2 * d + 4 * n * 2 * d
+    b, by = bound_ms(n_bytes, n_ops)
+    log(f"auction_phase one LAP (4 phases, {rounds} rounds, {bids} bids): "
+        f"kernel {ms:.4f} ms (device {dms} ms), Python loop over bid_top2 "
+        f"{plain:.2f} ms, bound {b:.6f} ms ({by})")
+    return {"name": "auction_phase", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/auction_phase.cu",
+            "replaces": "src/repro/core/assignment.py:115 (the lax.while_loop "
+                        "of _auction_phase; no pallas_call)",
+            "shape": f"one LAP: 4 phases, G=1 n={n} d={d}, {rounds} rounds, "
+                     f"{bids} bids",
+            "max_abs_err": 0.0, "ms": ms, "device_ms": dms,
+            "plain_ms": plain, "bound_ms": b, "bound_by": by,
+            "library_ms": None}
 
 
 # ---------------------------------------------------------------------------
@@ -259,9 +450,10 @@ def check_and_measure_gather(dev) -> dict:
 
 def profile_batches(x, k):
     """The first PROFILE_BATCHES batches of the main path's data, streamed
-    as one chunk: device time in bid_top2, in every other kernel, and the
-    host gaps between them, all from one profiled run; the wall time of the
-    same run without the profiler is printed beside them."""
+    as one chunk: device time in the phase kernel, in bid_top2, in every
+    other kernel, and the host gaps between them, all from one profiled
+    run; the wall time of the same run without the profiler is printed
+    beside them."""
     from torch.profiler import ProfilerActivity, profile
     xs = x[:PROFILE_BATCHES * k]
 
@@ -279,6 +471,8 @@ def profile_batches(x, k):
                              ProfilerActivity.CUDA]) as prof:
         wall_ms = run()
     kernels = [e for e in prof.key_averages() if _is_kernel(e)]
+    phase_us = sum(_self_device_us(e) for e in kernels
+                   if "auction_phase" in e.key)
     bid_us = sum(_self_device_us(e) for e in kernels if "bid_top2" in e.key)
     all_us = sum(_self_device_us(e) for e in kernels)
     n_kernels = sum(e.count for e in kernels)
@@ -290,11 +484,15 @@ def profile_batches(x, k):
             "not measured")
         return None
     split = {"rows": xs.shape[0], "rounds": rounds, "wall_ms": wall_ms,
+             "auction_phase_device_ms": phase_us / 1e3,
              "bid_top2_device_ms": bid_us / 1e3,
-             "other_device_ms": (all_us - bid_us) / 1e3,
+             "other_device_ms": (all_us - phase_us - bid_us) / 1e3,
+             "phase_kernel_share": phase_us / all_us,
              "host_gap_ms": wall_ms - all_us / 1e3,
              "idle_share": 1.0 - all_us / 1e3 / wall_ms,
              "kernel_launches": n_kernels,
+             "launches_per_round": n_kernels / rounds,
+             "launches_per_lap": n_kernels / (PROFILE_BATCHES - 1),
              "unprofiled_wall_ms": unprofiled_ms}
     log("profile split (one profiled run; wall, device time and gaps all "
         "from it): " + json.dumps(split))
@@ -314,35 +512,31 @@ def timed_call(x, k, dev, **kw):
     used = counts()
     check(res.route == "stream", f"route {res.route}, expected stream")
     check(res.solver == "auction_fused", f"solver {res.solver}")
-    check(used["bid_top2"] > 0 and used["gather_rows"] > 0,
+    check(all(used[name] > 0 for name in
+              ("bid_top2", "gather_rows", "auction_phase")),
           f"kernels not launched on the main path: {used}")
     return res, seconds, used
 
 
-def main_path(dev, n: int) -> dict:
+def main_path(dev, n: int, card: str) -> dict:
     d, k = PRESETS["diabetes"][1], 256
     if n != PRESETS["diabetes"][0]:
         log(f"main path rows cut from {PRESETS['diabetes'][0]} to {n} "
             f"(--n; d={d} and k={k} kept)")
     x = torch.from_numpy(make("mixture", n, d, seed=0)).to(dev)
 
-    # The one-time costs: the process's first call of the path, then a
-    # second one on the same rows.
-    n2 = min(n, PAIR_ROWS)
-    pair, labels = [], []
-    for which in ("first", "second"):
-        res2, secs, used2 = timed_call(x[:n2], k, dev, **PAIR_ARGS)
-        check(res2.balanced, f"{which} call unbalanced")
-        labels.append(res2.labels)
-        pair.append({"s": secs, "rounds": used2["rounds"],
-                     "us_per_round": secs / used2["rounds"] * 1e6})
-        log(f"{which} call n={n2}: {secs:.3f} s, {used2['rounds']} rounds "
-            f"({pair[-1]['us_per_round']:.1f} us per round)")
-    check(torch.equal(labels[0], labels[1])
-          and pair[0]["rounds"] == pair[1]["rounds"],
-          "the second call gave other labels or rounds than the first")
-
+    # The one-time costs: the process's first call of the path, then the
+    # main call, identical, with the counters zeroed just before it.
+    first, first_s, first_used = timed_call(x, k, dev)
+    log(f"first call n={n}: {first_s:.3f} s, {first_used['rounds']} rounds")
     res, main_s, used = timed_call(x, k, dev)
+    check(torch.equal(first.labels, res.labels)
+          and first_used["rounds"] == used["rounds"],
+          "the second call gave other labels or rounds than the first")
+    laps = -(-n // k) - 1  # every batch after the first, each solved cold
+    check(used["bid_top2"] == 2 * laps and used["auction_phase"] == 4 * laps,
+          f"expected {2 * laps} bid_top2 and {4 * laps} auction_phase "
+          f"launches for {laps} LAPs: {used}")
     sizes = res.cluster_sizes.cpu().numpy()
     check(sizes.sum() == n and sizes.min() == n // k
           and sizes.max() == -(-n // k), f"unbalanced sizes {sizes.min()}"
@@ -353,17 +547,27 @@ def main_path(dev, n: int) -> dict:
     rand = np.random.default_rng(0).permutation(np.arange(n) % k)
     ofv_rand = float(objective_centroid(x, torch.from_numpy(rand).to(dev), k))
     check(ofv > ofv_rand, f"objective {ofv} not above random {ofv_rand}")
-    log(f"main path n={n} d={d} k={k}: route={res.route} "
-        f"solver={res.solver} {main_s:.3f} s; launches "
-        f"bid_top2={used['bid_top2']} gather_rows={used['gather_rows']}; "
-        f"bidding rounds {used['rounds']} ({used['rounds'] / n:.2f} per "
-        f"row, {main_s / used['rounds'] * 1e6:.1f} us per round); sizes "
-        f"{sizes.min()}..{sizes.max()}; ofv {ofv:.6e} > random "
-        f"{ofv_rand:.6e}; gap {gap:.6e}")
+    rounds = used["rounds"]
+    launched = sum(used[name] for name in _build.launches)
+    log(f"main path n={n} d={d} k={k} on {card}: route={res.route} "
+        f"solver={res.solver} {main_s:.3f} s (first call {first_s:.3f} s); "
+        f"launches bid_top2={used['bid_top2']} "
+        f"auction_phase={used['auction_phase']} "
+        f"gather_rows={used['gather_rows']} ({launched / rounds:.5f} of the "
+        f"port's kernels per round); bidding rounds {rounds} "
+        f"({rounds / n:.2f} per row, {main_s / rounds * 1e6:.3f} us per "
+        f"round), bids {used['bids']}, rounds with a single bidder "
+        f"{used['single_bidder_rounds']} "
+        f"({used['single_bidder_rounds'] / rounds:.4f}); sizes {sizes.min()}..{sizes.max()}; "
+        f"ofv {ofv:.6e} > random {ofv_rand:.6e}; gap {gap:.6e}")
     split = profile_batches(x, k)
-    return {"n": n, "main_s": main_s,
-            "main_us_per_round": main_s / used["rounds"] * 1e6,
-            "pair_n": n2, "first_call": pair[0], "second_call": pair[1],
+    if split:  # every kernel, the port's and PyTorch's, from the profile
+        log(f"all kernel launches per round on the main call, from the "
+            f"profile's {split['launches_per_lap']:.1f} per LAP: "
+            f"{split['launches_per_lap'] * laps / rounds:.4f}")
+    return {"n": n, "main_s": main_s, "first_s": first_s,
+            "main_us_per_round": main_s / rounds * 1e6,
+            "port_launches_per_round": launched / rounds,
             "launches": used, "ofv": ofv, "ofv_random": ofv_rand, "gap": gap,
             "profile": split}
 
@@ -381,7 +585,7 @@ def against_plain(dev):
     with ops.forced_path("ref"):
         plain = anticluster(x, **kw)
         inside = counts()
-    check(inside["bid_top2"] == 0 and inside["gather_rows"] == 0,
+    check(not any(inside[name] for name in _build.launches),
           f"kernels launched under the forced plain path: {inside}")
     for r in (res, plain):
         check(balance_ok(r.labels.cpu(), k), "unbalanced")
@@ -668,13 +872,16 @@ def main():
     phase("phase 2: kernels against their plain versions")
     err = check_bid_top2(dev)
     solve_rows = [measure_bid_top2(dev, err), check_and_measure_gather(dev)]
+    laps = check_auction_phase(dev)
+    solve_rows.append(measure_auction_phase(dev, laps))
+    del laps
     errs = check_entry_kernels(dev, torch.Generator().manual_seed(4))
     entry_rows = measure_entry_kernels(dev, errs)
     rows = solve_rows + entry_rows
     log_rows(rows)
 
     phase("phase 3: the main path")
-    main_run = main_path(dev, args.n)
+    main_run = main_path(dev, args.n, smi)
     for r in solve_rows:
         r["launches"] = main_run["launches"][r["name"]]
         r["launches_in"] = "phase 3: the anticluster main path"

@@ -9,7 +9,7 @@ gives labels bit-identical to ``aba_core(x[None])[0]``.
 
 The scans are Python loops.  The streaming core pulls each chunk's rows
 through the ``gather_rows`` kernel, and with the ``"auction_fused"`` solver
-every bidding round is one ``bid_top2`` kernel launch.
+every epsilon phase of a LAP is one ``auction_phase`` kernel launch.
 
 Not ported yet (ROADMAP Queue 1 item 3): ``categories`` / ``fair_codes``
 (Section 4.3), ``valid_mask`` and solver telemetry; they raise.
@@ -75,7 +75,7 @@ def _assign_batch(solver_obj, fused: bool, config, cents, counts, xb,
     ``(cents, counts, assign, prices)``; the assignment is int64.
     """
     if fused:
-        # matrix-free: each auction round is one bid_top2 launch
+        # matrix-free: each auction phase is one auction_phase launch
         assign, p_out = solver_obj.factored(xb, cents, is_real=is_real,
                                             config=config, prices=prices)
     else:

@@ -3,18 +3,21 @@
 Counterpart of ``repro/core/assignment.py``: the batched forward auction
 with epsilon scaling, its dense form (``auction_solve``, the top-2 of an
 explicit ``(B, n, n)`` cost stack) and its matrix-free form
-(``auction_solve_factored``, whose every bidding round is one
-``bid_top2`` kernel launch on ``cost = -2 x.c^T + ||c||^2``), and the solver
-registry holding ``"auction"`` and ``"auction_fused"``.  All solvers
-MAXIMIZE total cost.
+(``auction_solve_factored`` on ``cost = -2 x.c^T + ||c||^2``, whose every
+epsilon phase is one launch of the ``auction_phase`` kernel on the card),
+and the solver registry holding ``"auction"`` and ``"auction_fused"``.  All
+solvers MAXIMIZE total cost.
 
 Differences from the JAX engine, none of which changes a result:
 
-* The phase loop is a Python loop.  Its predicate ("some row is still
+* The plain phase loop is a Python loop, ``kernels.ref.auction_rounds``
+  (the dense solver's, and the factored solver's on the CPU and under
+  ``ops.forced_path("ref")``).  Its predicate ("some row is still
   unassigned") is a device-to-host read, so it is tested only every
-  ``_CHECK_EVERY`` rounds.  A converged state is a fixed point of the round
-  (no unassigned row, no bid, no update), so the extra rounds change
-  nothing, and the ``max_rounds`` cap is still honoured exactly.
+  ``kernels.ref._CHECK_EVERY`` rounds.  A converged state is a
+  fixed point of the round (no unassigned row, no bid, no update), so the
+  extra rounds change nothing, and the ``max_rounds`` cap is still honoured
+  exactly.  The phase kernel tests it every round, as JAX does.
 * The epsilon schedule is computed per instance on the host from the span,
   so an instance's schedule, and with it its whole solve, does not depend
   on how many instances share the stack: a stacked solve equals the same
@@ -26,13 +29,16 @@ Differences from the JAX engine, none of which changes a result:
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Callable, NamedTuple
 
 import torch
 
 from repro_torch._device import DTYPE, as_float, resolve_device
+from repro_torch.kernels import ops
 from repro_torch.kernels.ops import bid_top2
+from repro_torch.kernels.ref import auction_rounds, factored_top2
 from repro_torch.kernels.ref import top2 as _top2_batched
 
 _NEG = -1e30  # sentinel "minus infinity" that survives f32 arithmetic
@@ -41,14 +47,6 @@ _NEG = -1e30  # sentinel "minus infinity" that survives f32 arithmetic
 # beyond this multiple of a phase's eps re-enter the schedule there.
 _REENTRY_SLACK = 32.0
 
-# Bidding rounds between two tests of the phase predicate.  Each test is a
-# device-to-host read that drains the launch queue; a phase runs tens to
-# hundreds of rounds.  Chosen on the H100 by timing R = 1, 8, 16, 32 in
-# turns on one streaming chunk (PERF.md): R = 8 was fastest, 16 % under
-# R = 1, with 2 % more rounds, the no-op ones.
-_CHECK_EVERY = 8
-
-rounds_executed = 0  # bidding rounds run in this process, no-op rounds too
 
 
 class AuctionConfig(NamedTuple):
@@ -70,71 +68,6 @@ class AuctionConfig(NamedTuple):
     adaptive_reentry: bool = True
 
 
-def _auction_phase(top2_fn, prices, eps, max_rounds: int,
-                   fixed_rounds: int = 0, skip=None, seed_top2=None):
-    """One epsilon phase of batched Jacobi forward auction (maximization).
-
-    ``top2_fn(prices)`` returns the per-row ``(v1, j1, v2)`` of
-    ``cost - prices``, each (B, n).  ``prices`` / ``eps`` are (B, n) / (B,).
-    Every row starts unassigned, except in instances marked by ``skip``
-    ((B,) bool), whose rows start on the identity and so never bid.
-    ``seed_top2`` is the first round's reduction, already computed by the
-    caller at the incoming prices.  Returns ``(row_to_col, prices)``.
-    """
-    global rounds_executed
-    B, n = prices.shape
-    dev = prices.device
-    rows = torch.arange(n, device=dev).expand(B, n)
-    # Column n of these buffers is a dump slot: a scatter to it is the JAX
-    # ``mode="drop"``, and an unassigned row (-1) reads it as "no object".
-    assign_ext = torch.full((B, n + 1), -1, dtype=torch.int64, device=dev)
-    assign = assign_ext[:, :n]
-    if skip is not None:
-        assign.copy_(torch.where(skip[:, None], rows, -1))
-    eps = eps[:, None]
-
-    # The round below is the JAX round with fewer launches (this loop is
-    # launch-bound) and the same results: rows that hold an object bid
-    # -inf, below the NEG floor of every object's best bid, so they are
-    # never the best bidder; and the lost-object test reads got_bid through
-    # the dump column, which is False.
-    def body(prices, top2):
-        v1, j1, v2 = top2
-        # Bid: raise the favourite object's price past the runner-up by eps.
-        bids = v1 + prices.gather(1, j1) - v2 + eps
-        bid_val = bids.masked_fill_(assign >= 0, -math.inf)
-        # Per-object best bid, and the lowest row that made it.
-        best = prices.new_full((B, n), _NEG).scatter_reduce_(
-            1, j1, bid_val, "amax", include_self=True)
-        cand = torch.where(bid_val >= best.gather(1, j1), rows, n)
-        winner = torch.full((B, n + 1), n, dtype=torch.int64,
-                            device=dev).scatter_reduce_(
-            1, j1, cand, "amin", include_self=True)
-        got_bid = winner < n  # (B, n + 1); the dump column is False
-        # A row whose object got a bid loses it.  (It did not bid, so it
-        # cannot be the winner.)
-        assign.masked_fill_(got_bid.gather(1, assign.remainder(n + 1)), -1)
-        winner = winner[:, :n]
-        assign_ext.scatter_(1, winner, rows)  # winners take their objects
-        return torch.where(got_bid[:, :n], best, prices)
-
-    it = 0
-    if seed_top2 is not None:
-        prices = body(prices, seed_top2)
-        it = 1
-    if fixed_rounds:
-        for _ in range(max(fixed_rounds - it, 0)):
-            prices = body(prices, top2_fn(prices))
-        rounds_executed += fixed_rounds
-        return assign, prices
-    while it < max_rounds and bool((assign < 0).any()):
-        for _ in range(min(_CHECK_EVERY, max_rounds - it)):
-            prices = body(prices, top2_fn(prices))
-            it += 1
-    rounds_executed += it
-    return assign, prices
-
-
 def _eps_schedule(span: torch.Tensor, n: int, config: AuctionConfig):
     """(B,) span -> (n_phases, B) geometric epsilon schedule.
 
@@ -154,9 +87,13 @@ def _eps_schedule(span: torch.Tensor, n: int, config: AuctionConfig):
     return torch.tensor(sched, dtype=DTYPE).T.contiguous().to(span.device)
 
 
-def _run_phases(top2_fn, eps_sched, n: int, config: AuctionConfig,
+def _run_phases(phase_fn, top2_fn, eps_sched, n: int, config: AuctionConfig,
                 prices0=None):
     """Run the eps-scaling schedule; returns (assignment, final prices).
+
+    ``phase_fn(prices, eps, max_rounds, fixed_rounds, skip, seed_top2)`` runs
+    one phase (``kernels.ref.auction_rounds`` over ``top2_fn``, or the
+    factored solver's dispatcher); ``top2_fn`` is the warm start's probe.
 
     ``prices0`` ((B, n)) warm-starts the solve.  An instance whose incoming
     prices are all zero runs the full ramp, exactly as ``prices0=None``.  An
@@ -173,8 +110,8 @@ def _run_phases(top2_fn, eps_sched, n: int, config: AuctionConfig,
     if prices0 is None:
         prices = eps_sched.new_zeros((B, n))
         for p in range(n_phases):
-            assign, prices = _auction_phase(top2_fn, prices, eps_sched[p],
-                                            max_rounds, config.fixed_rounds)
+            assign, prices = phase_fn(prices, eps_sched[p], max_rounds,
+                                      config.fixed_rounds)
         return _repair_permutation(assign), prices
 
     prices = prices0.to(DTYPE)
@@ -194,8 +131,8 @@ def _run_phases(top2_fn, eps_sched, n: int, config: AuctionConfig,
     for p in range(n_phases):
         last = p == n_phases - 1
         skip = None if last else is_warm & (eps_sched[p] > reentry)
-        assign, prices = _auction_phase(
-            top2_fn, prices, eps_sched[p], max_rounds, config.fixed_rounds,
+        assign, prices = phase_fn(
+            prices, eps_sched[p], max_rounds, config.fixed_rounds,
             skip=skip, seed_top2=probe if p == 0 else None)
     return _repair_permutation(assign), prices
 
@@ -222,8 +159,8 @@ def _solve_dense(cost, config: AuctionConfig, prices=None):
     def top2_fn(p):
         return _top2_batched(cost - p[:, None, :])
 
-    return _run_phases(top2_fn, _eps_schedule(span, n, config), n, config,
-                       prices)
+    return _run_phases(functools.partial(auction_rounds, top2_fn), top2_fn,
+                       _eps_schedule(span, n, config), n, config, prices)
 
 
 def _solve_factored(x, c, is_real, config: AuctionConfig, prices=None):
@@ -253,19 +190,11 @@ def _solve_factored(x, c, is_real, config: AuctionConfig, prices=None):
         hi = torch.where(any_dummy, hi.clamp(min=0.0), hi)
         lo = torch.where(any_dummy, lo.clamp(max=0.0), lo)
     span = (hi - lo).clamp(min=1e-6)
-
-    def top2_fn(p):
-        v1, j1, v2 = bid_top2(x, c, p)
-        if is_real is not None:
-            # dummy rows all see value -p: one (G,) top-2 per group
-            dv1, dj1, dv2 = _top2_batched(-p)
-            v1 = torch.where(is_real, v1, dv1[:, None])
-            j1 = torch.where(is_real, j1, dj1[:, None])
-            v2 = torch.where(is_real, v2, dv2[:, None])
-        return v1, j1, v2
-
-    return _run_phases(top2_fn, _eps_schedule(span, n, config), n, config,
-                       prices)
+    # every phase is one dispatch: the phase kernel on the card, the Python
+    # loop on the CPU
+    phase_fn = functools.partial(ops.auction_phase, x, c, is_real)
+    return _run_phases(phase_fn, factored_top2(x, c, is_real, bid_top2),
+                       _eps_schedule(span, n, config), n, config, prices)
 
 
 def auction_solve(cost, config: AuctionConfig = AuctionConfig(), *,
@@ -300,10 +229,10 @@ def auction_solve_factored(x, c, *, is_real=None,
     """Matrix-free auction on ``cost[i, j] = -2 x_i . c_j + ||c_j||^2``.
 
     Takes a single ``(n, d) x (n, d)`` problem or a stacked
-    ``(G, n, d) x (G, n, d)`` batch; every bidding round is one ``bid_top2``
-    launch, so the (n, n) value matrix is never built.  ``is_real`` marks
-    real rows (dummy rows cost 0).  Returns ``row_to_col`` int32, plus the
-    final prices with ``return_prices``.
+    ``(G, n, d) x (G, n, d)`` batch; on the card every epsilon phase is one
+    ``auction_phase`` launch, so the (n, n) value matrix is never built.
+    ``is_real`` marks real rows (dummy rows cost 0).  Returns ``row_to_col``
+    int32, plus the final prices with ``return_prices``.
     """
     dev = resolve_device(device)
     x, c = as_float(x, dev), as_float(c, dev)

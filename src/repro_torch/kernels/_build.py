@@ -43,6 +43,8 @@ _SYMBOLS = {
                                           _P)),
     "ssm_scan": ("ssm_scan_f32", (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                   _I, _L, _L, _L, _L, _P)),
+    "auction_phase": ("auction_phase_f32",
+                      (_P,) * 14 + (_I, _I, _I, _I, _I, _P)),
 }
 
 # kernel name -> launches since the count was last zeroed; every wrapper
@@ -132,18 +134,24 @@ def launch(name: str, *args) -> None:
     launches[name] += 1
 
 
-def check_operands(kernel: str, device: torch.device, **tensors) -> None:
-    """Raise ValueError unless every tensor is contiguous, on ``device``
-    (the current CUDA device) and float32, or int32 / int64 for ``idx``."""
-    if device.index != torch.cuda.current_device():
-        raise ValueError(f"{kernel}: tensors on {device} but the current "
-                         f"device is cuda:{torch.cuda.current_device()}")
+# operand name -> the types a kernel takes for it (float32 where not named)
+_FLOAT32 = (torch.float32,)
+_OPERAND_TYPES = {"idx": (torch.int32, torch.int64), "j1": (torch.int64,),
+                  "is_real": (torch.bool,), "skip": (torch.bool,)}
+
+
+def check_operands(kernel: str, **tensors) -> int:
+    """Raise ValueError unless every tensor is contiguous, on the current
+    CUDA device and of its type (float32, or as ``_OPERAND_TYPES`` names
+    it); return the current stream's handle.  One pass, reading the current
+    device once: this runs on every launch."""
+    current = torch.cuda.current_device()
     for name, t in tensors.items():
-        types = ((torch.int32, torch.int64) if name == "idx"
-                 else (torch.float32,))
+        types = _OPERAND_TYPES.get(name, _FLOAT32)
         if t.dtype not in types or not t.is_contiguous():
             raise ValueError(f"{kernel}: {name} must be contiguous "
                              f"{' or '.join(map(str, types))}, got {t.dtype}")
-        if t.device != device:
-            raise ValueError(f"{kernel}: {name} is on {t.device}, expected "
-                             f"{device}")
+        if t.get_device() != current:
+            raise ValueError(f"{kernel}: {name} is on {t.device}, but the "
+                             f"current device is cuda:{current}")
+    return torch._C._cuda_getCurrentRawStream(current)

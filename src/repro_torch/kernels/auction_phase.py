@@ -1,0 +1,118 @@
+"""Wrapper of the CUDA auction-phase kernel ``csrc/auction_phase.cu``.
+
+The kernel runs one whole epsilon phase of the matrix-free auction on the
+card, one CTA per group: the counterpart of the JAX ``lax.while_loop`` in
+``repro/core/assignment.py``'s ``_auction_phase`` over the factored
+reduction.  A CUDA tensor launches the kernel (or raises); a CPU tensor runs
+the plain version, the port's Python round loop
+``repro_torch.kernels.ref.auction_phase_ref``.  Launches are counted in
+``_build.launches["auction_phase"]``; the rounds and bids the kernel ran are
+summed on the card and read by :func:`totals`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import auction_phase_ref
+
+# CUDA device index -> int64 [rounds, bids, ticket, single-bidder rounds]
+_totals: dict[int, torch.Tensor] = {}
+
+
+def auction_phase(x, c, is_real, prices, eps, max_rounds: int,
+                  fixed_rounds: int = 0, skip=None, seed_top2=None):
+    """One epsilon phase of the factored auction on each group of a stack.
+
+    x, c (G, n, d) float32 rows and centroids (cost ``-2 x_i.c_j +
+    ||c_j||^2``, dummy rows 0); ``is_real`` (G, n) bool or None; prices
+    (G, n) float32; eps (G,) float32; ``skip`` (G,) bool or None (rows of
+    those groups start on the identity); ``seed_top2`` (v1, j1, v2), each
+    (G, n), the first round's reduction, or None.  Returns ``(assign (G, n)
+    int64 with -1 for an unassigned row, prices (G, n))``.
+    """
+    G, n, d = _check_shapes(x, c, is_real, prices, eps, skip, seed_top2)
+    if not x.is_cuda:
+        return auction_phase_ref(x, c, is_real, prices, eps, max_rounds,
+                                 fixed_rounds, skip, seed_top2)
+    if G > 2**31 - 1 or not 0 <= max_rounds < 2**31 \
+            or not 0 <= fixed_rounds < 2**31:
+        raise ValueError("auction_phase: G, max_rounds and fixed_rounds "
+                         "must fit int32")
+    seed = {} if seed_top2 is None else dict(zip(("v1", "j1", "v2"),
+                                                 seed_top2))
+    stream = _build.check_operands(
+        "auction_phase", x=x, c=c, prices=prices, eps=eps,
+        **({} if is_real is None else {"is_real": is_real}),
+        **({} if skip is None else {"skip": skip}), **seed)
+    dev = x.device
+    assign = torch.empty((G, n), dtype=torch.int64, device=dev)
+    p_out = torch.empty((G, n), dtype=torch.float32, device=dev)
+    rounds = torch.empty((G,), dtype=torch.int64, device=dev)
+    # what does not fit in shared memory (the kernel decides): the per-row
+    # state, 10 words a row, and c feature-major, (d, n | 1)
+    scratch = torch.empty(G * (10 * n + d * (n | 1)), dtype=torch.float32,
+                          device=dev)
+    counters = _totals.get(dev.index)
+    if counters is None:
+        counters = _totals[dev.index] = torch.zeros(4, dtype=torch.int64,
+                                                    device=dev)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    _build.launch("auction_phase", x.data_ptr(), c.data_ptr(), ptr(is_real),
+                  prices.data_ptr(), eps.data_ptr(), ptr(skip),
+                  ptr(seed.get("v1")), ptr(seed.get("j1")),
+                  ptr(seed.get("v2")), assign.data_ptr(), p_out.data_ptr(),
+                  rounds.data_ptr(), counters.data_ptr(), scratch.data_ptr(),
+                  G, n, d, max_rounds, fixed_rounds, stream)
+    return assign, p_out
+
+
+def _check_shapes(x, c, is_real, prices, eps, skip, seed_top2):
+    if x.dim() != 3 or c.shape != x.shape:
+        raise ValueError(f"auction_phase takes (G, n, d) rows and centroids "
+                         f"of one shape; got {tuple(x.shape)}, "
+                         f"{tuple(c.shape)}")
+    G, n, d = x.shape
+    if n < 1 or d < 1:
+        raise ValueError(f"auction_phase: empty problem {tuple(x.shape)}")
+    want = {"prices": (prices, (G, n), torch.float32),
+            "eps": (eps, (G,), torch.float32),
+            "is_real": (is_real, (G, n), torch.bool),
+            "skip": (skip, (G,), torch.bool)}
+    if seed_top2 is not None:
+        if len(seed_top2) != 3:
+            raise ValueError("auction_phase: seed_top2 is (v1, j1, v2)")
+        for name, t, dtype in zip(("v1", "j1", "v2"), seed_top2,
+                                  (torch.float32, torch.int64,
+                                   torch.float32)):
+            want[name] = (t, (G, n), dtype)
+    for name, (t, shape, dtype) in want.items():
+        if t is not None and (tuple(t.shape) != shape or t.dtype != dtype):
+            raise ValueError(f"auction_phase: {name} must be {dtype} of "
+                             f"shape {shape}, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+    return G, n, d
+
+
+def totals() -> dict:
+    """Rounds, bids and rounds with a single bidder that the kernel ran since
+    :func:`reset_totals`, summed over devices (a read from the card).  A
+    launch on a stack adds its longest group's rounds, as the Python loop
+    over the stack counts them, and every group's bids and single-bidder
+    rounds."""
+    out = {"rounds": 0, "bids": 0, "single_bidder_rounds": 0}
+    for t in _totals.values():
+        r, b, _, s = t.tolist()
+        out["rounds"] += r
+        out["bids"] += b
+        out["single_bidder_rounds"] += s
+    return out
+
+
+def reset_totals() -> None:
+    for t in _totals.values():
+        t.zero_()

@@ -41,11 +41,12 @@ def _launch(x, c, prices):
                          f"c {tuple(c.shape)}, prices {tuple(prices.shape)}")
     if G > 65535:
         raise ValueError(f"bid_top2 takes at most 65535 groups, got {G}")
-    _build.check_operands("bid_top2", x.device, x=x, c=c, prices=prices)
+    stream = _build.check_operands("bid_top2", x=x, c=c,
+                                   prices=prices)
     v1, j1, v2 = top2_outputs((G, m), x.device)
     _build.launch("bid_top2", x.data_ptr(), c.data_ptr(), prices.data_ptr(),
                   v1.data_ptr(), j1.data_ptr(), v2.data_ptr(), G, m, k, d,
-                  torch.cuda.current_stream().cuda_stream)
+                  stream)
     return (v1[0], j1[0], v2[0]) if squeeze else (v1, j1, v2)
 
 

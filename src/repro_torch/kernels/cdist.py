@@ -29,8 +29,8 @@ def cdist(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     if n > MAX_CENTROIDS:
         raise ValueError(f"cdist takes at most {MAX_CENTROIDS} centroids, "
                          f"got {n}")
-    _build.check_operands("cdist", x.device, x=x, c=c)
+    stream = _build.check_operands("cdist", x=x, c=c)
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     _build.launch("cdist", x.data_ptr(), c.data_ptr(), out.data_ptr(), m, n, d,
-                  torch.cuda.current_stream().cuda_stream)
+                  stream)
     return out

@@ -7,6 +7,10 @@ the plain version on the card too; it exists so that ``chip_smoke.py`` can
 run the whole path against the plain versions, the counterpart of JAX's
 ``force=``.
 
+``auction_phase`` runs one epsilon phase of the factored auction: the phase
+kernel on the card, the Python round loop ``ref.auction_phase_ref`` (over
+``bid_top2_ref``) on the plain path.
+
 ``cdist`` and ``bid_top2`` take the reference's ``idx=``: the rows are
 ``x[clip(idx, 0, n - 1)]``, read by the fused gather kernels for
 ``d <= _GATHER_FUSE_MAX_D`` and by ``gather_rows`` followed by the unfused
@@ -22,9 +26,11 @@ import contextlib
 import torch
 
 from repro_torch.kernels import gather as _gather
+from repro_torch.kernels.auction_phase import auction_phase as _auction_phase
 from repro_torch.kernels.bid_top2 import bid_top2 as _bid_top2
 from repro_torch.kernels.cdist import cdist as _cdist
-from repro_torch.kernels.ref import bid_top2_ref, cdist_ref, gather_rows_ref
+from repro_torch.kernels.ref import (auction_phase_ref, bid_top2_ref,
+                                     cdist_ref, gather_rows_ref)
 
 _GATHER_FUSE_MAX_D = 512  # the reference's full-row limit of the fused kernels
 
@@ -104,3 +110,15 @@ def bid_top2(x: torch.Tensor, c: torch.Tensor, prices: torch.Tensor, *,
     if resolve_path(x) == "ref":
         return bid_top2_ref(x, c, prices)
     return _bid_top2(x, c, prices)
+
+
+def auction_phase(x: torch.Tensor, c: torch.Tensor, is_real, prices, eps,
+                  max_rounds: int, fixed_rounds: int = 0, *, skip=None,
+                  seed_top2=None):
+    """One epsilon phase of the factored auction on a (G, n, d) stack (see
+    ``kernels.auction_phase.auction_phase``); returns (assign, prices)."""
+    if resolve_path(x) == "ref":
+        return auction_phase_ref(x, c, is_real, prices, eps, max_rounds,
+                                  fixed_rounds, skip, seed_top2)
+    return _auction_phase(x, c, is_real, prices, eps, max_rounds,
+                          fixed_rounds, skip, seed_top2)

@@ -6,13 +6,31 @@ holds each CUDA kernel against them on the card.  Counterparts of
 ``ssm_scan_ref``) and of the takes behind ``repro.kernels.ops``'s
 ``gather_rows`` / ``cdist(idx=)`` / ``bid_top2(idx=)``.  Every gather here
 clips its indices to ``[0, n - 1]``, as the TPU kernels do.
+
+The plain version of the ``auction_phase`` kernel is the auction's Python
+round loop, :func:`auction_rounds` over :func:`factored_top2`; the dense
+solver of ``core.assignment`` runs the same loop over its own reduction.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 _NEG = -1e30  # sentinel "minus infinity" that survives f32 arithmetic
+
+# Bidding rounds between two tests of the phase predicate.  Each test is a
+# device-to-host read that drains the launch queue; a phase runs tens to
+# hundreds of rounds.  Chosen on the H100 by timing R = 1, 8, 16, 32 in
+# turns on one streaming chunk (PERF.md): R = 8 was fastest, 16 % under
+# R = 1, with 2 % more rounds, the no-op ones.
+_CHECK_EVERY = 8
+
+# bidding rounds auction_rounds ran in this process, no-op rounds too; the
+# phase kernel's are summed on the card (kernels.auction_phase.totals)
+rounds_executed = 0
+
 
 
 def top2(values: torch.Tensor):
@@ -101,3 +119,93 @@ def ssm_scan_ref(dt, b_in, c_out, x_in, a_mat):
     y, h = ssm_scan_chunk_ref(*(t.transpose(0, 1) for t in
                                 (dt, b_in, c_out, x_in)), a_mat, h0)
     return y.transpose(0, 1).contiguous(), h
+
+
+def auction_rounds(top2_fn, prices, eps, max_rounds: int,
+                   fixed_rounds: int = 0, skip=None, seed_top2=None):
+    """One epsilon phase of batched Jacobi forward auction (maximization).
+
+    ``top2_fn(prices)`` returns the per-row ``(v1, j1, v2)`` of
+    ``cost - prices``, each (B, n).  ``prices`` / ``eps`` are (B, n) / (B,).
+    Every row starts unassigned, except in instances marked by ``skip``
+    ((B,) bool), whose rows start on the identity and so never bid.
+    ``seed_top2`` is the first round's reduction, already computed by the
+    caller at the incoming prices.  Returns ``(row_to_col, prices)``.
+    """
+    global rounds_executed
+    B, n = prices.shape
+    dev = prices.device
+    rows = torch.arange(n, device=dev).expand(B, n)
+    # Column n of these buffers is a dump slot: a scatter to it is the JAX
+    # ``mode="drop"``, and an unassigned row (-1) reads it as "no object".
+    assign_ext = torch.full((B, n + 1), -1, dtype=torch.int64, device=dev)
+    assign = assign_ext[:, :n]
+    if skip is not None:
+        assign.copy_(torch.where(skip[:, None], rows, -1))
+    eps = eps[:, None]
+
+    # The round below is the JAX round with fewer launches (this loop is
+    # launch-bound) and the same results: rows that hold an object bid
+    # -inf, below the NEG floor of every object's best bid, so they are
+    # never the best bidder; and the lost-object test reads got_bid through
+    # the dump column, which is False.
+    def body(prices, top2):
+        v1, j1, v2 = top2
+        # Bid: raise the favourite object's price past the runner-up by eps.
+        bids = v1 + prices.gather(1, j1) - v2 + eps
+        bid_val = bids.masked_fill_(assign >= 0, -math.inf)
+        # Per-object best bid, and the lowest row that made it.
+        best = prices.new_full((B, n), _NEG).scatter_reduce_(
+            1, j1, bid_val, "amax", include_self=True)
+        cand = torch.where(bid_val >= best.gather(1, j1), rows, n)
+        winner = torch.full((B, n + 1), n, dtype=torch.int64,
+                            device=dev).scatter_reduce_(
+            1, j1, cand, "amin", include_self=True)
+        got_bid = winner < n  # (B, n + 1); the dump column is False
+        # A row whose object got a bid loses it.  (It did not bid, so it
+        # cannot be the winner.)
+        assign.masked_fill_(got_bid.gather(1, assign.remainder(n + 1)), -1)
+        winner = winner[:, :n]
+        assign_ext.scatter_(1, winner, rows)  # winners take their objects
+        return torch.where(got_bid[:, :n], best, prices)
+
+    it = 0
+    if seed_top2 is not None:
+        prices = body(prices, seed_top2)
+        it = 1
+    if fixed_rounds:
+        for _ in range(max(fixed_rounds - it, 0)):
+            prices = body(prices, top2_fn(prices))
+        rounds_executed += fixed_rounds
+        return assign, prices
+    while it < max_rounds and bool((assign < 0).any()):
+        for _ in range(min(_CHECK_EVERY, max_rounds - it)):
+            prices = body(prices, top2_fn(prices))
+            it += 1
+    rounds_executed += it
+    return assign, prices
+
+
+def factored_top2(x, c, is_real, bid_top2=bid_top2_ref):
+    """The factored bidding reduction at prices p: ``bid_top2(x, c, p)`` for
+    the real rows ((G, n) bool ``is_real``, or None), the top-2 of ``-p``
+    for the dummy rows.  ``bid_top2`` is the plain version, or a kernel the
+    loop is to run over."""
+    def top2_fn(p):
+        v1, j1, v2 = bid_top2(x, c, p)
+        if is_real is not None:
+            # dummy rows all see value -p: one (G,) top-2 per group
+            dv1, dj1, dv2 = top2(-p)
+            v1 = torch.where(is_real, v1, dv1[:, None])
+            j1 = torch.where(is_real, j1, dj1[:, None])
+            v2 = torch.where(is_real, v2, dv2[:, None])
+        return v1, j1, v2
+    return top2_fn
+
+
+def auction_phase_ref(x, c, is_real, prices, eps, max_rounds: int,
+                      fixed_rounds: int = 0, skip=None, seed_top2=None):
+    """The plain version of the ``auction_phase`` kernel: the Python round
+    loop over the plain factored reduction (see ``kernels.auction_phase``)."""
+    return auction_rounds(factored_top2(x, c, is_real), prices, eps,
+                          max_rounds, fixed_rounds, skip, seed_top2)

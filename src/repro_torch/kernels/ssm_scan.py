@@ -53,7 +53,7 @@ def _launch(dt, b_in, c_out, x_in, a_mat, h0, time_major):
     operands = dict(dt=dt, b_in=b_in, c_out=c_out, x_in=x_in, a_mat=a_mat)
     if h0 is not None:
         operands["h0"] = h0
-    _build.check_operands("ssm_scan", dt.device, **operands)
+    stream = _build.check_operands("ssm_scan", **operands)
     y = torch.empty_like(dt)
     h = torch.empty((bsz, di, ds), dtype=torch.float32, device=dt.device)
     # (time, batch) strides of dt / x / y and of b / c
@@ -63,6 +63,5 @@ def _launch(dt, b_in, c_out, x_in, a_mat, h0, time_major):
     _build.launch("ssm_scan", dt.data_ptr(), b_in.data_ptr(), c_out.data_ptr(),
                   x_in.data_ptr(), a_mat.data_ptr(),
                   None if h0 is None else h0.data_ptr(), y.data_ptr(),
-                  h.data_ptr(), bsz, s, di, ds, *st, *sb,
-                  torch.cuda.current_stream().cuda_stream)
+                  h.data_ptr(), bsz, s, di, ds, *st, *sb, stream)
     return y, h

@@ -21,9 +21,9 @@ from repro.core.assignment import \
     auction_solve_factored as jax_auction_solve_factored
 
 from repro_torch import state_from_numpy
-from repro_torch.core import assignment as asg
 from repro_torch.core.assignment import (AuctionConfig, auction_solve,
                                          auction_solve_factored)
+from repro_torch.kernels import ref
 
 CPU = "cpu"
 
@@ -152,9 +152,9 @@ def test_checking_every_r_rounds_equals_every_round(monkeypatch, max_rounds):
     cost = rng.normal(size=(3, 18, 18)).astype(np.float32)
     warm = torch.from_numpy(rng.normal(size=(3, 18)).astype(np.float32))
     results = []
-    for r in (1, 7, asg._CHECK_EVERY):
-        monkeypatch.setattr(asg, "_CHECK_EVERY", r)
-        before = asg.rounds_executed
+    for r in (1, 7, ref._CHECK_EVERY):
+        monkeypatch.setattr(ref, "_CHECK_EVERY", r)
+        before = ref.rounds_executed
         out = (auction_solve_factored(x, c, is_real=ir, config=cfg,
                                       return_prices=True, device=CPU),
                auction_solve(cost, config=cfg, return_prices=True,
@@ -163,7 +163,7 @@ def test_checking_every_r_rounds_equals_every_round(monkeypatch, max_rounds):
                              return_prices=True, device=CPU))
         results.append(out)
         if max_rounds:  # 3 solves x 4 phases, each stopped by the cap
-            assert asg.rounds_executed - before <= 3 * 4 * max_rounds
+            assert ref.rounds_executed - before <= 3 * 4 * max_rounds
     for other in results[1:]:
         for (a0, p0), (a1, p1) in zip(results[0], other):
             assert torch.equal(a0, a1) and torch.equal(p0, p1)

@@ -14,7 +14,8 @@ import torch
 from repro_torch.anticluster import anticluster
 from repro_torch.core.objective import balance_ok
 import repro_torch.kernels as K
-from repro_torch.kernels import _build, ops
+from repro_torch.kernels import _build, ops, ref
+from repro_torch.kernels import auction_phase as phase_kernel
 from repro_torch.kernels.bid_top2 import bid_top2 as cuda_bid_top2
 from repro_torch.kernels.cdist import cdist as cuda_cdist
 from repro_torch.kernels.gather import bid_top2_gather as cuda_bid_gather
@@ -66,15 +67,21 @@ def test_cuda_bid_top2_vs_plain(cuda, G, m, k, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [22, 32])
+@pytest.mark.parametrize("d", [1, 3, 22, 32, 33, 200])
 @pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
 def test_cuda_gather_rows_bitwise(cuda, d, idx_dtype):
+    """Bitwise, out-of-range indices clipped, every word width; also from a
+    source whose rows start off the 8- and 16-byte grid (a view)."""
     x = torch.randn(2537, d, device=cuda)
     idx = torch.randint(-50, 2600, (8192,), device=cuda, dtype=idx_dtype)
     n0 = _build.launches["gather_rows"]
     got = cuda_gather_rows(x, idx)
     assert _build.launches["gather_rows"] == n0 + 1
     assert torch.equal(got, gather_rows_ref(x, idx))
+    shifted = torch.randn(2537 * d + 1, device=cuda)[1:].view(2537, d)
+    assert shifted.data_ptr() % 8 == 4
+    assert torch.equal(cuda_gather_rows(shifted, idx),
+                       gather_rows_ref(shifted, idx))
     with pytest.raises(ValueError):
         cuda_gather_rows(x.double(), idx)
 
@@ -86,8 +93,10 @@ def test_cuda_stream_path_launches_kernels_and_matches_plain(cuda):
     kw = dict(k=64, chunk_size=1024, solver="auction_fused", device=cuda)
     n0 = dict(_build.launches)
     res = anticluster(x.to(cuda), **kw)
-    assert (_build.launches["bid_top2"] > n0["bid_top2"]
-            and _build.launches["gather_rows"] > n0["gather_rows"])
+    laps = 4096 // 64 - 1  # every batch after the first, cold: 4 phases
+    assert _build.launches["gather_rows"] > n0["gather_rows"]
+    assert _build.launches["bid_top2"] - n0["bid_top2"] == 2 * laps
+    assert _build.launches["auction_phase"] - n0["auction_phase"] == 4 * laps
     with ops.forced_path("ref"):
         n1 = dict(_build.launches)
         plain = anticluster(x.to(cuda), **kw)
@@ -166,7 +175,8 @@ def test_cuda_wide_rows_take_gather_then_unfused_kernel(cuda):
     bids = K.bid_top2(x, c, p, idx=idx)
     moved = {k: v - n0[k] for k, v in _build.launches.items()}
     assert moved == {"gather_rows": 2, "cdist": 1, "bid_top2": 1,
-                     "cdist_gather": 0, "bid_top2_gather": 0, "ssm_scan": 0}
+                     "cdist_gather": 0, "bid_top2_gather": 0, "ssm_scan": 0,
+                     "auction_phase": 0}
     assert torch.equal(dist, cdist_gather_ref(x, idx, c))
     for g, w in zip(bids, bid_top2_gather_ref(x, idx, c, p)):
         assert torch.equal(g, w)
@@ -200,3 +210,94 @@ def test_cuda_ssm_scan_vs_plain(cuda, bsz, s, di, ds):
     torch.testing.assert_close(h, want_h, rtol=1e-4, atol=1e-4)
     with pytest.raises(ValueError):
         K.ssm_scan(args[0].transpose(0, 1), *args[1:])
+
+
+def _phase_cases(G, n, d, integer, device):
+    """Inputs of one phase on a (G, n, d) stack and the runs to compare:
+    cold; warm prices with ``skip`` on group 0 and the seed reduction;
+    ``fixed_rounds``; a ``max_rounds`` cap that stops the phase early."""
+    gen = torch.Generator().manual_seed(G * n * d + integer)
+    if integer:
+        x = torch.randint(-2, 3, (G, n, d), generator=gen).float()
+        c = torch.randint(-1, 2, (G, n, d), generator=gen).float()
+    else:
+        x = torch.randn((G, n, d), generator=gen)
+        c = torch.randn((G, n, d), generator=gen) * 1.5
+    is_real = torch.ones((G, n), dtype=torch.bool)
+    is_real[-1, n - max(1, n // 4):] = False  # the last group has dummy rows
+    warm = torch.rand((G, n), generator=gen) * d
+    eps = torch.rand((G,), generator=gen) * 0.5 + 0.05
+    x, c, is_real, warm, eps = (t.to(device) for t in (x, c, is_real, warm,
+                                                       eps))
+    zero = torch.zeros_like(warm)
+    skip = torch.zeros((G,), dtype=torch.bool, device=device)
+    skip[0] = G > 1
+    seed = ref.factored_top2(x, c, is_real, cuda_bid_top2)(warm)
+    big = 50 * n + 1000
+    return (x, c, is_real), [
+        dict(prices=zero, eps=eps, max_rounds=big),
+        dict(prices=warm, eps=eps, max_rounds=big, skip=skip,
+             seed_top2=seed),
+        dict(prices=zero, eps=eps, max_rounds=big, fixed_rounds=7),
+        dict(prices=warm, eps=eps, max_rounds=big, fixed_rounds=5,
+             seed_top2=seed),
+        dict(prices=zero, eps=eps, max_rounds=3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,n,d", [(1, 8, 5), (1, 256, 22), (3, 48, 5),
+                                   (1, 512, 200)])
+@pytest.mark.parametrize("integer", [False, True])
+def test_cuda_auction_phase_equals_python_loop(cuda, monkeypatch, G, n, d,
+                                               integer):
+    """The phase kernel against the Python round loop over the bid_top2
+    kernel, tested every round: assignments and prices bitwise, the same
+    rounds.  Integer inputs make value and bid ties common."""
+    (x, c, is_real), runs = _phase_cases(G, n, d, integer, cuda)
+    for kw in runs:
+        _check_phase_kernel(monkeypatch, x, c, is_real, kw)
+
+
+def _check_phase_kernel(monkeypatch, x, c, is_real, kw):
+    """One launch of the phase kernel against the Python round loop over
+    the bid_top2 kernel, its predicate tested every round."""
+    monkeypatch.setattr(ref, "_CHECK_EVERY", 1)
+    t0, r0 = phase_kernel.totals(), ref.rounds_executed
+    got = _counted("auction_phase", phase_kernel.auction_phase, x, c,
+                   is_real, **kw)
+    t1 = phase_kernel.totals()
+    want = ref.auction_rounds(ref.factored_top2(x, c, is_real,
+                                                cuda_bid_top2), **kw)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert t1["rounds"] - t0["rounds"] == ref.rounds_executed - r0
+    assert t1["bids"] > t0["bids"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_rounds", [50 * 8192 + 1000, 40])
+def test_cuda_auction_phase_state_in_device_memory(cuda, monkeypatch,
+                                                   max_rounds):
+    """n = 8192: the per-row state does not fit in shared memory and lives
+    in device memory; one phase to its end, and one cut by the cap."""
+    gen = torch.Generator().manual_seed(8192)
+    x, c = (torch.randn((1, 8192, 5), generator=gen).to(cuda)
+            for _ in range(2))
+    kw = dict(prices=torch.zeros((1, 8192), device=cuda),
+              eps=torch.full((1,), 2.0, device=cuda), max_rounds=max_rounds)
+    _check_phase_kernel(monkeypatch, x, c, None, kw)
+
+
+@pytest.mark.cuda
+def test_cuda_auction_phase_checks_operands(cuda):
+    (x, c, is_real), runs = _phase_cases(1, 8, 5, False, cuda)
+    kw = runs[0]
+    with pytest.raises(ValueError):
+        phase_kernel.auction_phase(x, c, is_real.float(), **kw)
+    with pytest.raises(ValueError):
+        phase_kernel.auction_phase(x.transpose(1, 2).contiguous(), c,
+                                   is_real, **kw)
+    with pytest.raises(ValueError):
+        phase_kernel.auction_phase(x, c, is_real,
+                                   **{**kw, "eps": kw["eps"].double()})
+    with pytest.raises(ValueError):
+        phase_kernel.auction_phase(x[:, :, :4], c[:, :, :4], is_real, **kw)
