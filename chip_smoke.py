@@ -12,7 +12,11 @@ git-ignored ``build/``), then runs these phases, one or more lines each:
    and the least time the card could take (``bound_ms``): the solve's
    ``bid_top2``, ``gather_rows`` and ``auction_phase`` (every phase of 65
    LAPs of the main data and a set of edge cases against the Python round
-   loop over ``bid_top2``, bitwise), then the kernel entry point's
+   loop over ``bid_top2``, bitwise, with the same rounds, bids and
+   single-bidder rounds; then the SM clock cycles of every round of the
+   first 16 LAPs by bidder count, from the kernel's timed instantiation,
+   under its own crossover and with every round sent to each of its two
+   paths), then the kernel entry point's
    ``cdist``, ``cdist_gather``, ``bid_top2_gather`` and ``ssm_scan`` at the
    shapes phase 5 gives them;
 3. the main path: ``anticluster(x, k=256, chunk_size="auto")`` on the
@@ -36,6 +40,7 @@ prints no last line.  Needs one CUDA device; fails without one.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import statistics
@@ -74,6 +79,9 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
 PROFILE_BATCHES = 4  # batches of the profiled run (the first has no LAP)
 CHECK_LAPS = 65  # LAPs of the main data held against the Python loop
+TIMED_LAPS = 16  # LAPs of the main data whose rounds are timed
+# bidder counts of a round, as PERF.md tabulates them
+BUCKETS = (("1", 1, 1), ("2-4", 2, 4), ("5-32", 5, 32), (">32", 33, 1 << 30))
 
 
 T_START = time.perf_counter()
@@ -139,6 +147,7 @@ def reset_counts():
     for name in _build.launches:
         _build.launches[name] = 0
     ref.rounds_executed = 0
+    ref.reset_bid_totals()
     phase_kernel.reset_totals()
 
 
@@ -215,6 +224,9 @@ def measure_bid_top2(dev, err) -> dict:
         return torch.topk(torch.addmm(bias, x, c.T, alpha=-2.0), 2, dim=1)
 
     lib = time_ms(library)
+    # every kernel the yardstick launches (the GEMM and topk's)
+    lib_dms = device_ms(library, "")
+    log(f"bid_top2 device ms {dms} vs addmm + topk(2) {lib_dms}")
     n_bytes = 4 * (m * d + k * d + k) + m * (4 + 8 + 4)
     n_ops = 2 * m * k * d + 2 * k * d
     b, by = bound_ms(n_bytes, n_ops)
@@ -223,7 +235,7 @@ def measure_bid_top2(dev, err) -> dict:
             "replaces": "src/repro/kernels/bid_top2.py:33",
             "shape": f"G={G} m={m} k={k} d={d}", "max_abs_err": err,
             "ms": ms, "device_ms": dms, "plain_ms": plain, "bound_ms": b,
-            "bound_by": by, "library_ms": lib}
+            "bound_by": by, "library_ms": lib, "library_device_ms": lib_dms}
 
 
 def check_and_measure_gather(dev) -> dict:
@@ -272,7 +284,8 @@ def check_and_measure_gather(dev) -> dict:
 class PhaseRecorder:
     """Within the block every ``ops.auction_phase`` call (the factored
     solver's phases) runs as usual and is recorded: its inputs, outputs and
-    the kernel's rounds and bids (a sync per phase: checks only)."""
+    the kernel's rounds, bids and single-bidder rounds (a sync per phase:
+    checks only)."""
 
     def __init__(self):
         self.calls = []
@@ -291,8 +304,7 @@ class PhaseRecorder:
                              fixed_rounds, skip=skip, seed_top2=seed_top2)
             t1 = phase_kernel.totals()
             self.calls.append({"kw": kw, "out": out,
-                               "rounds": t1["rounds"] - t0["rounds"],
-                               "bids": t1["bids"] - t0["bids"]})
+                               **{key: t1[key] - t0[key] for key in t1}})
             return out
 
         ops.auction_phase = recorded
@@ -313,26 +325,31 @@ def loop_over_bid_top2(x, c, is_real, prices, eps, max_rounds,
 
 def python_loop(kw, check_every=1):
     """The Python round loop over the CUDA bid_top2 kernel, its predicate
-    tested every ``check_every`` rounds; returns (assign, prices, rounds)."""
+    tested every ``check_every`` rounds; returns (assign, prices, counts):
+    its rounds, bids and single-bidder rounds."""
     saved, ref._CHECK_EVERY = ref._CHECK_EVERY, check_every
-    r0 = ref.rounds_executed
+    r0, b0 = ref.rounds_executed, ref.bid_totals()
     try:
         a, p = loop_over_bid_top2(**kw)
     finally:
         ref._CHECK_EVERY = saved
-    return a, p, ref.rounds_executed - r0
+    b1 = ref.bid_totals()
+    return a, p, {"rounds": ref.rounds_executed - r0,
+                  **{key: b1[key] - b0[key] for key in b1}}
 
 
 def check_phase_calls(calls, what) -> int:
     """Each recorded kernel phase against the every-round Python loop:
-    assignments, prices and rounds equal.  Returns the phases checked."""
+    assignments and prices bitwise, rounds, bids and single-bidder rounds
+    equal.  Returns the phases checked."""
     for i, call in enumerate(calls):
-        a, p, rounds = python_loop(call["kw"])
+        a, p, loop_counts = python_loop(call["kw"])
         got_a, got_p = call["out"]
         check(torch.equal(got_a, a) and torch.equal(got_p, p),
               f"auction_phase differs from the Python loop: {what}, phase {i}")
-        check(call["rounds"] == rounds, f"auction_phase ran {call['rounds']} "
-              f"rounds, the Python loop {rounds}: {what}, phase {i}")
+        for key, want in loop_counts.items():
+            check(call[key] == want, f"auction_phase ran {call[key]} {key}, "
+                  f"the Python loop {want}: {what}, phase {i}")
     return len(calls)
 
 
@@ -354,7 +371,7 @@ def check_auction_phase(dev) -> list:
     log(f"auction_phase: {len(laps)} phases of the first {CHECK_LAPS} LAPs "
         f"of the main data (n={k} d={d}, the last LAP with 16 dummy rows): "
         f"assignments and prices bitwise equal to the every-round Python "
-        f"loop over bid_top2, rounds equal")
+        f"loop over bid_top2; rounds, bids and single-bidder rounds equal")
 
     def lap(i, p):
         return laps[4 * i + p]["kw"]
@@ -400,7 +417,8 @@ def check_auction_phase(dev) -> list:
         checked += check_phase_calls(rec.calls, f"n=8192 max_rounds={cap}")
         big.append(rec.calls[0]["rounds"])
     log(f"auction_phase: {checked} more phases bitwise equal with equal "
-        f"rounds: {', '.join(cfgs)}, n=512 d=200, n=8192 d=5 (state in "
+        f"rounds, bids and single-bidder rounds: {', '.join(cfgs)}, n=512 "
+        f"d=200, n=8192 d=5 (state in "
         f"device memory; {big[0]} rounds to the end, cut at {big[1]})")
     return laps
 
@@ -442,6 +460,83 @@ def measure_auction_phase(dev, laps) -> dict:
             "max_abs_err": 0.0, "ms": ms, "device_ms": dms,
             "plain_ms": plain, "bound_ms": b, "bound_by": by,
             "library_ms": None}
+
+
+def time_rounds(laps) -> dict:
+    """Every phase of the first TIMED_LAPS LAPs of the main data through the
+    phase kernel's timed instantiation, which stamps the SM clock around
+    each round: under the kernel's own crossover ("rule"), with every round
+    on the CTA path (threshold 0, "cta") and with every round of up to 32
+    bidders on the one-warp path ("warp").  Each launch is checked bitwise
+    against the recorded phase.  Logs the cycles a round by bidder bucket
+    and the crossover; returns them."""
+    runs = {}
+    for name, threshold in (("rule", -1), ("cta", 0), ("warp", 32)):
+        traces = []
+        for i, call in enumerate(laps[:4 * TIMED_LAPS]):
+            a, p, trace = phase_kernel.auction_phase_timed(
+                **call["kw"], trace_rounds=call["rounds"], threshold=threshold)
+            check(torch.equal(a, call["out"][0])
+                  and torch.equal(p, call["out"][1]),
+                  f"timed auction_phase ({name}) differs, phase {i}")
+            traces.append(trace)
+        trace = torch.cat(traces).cpu()
+        runs[name] = trace[trace[:, 0] >= 0].numpy()
+    bidders = runs["rule"][:, 0]
+    check(all(np.array_equal(r[:, 0], bidders) for r in runs.values()),
+          "the timed runs ran other rounds")
+
+    def stats(rows):  # cycles a round, and the median of each step
+        if not len(rows):
+            return {"count": 0}
+        return {"count": int(len(rows)), "median": float(np.median(rows[:, 1])),
+                "p90": float(np.percentile(rows[:, 1], 90)),
+                **{step: float(np.median(rows[:, col])) for step, col in
+                   (("reduce", 3), ("post", 4), ("update", 5))}}
+
+    table = {name: {label: stats(r[(r[:, 0] >= lo) & (r[:, 0] <= hi)])
+                    for label, lo, hi in BUCKETS}
+             for name, r in runs.items()}
+    table["rule"]["all"] = stats(runs["rule"])
+    # the two paths on the same rounds, by bidder count
+    per_count = {}
+    for b in range(1, 33):
+        sel = bidders == b
+        if sel.any():
+            per_count[b] = {"rounds": int(sel.sum()),
+                            "warp": float(np.median(runs["warp"][sel, 1])),
+                            "cta": float(np.median(runs["cta"][sel, 1]))}
+    measured = 0  # the most bidders below which the warp path always wins
+    for b, row in per_count.items():
+        if b != measured + 1 or row["warp"] >= row["cta"]:
+            break
+        measured = b
+    rule = runs["rule"]
+    in_warp = rule[rule[:, 2] == 1, 0]
+    on_cta = rule[(rule[:, 2] == 0) & (rule[:, 0] <= 32), 0]
+    chosen = {"warp_path_up_to": int(in_warp.max()) if len(in_warp) else 0,
+              "cta_path_from": int(on_cta.min()) if len(on_cta) else None}
+    log(f"auction_phase timed rounds: {len(bidders)} rounds of "
+        f"{4 * TIMED_LAPS} phases (the first {TIMED_LAPS} LAPs of the main "
+        f"data), SM clock cycles a round by bidders (count / median / p90 "
+        f"[median of the steps: top-2s / posting the bids / update]):")
+    for name in runs:
+        log(f"  {name:4s} " + "; ".join(
+            f"{label}: {v['count']} / {v.get('median', 0):.0f} / "
+            f"{v.get('p90', 0):.0f} [{v.get('reduce', 0):.0f} / "
+            f"{v.get('post', 0):.0f} / {v.get('update', 0):.0f}]"
+            for label, v in table[name].items())
+            + f"; sum {int(runs[name][:, 1].sum())}")
+    log("  median cycles by bidders, warp path / CTA path: " + ", ".join(
+        f"{b}: {v['warp']:.0f} / {v['cta']:.0f}"
+        for b, v in list(per_count.items())[:12]))
+    log(f"  crossover: the warp path is faster up to {measured} bidders "
+        f"(measured); the kernel's rule ran rounds of up to "
+        f"{chosen['warp_path_up_to']} bidders in one warp and of "
+        f"{chosen['cta_path_from']} or more on the CTA path")
+    return {"buckets": table, "by_bidders": per_count,
+            "crossover_measured": measured, "crossover_rule": chosen,
+            "cycles_sum": {k: int(r[:, 1].sum()) for k, r in runs.items()}}
 
 
 # ---------------------------------------------------------------------------
@@ -549,6 +644,7 @@ def main_path(dev, n: int, card: str) -> dict:
     check(ofv > ofv_rand, f"objective {ofv} not above random {ofv_rand}")
     rounds = used["rounds"]
     launched = sum(used[name] for name in _build.launches)
+    digest = hashlib.sha256(res.labels.cpu().numpy().tobytes()).hexdigest()
     log(f"main path n={n} d={d} k={k} on {card}: route={res.route} "
         f"solver={res.solver} {main_s:.3f} s (first call {first_s:.3f} s); "
         f"launches bid_top2={used['bid_top2']} "
@@ -559,7 +655,8 @@ def main_path(dev, n: int, card: str) -> dict:
         f"round), bids {used['bids']}, rounds with a single bidder "
         f"{used['single_bidder_rounds']} "
         f"({used['single_bidder_rounds'] / rounds:.4f}); sizes {sizes.min()}..{sizes.max()}; "
-        f"ofv {ofv:.6e} > random {ofv_rand:.6e}; gap {gap:.6e}")
+        f"ofv {ofv:.6e} > random {ofv_rand:.6e}; gap {gap:.6e}; labels "
+        f"sha256 {digest[:16]}")
     split = profile_batches(x, k)
     if split:  # every kernel, the port's and PyTorch's, from the profile
         log(f"all kernel launches per round on the main call, from the "
@@ -569,7 +666,7 @@ def main_path(dev, n: int, card: str) -> dict:
             "main_us_per_round": main_s / rounds * 1e6,
             "port_launches_per_round": launched / rounds,
             "launches": used, "ofv": ofv, "ofv_random": ofv_rand, "gap": gap,
-            "profile": split}
+            "labels_sha256": digest, "profile": split}
 
 
 # ---------------------------------------------------------------------------
@@ -865,8 +962,9 @@ def main():
     _build.build_all()
     log(f"kernel build {_build.build_seconds:.2f} s into {_build.BUILD_DIR}")
     for name, out in _build.build_log.items():
-        for line in out.splitlines():
-            if "registers" in line or "spill" in line:
+        for line in out.splitlines():  # each entry, its registers and stack
+            if any(w in line for w in ("entry function", "registers",
+                                       "stack frame")):
                 log(f"  ptxas {name}: {line.strip()}")
 
     phase("phase 2: kernels against their plain versions")
@@ -874,6 +972,7 @@ def main():
     solve_rows = [measure_bid_top2(dev, err), check_and_measure_gather(dev)]
     laps = check_auction_phase(dev)
     solve_rows.append(measure_auction_phase(dev, laps))
+    solve_rows[-1]["rounds_timed"] = time_rounds(laps)
     del laps
     errs = check_entry_kernels(dev, torch.Generator().manual_seed(4))
     entry_rows = measure_entry_kernels(dev, errs)

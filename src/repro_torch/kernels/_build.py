@@ -46,6 +46,12 @@ _SYMBOLS = {
     "auction_phase": ("auction_phase_f32",
                       (_P,) * 14 + (_I, _I, _I, _I, _I, _P)),
 }
+# further C functions of a source's library: symbol -> argument types.  The
+# phase kernel's timed instantiation is for measurement only and counts as
+# a launch of "auction_phase".
+_MORE_SYMBOLS = {
+    "auction_phase_timed_f32": (_P,) * 14 + (_I,) * 5 + (_P, _I, _I, _P),
+}
 
 # kernel name -> launches since the count was last zeroed; every wrapper
 # counts here through launch(), and nowhere else
@@ -110,25 +116,28 @@ def build_all() -> dict:
     return paths
 
 
-def function(name: str):
-    """The ctypes function of kernel library ``name``, built on first use."""
-    fn = _functions.get(name)
+def function(name: str, symbol: str | None = None):
+    """The ctypes function ``symbol`` (by default the kernel's own) of
+    kernel library ``name``, built on first use."""
+    main, argtypes = _SYMBOLS[name]
+    symbol = symbol or main
+    fn = _functions.get(symbol)
     if fn is None:
         path = library_path(name)
         if not path.exists():
             build_all()
-        symbol, argtypes = _SYMBOLS[name]
         fn = getattr(ctypes.CDLL(str(path)), symbol)
-        fn.argtypes = argtypes
+        fn.argtypes = argtypes if symbol == main else _MORE_SYMBOLS[symbol]
         fn.restype = ctypes.c_int
-        _functions[name] = fn
+        _functions[symbol] = fn
     return fn
 
 
-def launch(name: str, *args) -> None:
-    """Launch kernel ``name`` with its C arguments; raise if the launch
-    failed, else count it."""
-    err = function(name)(*args)
+def launch(name: str, *args, symbol: str | None = None) -> None:
+    """Launch kernel ``name`` with its C arguments (through ``symbol``, by
+    default the kernel's own entry); raise if the launch failed, else count
+    it."""
+    err = function(name, symbol)(*args)
     if err:
         raise RuntimeError(f"{name} kernel launch failed (cudaError {err})")
     launches[name] += 1

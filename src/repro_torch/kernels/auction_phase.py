@@ -7,7 +7,9 @@ reduction.  A CUDA tensor launches the kernel (or raises); a CPU tensor runs
 the plain version, the port's Python round loop
 ``repro_torch.kernels.ref.auction_phase_ref``.  Launches are counted in
 ``_build.launches["auction_phase"]``; the rounds and bids the kernel ran are
-summed on the card and read by :func:`totals`.
+summed on the card and read by :func:`totals`.  :func:`auction_phase_timed`
+runs the kernel's timed instantiation, which also records the SM clock
+cycles of every round of group 0 (measurement only).
 """
 
 from __future__ import annotations
@@ -32,10 +34,46 @@ def auction_phase(x, c, is_real, prices, eps, max_rounds: int,
     (G, n), the first round's reduction, or None.  Returns ``(assign (G, n)
     int64 with -1 for an unassigned row, prices (G, n))``.
     """
-    G, n, d = _check_shapes(x, c, is_real, prices, eps, skip, seed_top2)
+    _check_shapes(x, c, is_real, prices, eps, skip, seed_top2)
     if not x.is_cuda:
         return auction_phase_ref(x, c, is_real, prices, eps, max_rounds,
                                  fixed_rounds, skip, seed_top2)
+    return _launch(x, c, is_real, prices, eps, max_rounds, fixed_rounds,
+                   skip, seed_top2)
+
+
+def auction_phase_timed(x, c, is_real, prices, eps, max_rounds: int,
+                        fixed_rounds: int = 0, skip=None, seed_top2=None, *,
+                        trace_rounds: int, threshold: int = -1):
+    """:func:`auction_phase` through the kernel's timed instantiation, for
+    measurement only (``chip_smoke.py``; the solver never calls it).
+
+    Also returns ``trace`` (trace_rounds, 6) int64: row r holds (bidders,
+    SM clock cycles, 1 if the round ran in the one-warp path else 0, and the
+    cycles of its three steps: the top-2s, posting the bids, the update) of
+    group 0's round r, or -1 past the phase's rounds.
+    ``threshold`` >= 0 sets the most bidders a round may have to take the
+    one-warp path (up to 32); -1 keeps the kernel's own crossover.  CUDA
+    tensors only: there is no plain version of a clock.
+    """
+    _check_shapes(x, c, is_real, prices, eps, skip, seed_top2)
+    if not x.is_cuda:
+        raise ValueError("auction_phase_timed times the CUDA kernel; it "
+                         "takes CUDA tensors")
+    if not 0 <= trace_rounds < 2**31 or not -1 <= threshold < 2**31:
+        raise ValueError("auction_phase_timed: trace_rounds >= 0 and "
+                         "threshold >= -1 must fit int32")
+    trace = torch.full((trace_rounds, 6), -1, dtype=torch.int64,
+                       device=x.device)
+    assign, p_out = _launch(x, c, is_real, prices, eps, max_rounds,
+                            fixed_rounds, skip, seed_top2,
+                            timed=(trace.data_ptr(), trace_rounds, threshold))
+    return assign, p_out, trace
+
+
+def _launch(x, c, is_real, prices, eps, max_rounds, fixed_rounds, skip,
+            seed_top2, timed=()):
+    G, n, d = x.shape
     if G > 2**31 - 1 or not 0 <= max_rounds < 2**31 \
             or not 0 <= fixed_rounds < 2**31:
         raise ValueError("auction_phase: G, max_rounds and fixed_rounds "
@@ -50,10 +88,11 @@ def auction_phase(x, c, is_real, prices, eps, max_rounds: int,
     assign = torch.empty((G, n), dtype=torch.int64, device=dev)
     p_out = torch.empty((G, n), dtype=torch.float32, device=dev)
     rounds = torch.empty((G,), dtype=torch.int64, device=dev)
-    # what does not fit in shared memory (the kernel decides): the per-row
-    # state, 10 words a row, and c feature-major, (d, n | 1)
-    scratch = torch.empty(G * (10 * n + d * (n | 1)), dtype=torch.float32,
-                          device=dev)
+    # what does not fit in shared memory (the kernel decides): c
+    # feature-major with a row of column terms, (d + 1, n rounded up to
+    # 4), and the per-row state, 10 words a row
+    scratch = torch.empty(G * (10 * n + (d + 1) * ((n + 3) & ~3)),
+                          dtype=torch.float32, device=dev)
     counters = _totals.get(dev.index)
     if counters is None:
         counters = _totals[dev.index] = torch.zeros(4, dtype=torch.int64,
@@ -67,7 +106,8 @@ def auction_phase(x, c, is_real, prices, eps, max_rounds: int,
                   ptr(seed.get("v1")), ptr(seed.get("j1")),
                   ptr(seed.get("v2")), assign.data_ptr(), p_out.data_ptr(),
                   rounds.data_ptr(), counters.data_ptr(), scratch.data_ptr(),
-                  G, n, d, max_rounds, fixed_rounds, stream)
+                  G, n, d, max_rounds, fixed_rounds, *timed, stream,
+                  symbol="auction_phase_timed_f32" if timed else None)
     return assign, p_out
 
 

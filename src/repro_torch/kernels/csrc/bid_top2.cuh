@@ -36,21 +36,25 @@ struct Top2 {
 };
 
 // Candidates reach a lane in increasing column order: a tie keeps the
-// earlier column and lifts v2 to v1.
+// earlier column and lifts v2 to v1.  Written as selects, not branches: a
+// kernel whose lone warp pushes a chain of columns pays for every branch.
 __device__ __forceinline__ void push(Top2& t, float v, int j) {
-  if (v > t.v1) {
-    t.v2 = t.v1;
-    t.v1 = v;
-    t.j1 = j;
-  } else if (v > t.v2) {
-    t.v2 = v;
-  }
+  const bool first = v > t.v1;
+  t.v2 = first ? t.v1 : (v > t.v2 ? v : t.v2);
+  t.j1 = first ? j : t.j1;
+  t.v1 = first ? v : t.v1;
 }
+
+// A value from its dot-product chain acc = x_i . c_j (sequential fmaf over d
+// from 0) and b = ||c_j||^2 - p_j.  Every kernel forms values here, so the
+// compiler rounds the expression the same way in all of them.
+__device__ __forceinline__ float value(float acc, float b) { return -2.f * acc + b; }
 
 // Top-2 of the union of two disjoint column sets; the lower column wins a
 // tie of the best values.
 __device__ __forceinline__ Top2 merge(const Top2& a, const Top2& b) {
-  const bool a_wins = a.v1 > b.v1 || (a.v1 == b.v1 && a.j1 < b.j1);
+  // `|` and `&`, not `||` and `&&`: no short-circuit branch
+  const bool a_wins = (a.v1 > b.v1) | ((a.v1 == b.v1) & (a.j1 < b.j1));
   Top2 w = a_wins ? a : b;
   const float lv1 = a_wins ? b.v1 : a.v1;
   w.v2 = fmaxf(w.v2, lv1);
@@ -154,7 +158,7 @@ bid_top2_kernel(const float* __restrict__ x, const Idx* __restrict__ idx,
       if (col < k) {
         const float b = bias[jj];
 #pragma unroll
-        for (int i = 0; i < kRowsPerWarp; ++i) push(best[i], -2.f * acc[i][t] + b, col);
+        for (int i = 0; i < kRowsPerWarp; ++i) push(best[i], value(acc[i][t], b), col);
       }
     }
   }

@@ -31,6 +31,28 @@ _CHECK_EVERY = 8
 # phase kernel's are summed on the card (kernels.auction_phase.totals)
 rounds_executed = 0
 
+# device -> int64 [bids, single-bidder rounds] of auction_rounds: the
+# unassigned rows of each group at each round's start, summed on the device
+# (read by bid_totals).  A round after a group converged adds nothing, so
+# these equal the phase kernel's counts of the same phases.
+_bid_totals: dict[torch.device, torch.Tensor] = {}
+
+
+def bid_totals() -> dict:
+    """Bids and rounds with a single bidder (per group) that
+    :func:`auction_rounds` ran since :func:`reset_bid_totals`, summed over
+    devices (a read from each device)."""
+    out = {"bids": 0, "single_bidder_rounds": 0}
+    for t in _bid_totals.values():
+        b, s = t.tolist()
+        out["bids"] += b
+        out["single_bidder_rounds"] += s
+    return out
+
+
+def reset_bid_totals() -> None:
+    for t in _bid_totals.values():
+        t.zero_()
 
 
 def top2(values: torch.Tensor):
@@ -143,6 +165,10 @@ def auction_rounds(top2_fn, prices, eps, max_rounds: int,
     if skip is not None:
         assign.copy_(torch.where(skip[:, None], rows, -1))
     eps = eps[:, None]
+    counts = _bid_totals.get(dev)
+    if counts is None:
+        counts = _bid_totals[dev] = torch.zeros(2, dtype=torch.int64,
+                                                device=dev)
 
     # The round below is the JAX round with fewer launches (this loop is
     # launch-bound) and the same results: rows that hold an object bid
@@ -150,6 +176,8 @@ def auction_rounds(top2_fn, prices, eps, max_rounds: int,
     # never the best bidder; and the lost-object test reads got_bid through
     # the dump column, which is False.
     def body(prices, top2):
+        bidders = (assign < 0).sum(dim=1)
+        counts.add_(torch.stack((bidders.sum(), (bidders == 1).sum())))
         v1, j1, v2 = top2
         # Bid: raise the favourite object's price past the runner-up by eps.
         bids = v1 + prices.gather(1, j1) - v2 + eps

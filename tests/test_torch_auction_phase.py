@@ -2,17 +2,22 @@
 
 The CUDA kernel ``kernels/csrc/auction_phase.cu`` tests its stopping rule
 after every round, where the Python loop ``kernels.ref.auction_rounds``
-tests it every ``_CHECK_EVERY`` rounds; a converged state is a fixed point of the round, so both give the
-same assignments and prices, bit for bit, and the every-round loop runs no
-more rounds.  These tests pin that, and the wrapper's CPU route and checks.
+tests it every ``_CHECK_EVERY`` rounds; a converged state is a fixed point
+of the round, so both give the same assignments and prices, bit for bit,
+and the every-round loop runs no more rounds.  These tests pin that, the
+plain loop's counts of bids and single-bidder rounds (against the JAX
+phase), and the wrapper's CPU route and checks.
 The kernel itself is held against the Python loop on the card
 (``tests/test_torch_cuda.py`` and ``chip_smoke.py``).
 """
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.core.assignment import _auction_phase as jax_auction_phase
+from repro.core.assignment import _top2_batched
 from repro_torch.core.assignment import AuctionConfig, auction_solve_factored
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels import auction_phase as phase_kernel
@@ -128,3 +133,51 @@ def test_max_rounds_cap_and_counting_on_the_plain_path():
                            device=CPU)
     assert ref.rounds_executed - r1 == 4 * 6  # 4 phases of fixed rounds
     assert phase_kernel.totals() == t0  # no kernel ran
+
+
+@pytest.mark.parametrize("G", [1, 3])
+def test_plain_bid_counts_equal_jax_unassigned_rows(monkeypatch, G):
+    """The plain loop counts, at each round's start, each group's unassigned
+    rows (its bids) and the groups with exactly one (single-bidder rounds).
+    Held against the JAX ``_auction_phase`` stepped with ``fixed_rounds = r``
+    for r = 1, 2, ...: its unassigned rows after r rounds are the bidders of
+    round r + 1.  Integer rows and centroids make every value exact in both
+    packages, so both run the same rounds, bit for bit."""
+    rng = np.random.default_rng(68 + G)
+    n, d = 7, 3
+    x = rng.integers(-2, 3, (G, n, d)).astype(np.float32)
+    c = rng.integers(-1, 2, (G, n, d)).astype(np.float32)
+    ir = np.ones((G, n), bool)
+    ir[-1, n - 3:] = False  # the last group has dummy rows
+    eps = rng.uniform(0.1, 0.3, G).astype(np.float32)
+    p0 = np.zeros((G, n), np.float32)
+    max_rounds = 500
+
+    monkeypatch.setattr(ref, "_CHECK_EVERY", 1)
+    b0, r0 = ref.bid_totals(), ref.rounds_executed
+    assign, prices = ref.auction_phase_ref(
+        *(torch.from_numpy(a) for a in (x, c, ir, p0, eps)), max_rounds)
+    rounds = ref.rounds_executed - r0
+    b1 = ref.bid_totals()
+    assert 1 < rounds < max_rounds and bool((assign >= 0).all())
+
+    cn = (c * c).sum(-1)
+
+    def top2_fn(p):  # the factored values; dummy rows see -p
+        vals = (-2.0 * jnp.einsum("gid,gjd->gij", x, c) + cn[:, None, :]
+                - p[:, None, :])
+        return _top2_batched(jnp.where(ir[:, :, None], vals, -p[:, None, :]))
+
+    bidders = [np.full(G, n)]  # round 1: every row
+    for r in range(1, rounds + 1):
+        a_r, p_r = jax_auction_phase(top2_fn, jnp.asarray(p0),
+                                     jnp.asarray(eps), max_rounds,
+                                     fixed_rounds=r)
+        bidders.append((np.asarray(a_r) < 0).sum(axis=1))
+    per_round = np.stack(bidders[:rounds])  # (rounds, G)
+    assert bidders[rounds].sum() == 0 and per_round[-1].sum() > 0
+    np.testing.assert_array_equal(np.asarray(a_r), assign.numpy())
+    np.testing.assert_array_equal(np.asarray(p_r), prices.numpy())
+    assert b1["bids"] - b0["bids"] == int(per_round.sum())
+    assert (b1["single_bidder_rounds"] - b0["single_bidder_rounds"]
+            == int((per_round == 1).sum()))

@@ -244,39 +244,162 @@ def _phase_cases(G, n, d, integer, device):
         dict(prices=zero, eps=eps, max_rounds=3)]
 
 
+# the crossover of a timed launch: None launches the kernel's own entry
+# (its own rule); 0 sends every round to the CTA path, 32 every round of
+# up to 32 bidders to the one-warp path
+THRESHOLDS = [None, 0, 32]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("G,n,d", [(1, 8, 5), (1, 256, 22), (3, 48, 5),
                                    (1, 512, 200)])
 @pytest.mark.parametrize("integer", [False, True])
+@pytest.mark.parametrize("threshold", THRESHOLDS)
 def test_cuda_auction_phase_equals_python_loop(cuda, monkeypatch, G, n, d,
-                                               integer):
+                                               integer, threshold):
     """The phase kernel against the Python round loop over the bid_top2
     kernel, tested every round: assignments and prices bitwise, the same
-    rounds.  Integer inputs make value and bid ties common."""
+    rounds, bids and single-bidder rounds.  Integer inputs make value and
+    bid ties common."""
     (x, c, is_real), runs = _phase_cases(G, n, d, integer, cuda)
     for kw in runs:
-        _check_phase_kernel(monkeypatch, x, c, is_real, kw)
+        _check_phase_kernel(monkeypatch, x, c, is_real, kw, threshold)
 
 
-def _check_phase_kernel(monkeypatch, x, c, is_real, kw):
-    """One launch of the phase kernel against the Python round loop over
-    the bid_top2 kernel, its predicate tested every round."""
+def _check_phase_kernel(monkeypatch, x, c, is_real, kw, threshold=None):
+    """One launch of the phase kernel (its timed instantiation with this
+    crossover unless ``threshold`` is None) against the Python round loop
+    over the bid_top2 kernel, its predicate tested every round.  Returns
+    the timed launch's trace of group 0's rounds (bidders, cycles, warp
+    path, the cycles of the steps), or None."""
     monkeypatch.setattr(ref, "_CHECK_EVERY", 1)
-    t0, r0 = phase_kernel.totals(), ref.rounds_executed
-    got = _counted("auction_phase", phase_kernel.auction_phase, x, c,
-                   is_real, **kw)
+    t0, r0, b0 = phase_kernel.totals(), ref.rounds_executed, ref.bid_totals()
+    trace = None
+    if threshold is None:
+        got = _counted("auction_phase", phase_kernel.auction_phase, x, c,
+                       is_real, **kw)
+    else:
+        *got, trace = _counted("auction_phase",
+                               phase_kernel.auction_phase_timed, x, c,
+                               is_real, **kw, trace_rounds=kw["max_rounds"],
+                               threshold=threshold)
     t1 = phase_kernel.totals()
     want = ref.auction_rounds(ref.factored_top2(x, c, is_real,
                                                 cuda_bid_top2), **kw)
+    b1 = ref.bid_totals()
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert t1["rounds"] - t0["rounds"] == ref.rounds_executed - r0
+    for key in ("bids", "single_bidder_rounds"):
+        assert t1[key] - t0[key] == b1[key] - b0[key], key
     assert t1["bids"] > t0["bids"]
+    if trace is None:
+        return None
+    trace = trace[trace[:, 0] >= 0].cpu()
+    assert bool((trace[:, 1] > 0).all()) and bool((trace[:, 3:] >= 0).all())
+    if threshold >= 0:  # the path each round took; a seeded round: the CTA's
+        warp = trace[:, 0] <= threshold
+        warp[0] &= kw.get("seed_top2") is None
+        assert torch.equal(trace[:, 2] == 1, warp)
+    if x.shape[0] == 1:  # every round of the phase is traced
+        assert int(trace[:, 0].sum()) == t1["bids"] - t0["bids"]
+    return trace
+
+
+def _runs(flags):
+    """(first index, length) of each run of True in a 1-D bool tensor."""
+    out, start = [], None
+    for i, f in enumerate(flags.tolist() + [False]):
+        if f and start is None:
+            start = i
+        elif not f and start is not None:
+            out.append((start, i - start))
+            start = None
+    return out
+
+
+def _warp_case(case, device):
+    """Inputs of one phase that puts the one-warp path through ``case``,
+    its crossover, and a check of the trace that the case happened."""
+    gen = torch.Generator().manual_seed(len(case))
+    zero = torch.zeros((1, 8), device=device)
+    eps = torch.full((1,), 0.5, device=device)
+    if case == "lone_chain":
+        # a cold phase at a small eps: long chains of one bidder at the
+        # main shape, under the kernel's own crossover
+        x = torch.randn((1, 256, 22), generator=gen)
+        c = torch.randn((1, 256, 22), generator=gen) * 1.5
+        kw = dict(prices=torch.zeros((1, 256)), eps=torch.full((1,), 0.05),
+                  max_rounds=50 * 256 + 1000)
+
+        def happened(tr):
+            return max(n for _, n in _runs(tr[:, 0] == 1)) >= 10
+        return (x, c, None), kw, None, happened
+    if case in ("equal_bids", "max_rounds", "fixed_rounds"):
+        # eight equal rows: every round its bidders bid the same on one
+        # object, and the lowest of them wins it
+        x = torch.randint(-2, 3, (1, 1, 3), generator=gen).float().expand(
+            1, 8, 3).contiguous()
+        c = torch.randint(-1, 2, (1, 8, 3), generator=gen).float()
+        kw = dict(prices=zero, eps=eps, max_rounds=1000)
+        if case == "max_rounds":
+            kw["max_rounds"] = 3
+        elif case == "fixed_rounds":
+            kw["fixed_rounds"] = 3
+
+        def happened(tr):
+            return int(tr[0, 0]) == 8 and bool((tr[:, 2] == 1).all()) and (
+                case == "equal_bids" or len(tr) == 3 and int(tr[2, 0]) > 1)
+        return (x, c, None), kw, 32, happened
+    if case == "dummy_lone":
+        # group 0 all dummy rows: every round one row settles, the last
+        # round has one dummy bidder; group 1 real
+        x = torch.randn((2, 8, 3), generator=gen)
+        c = torch.randn((2, 8, 3), generator=gen)
+        is_real = torch.ones((2, 8), dtype=torch.bool)
+        is_real[0] = False
+        kw = dict(prices=torch.zeros((2, 8)), eps=torch.full((2,), 0.5),
+                  max_rounds=1000)
+
+        def happened(tr):
+            return int(tr[-1, 0]) == 1 and int(tr[-1, 2]) == 1
+        return (x, c, is_real), kw, None, happened
+    assert case == "cta_then_warp"
+    # many bidders on the CTA path, then the one-warp path to the end (the
+    # count of unassigned rows never rises, so the warp path, once taken,
+    # hands the CTA back only when the phase ends)
+    x = torch.randn((1, 256, 22), generator=gen)
+    c = torch.randn((1, 256, 22), generator=gen)
+    kw = dict(prices=torch.zeros((1, 256)), eps=torch.full((1,), 0.1),
+              max_rounds=50 * 256 + 1000)
+
+    def happened(tr):
+        warp = tr[:, 2] == 1
+        return bool(warp.any()) and not bool(warp[0]) and bool(
+            warp[int(warp.int().argmax()):].all())
+    return (x, c, None), kw, 4, happened
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["lone_chain", "equal_bids", "max_rounds",
+                                  "fixed_rounds", "dummy_lone",
+                                  "cta_then_warp"])
+def test_cuda_auction_phase_warp_path(cuda, monkeypatch, case):
+    """The one-warp path of small rounds against the Python loop, bitwise,
+    through the timed launch, whose trace shows that the case happened."""
+    (x, c, is_real), kw, threshold, happened = _warp_case(case, cuda)
+    x, c = x.to(cuda), c.to(cuda)
+    is_real = None if is_real is None else is_real.to(cuda)
+    kw = {k: v.to(cuda) if torch.is_tensor(v) else v for k, v in kw.items()}
+    trace = _check_phase_kernel(monkeypatch, x, c, is_real, kw,
+                                -1 if threshold is None else threshold)
+    assert happened(trace), trace[:40].tolist()
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("max_rounds", [50 * 8192 + 1000, 40])
+@pytest.mark.parametrize("threshold", THRESHOLDS)
 def test_cuda_auction_phase_state_in_device_memory(cuda, monkeypatch,
-                                                   max_rounds):
+                                                   max_rounds, threshold):
     """n = 8192: the per-row state does not fit in shared memory and lives
     in device memory; one phase to its end, and one cut by the cap."""
     gen = torch.Generator().manual_seed(8192)
@@ -284,7 +407,7 @@ def test_cuda_auction_phase_state_in_device_memory(cuda, monkeypatch,
             for _ in range(2))
     kw = dict(prices=torch.zeros((1, 8192), device=cuda),
               eps=torch.full((1,), 2.0, device=cuda), max_rounds=max_rounds)
-    _check_phase_kernel(monkeypatch, x, c, None, kw)
+    _check_phase_kernel(monkeypatch, x, c, None, kw, threshold)
 
 
 @pytest.mark.cuda
