@@ -10,7 +10,10 @@ git-ignored ``build/``), then runs these phases, one or more lines each:
 2. every kernel against its plain PyTorch version on the card, with its
    time, the plain version's, a PyTorch library call's (a yardstick only)
    and the least time the card could take (``bound_ms``): the solve's
-   ``bid_top2``, ``gather_rows`` and ``auction_phase`` (every phase of 65
+   ``bid_top2`` (the digests of its bits at the checked shapes; timed as
+   the main path launches it, the span's pair in one launch, and as one
+   call, also with c staged by the threads; the pair bitwise against two
+   calls on the main data and on a LAP with dummy rows), ``gather_rows`` and ``auction_phase`` (every phase of 65
    LAPs of the main data and a set of edge cases against the Python round
    loop over ``bid_top2``, bitwise, with the same rounds, bids and
    single-bidder rounds; then the SM clock cycles of every round of the
@@ -18,7 +21,9 @@ git-ignored ``build/``), then runs these phases, one or more lines each:
    under its own crossover and with every round sent to each of its two
    paths), then the kernel entry point's
    ``cdist``, ``cdist_gather``, ``bid_top2_gather`` and ``ssm_scan`` at the
-   shapes phase 5 gives them;
+   shapes phase 5 gives them (``ssm_scan`` also with its expf count and
+   their special-function floor at the data sheet's clock and at the SM
+   clock read while calls of it run);
 3. the main path: ``anticluster(x, k=256, chunk_size="auto")`` on the
    paper's *diabetes* shape (n = 253 680, d = 22), which takes the
    ``"stream"`` route with the ``"auction_fused"`` solver.  First the
@@ -35,12 +40,20 @@ git-ignored ``build/``), then runs these phases, one or more lines each:
 then one JSON line describing every kernel, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises, exits non-zero and
 prints no last line.  Needs one CUDA device; fails without one.
+
+    python3 chip_smoke.py --bid-top2-bits
+
+prints only the digests of ``bid_top2``'s bits at phase 2's shapes, as one
+JSON line, and exits.  It imports nothing that the kernel's earlier trees
+lack, so a copy of this script in another checkout gives that tree's
+digests: equal digests are equal bits.
 """
 
 from __future__ import annotations
 
 import argparse
 import hashlib
+import importlib
 import json
 import os
 import statistics
@@ -73,10 +86,18 @@ from repro_torch.kernels.ref import (  # noqa: E402
     gather_rows_ref, ssm_scan_chunk_ref, ssm_scan_ref)
 from repro_torch.kernels.ssm_scan import ssm_scan_chunk  # noqa: E402
 
+# the module, not the function the package exports under its name
+bid_top2_module = importlib.import_module("repro_torch.kernels.bid_top2")
+
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and fp32 outside the
-# tensor cores.
+# tensor cores.  Beside them, for ssm_scan's log line only: the SMs, the
+# special-function unit's exp2 (MUFU.EX2) rate, 16 a clock an SM, and the
+# boost clock.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
+SMS = 132
+EX2_PER_CLOCK_PER_SM = 16
+BOOST_SM_MHZ = 1980
 PROFILE_BATCHES = 4  # batches of the profiled run (the first has no LAP)
 CHECK_LAPS = 65  # LAPs of the main data held against the Python loop
 TIMED_LAPS = 16  # LAPs of the main data whose rounds are timed
@@ -180,13 +201,19 @@ def bid_inputs(gen, G, m, k, d, integer, dev):
             torch.randn((G, k), generator=gen).to(dev))
 
 
+# The shapes phase 2 holds bid_top2 to its plain version at (G, m, k, d):
+# the auction's, d on the 16-byte grid, a stack, uneven tiles, k past one
+# pass, k and d past what stays in shared memory.
+BID_TOP2_SHAPES = [(1, 256, 256, 22), (1, 256, 256, 32), (4, 256, 256, 32),
+                   (1, 37, 37, 5), (1, 256, 513, 22), (1, 64, 513, 200)]
+
+
 def check_bid_top2(dev) -> float:
     """Exact on integers, tolerance on floats; returns the float max error
     at the main shape."""
     gen = torch.Generator().manual_seed(0)
     main_err = None
-    for G, m, k, d in [(1, 256, 256, 22), (1, 256, 256, 32), (4, 256, 256, 32),
-                       (1, 37, 37, 5), (1, 256, 513, 22), (1, 64, 513, 200)]:
+    for G, m, k, d in BID_TOP2_SHAPES:
         x, c, p = bid_inputs(gen, G, m, k, d, True, dev)
         got, want = cuda_bid_top2(x, c, p), bid_top2_ref(x, c, p)
         torch.cuda.synchronize()
@@ -211,31 +238,101 @@ def check_bid_top2(dev) -> float:
     return main_err
 
 
-def measure_bid_top2(dev, err) -> dict:
+def bid_top2_bits(dev) -> dict:
+    """sha256 (16 hex digits) of the CUDA bid_top2's v1, j1 and v2 bytes on
+    seeded Gaussian floats at each of phase 2's shapes: two trees whose
+    digests are equal gave the same bits."""
+    gen = torch.Generator().manual_seed(0)
+    out = {}
+    for G, m, k, d in BID_TOP2_SHAPES:
+        x = torch.randn((G, m, d), generator=gen).to(dev)
+        c = torch.randn((G, k, d), generator=gen).to(dev)
+        p = torch.randn((G, k), generator=gen).to(dev)
+        h = hashlib.sha256()
+        for t in cuda_bid_top2(x, c, p):
+            h.update(t.cpu().numpy().tobytes())
+        out[f"G={G} m={m} k={k} d={d}"] = h.hexdigest()[:16]
+    return out
+
+
+def off_grid(t: torch.Tensor) -> torch.Tensor:
+    """A copy of ``t`` whose data starts 4 bytes off the 16-byte grid, which
+    the TMA's bulk copy needs: the kernels stage it by their threads."""
+    shifted = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:]
+    shifted = shifted.view(t.shape).copy_(t)
+    check(shifted.data_ptr() % 16 != 0, "off_grid gave an aligned copy")
+    return shifted
+
+
+def measure_bid_top2(dev, single_err) -> dict:
+    """bid_top2 as the main path launches it: the span's pair in one launch
+    (x at zero prices, -x at 2||c||^2) at G=1 m=k=256 d=22.  Beside it, one
+    call at the same shape, the two calls the pair replaces, and one call
+    with c off the 16-byte grid (the threads' staging, not the TMA)."""
     G, m, k, d = 1, 256, 256, 22
     gen = torch.Generator().manual_seed(1)
-    x, c, p = (t[0] for t in bid_inputs(gen, G, m, k, d, False, dev))
-    ms = time_ms(lambda: cuda_bid_top2(x, c, p))
-    dms = device_ms(lambda: cuda_bid_top2(x, c, p), "bid_top2_kernel")
-    plain = time_ms(lambda: bid_top2_ref(x, c, p))
-    bias = (c * c).sum(1) - p
+    x, c, p = bid_inputs(gen, G, m, k, d, False, dev)
+    cn = (c * c).sum(-1)
+    pn = 2.0 * cn
 
-    def library():  # yardstick only: one GEMM with the bias, then topk(2)
-        return torch.topk(torch.addmm(bias, x, c.T, alpha=-2.0), 2, dim=1)
+    def pair():
+        return bid_top2_module.bid_top2_span(x, c, pn)
 
-    lib = time_ms(library)
-    # every kernel the yardstick launches (the GEMM and topk's)
-    lib_dms = device_ms(library, "")
-    log(f"bid_top2 device ms {dms} vs addmm + topk(2) {lib_dms}")
-    n_bytes = 4 * (m * d + k * d + k) + m * (4 + 8 + 4)
-    n_ops = 2 * m * k * d + 2 * k * d
-    b, by = bound_ms(n_bytes, n_ops)
-    return {"name": "bid_top2", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/bid_top2.cu",
-            "replaces": "src/repro/kernels/bid_top2.py:33",
-            "shape": f"G={G} m={m} k={k} d={d}", "max_abs_err": err,
-            "ms": ms, "device_ms": dms, "plain_ms": plain, "bound_ms": b,
-            "bound_by": by, "library_ms": lib, "library_device_ms": lib_dms}
+    def plain_pair():
+        return ref.bid_top2_span_ref(x, c, pn)
+
+    err = max((g - w).abs().max().item()
+              for got, want in zip(pair(), plain_pair())
+              for g, w in ((got[0], want[0]), (got[2], want[2])))
+    xx, bias2 = torch.cat((x, -x)), torch.stack((cn, cn - pn))
+
+    def library():  # yardstick only: one batched GEMM with the bias, topk(2)
+        return torch.topk(torch.baddbmm(bias2, xx, c.mT.expand(2, d, k),
+                                        alpha=-2.0), 2, dim=-1)
+
+    def two_calls():
+        cuda_bid_top2(x, c, torch.zeros_like(pn))
+        cuda_bid_top2(-x, c, pn)
+
+    row = {"name": "bid_top2", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/bid_top2.cu",
+           "replaces": "src/repro/kernels/bid_top2.py:33",
+           "shape": f"G={G} m={m} k={k} d={d}, the span's pair in one launch",
+           "max_abs_err": err, "ms": time_ms(pair),
+           "device_ms": device_ms(pair, "bid_top2_kernel"),
+           "plain_ms": time_ms(plain_pair), "library_ms": time_ms(library),
+           "library_device_ms": device_ms(library, ""),
+           "two_calls_device_ms": device_ms(two_calls, "bid_top2_kernel")}
+    row["bound_ms"], row["bound_by"] = bound_ms(
+        4 * (m * d + k * d + k) + 2 * m * (4 + 8 + 4),
+        2 * 2 * m * k * d + 2 * k * d)
+    # one call, as the entry point makes it, and with c off the grid
+    x1, c1, p1 = x[0], c[0], p[0]
+    bias = cn[0] - p1
+    c_staged = off_grid(c1)
+    b1, _ = bound_ms(4 * (m * d + k * d + k) + m * (4 + 8 + 4),
+                     2 * m * k * d + 2 * k * d)
+    row.update(
+        single_max_abs_err=single_err,
+        single_ms=time_ms(lambda: cuda_bid_top2(x1, c1, p1)),
+        single_device_ms=device_ms(lambda: cuda_bid_top2(x1, c1, p1),
+                                   "bid_top2_kernel"),
+        single_bound_ms=b1,
+        single_plain_ms=time_ms(lambda: bid_top2_ref(x1, c1, p1)),
+        single_library_ms=time_ms(lambda: torch.topk(
+            torch.addmm(bias, x1, c1.T, alpha=-2.0), 2, dim=1)),
+        single_library_device_ms=device_ms(lambda: torch.topk(
+            torch.addmm(bias, x1, c1.T, alpha=-2.0), 2, dim=1), ""),
+        staged_device_ms=device_ms(lambda: cuda_bid_top2(x1, c_staged, p1),
+                                   "bid_top2_kernel"))
+    log(f"bid_top2 one call (G=1 m=k={m} d={d}): {row['single_ms']:.4f} ms "
+        f"(device {row['single_device_ms']} ms; c off the 16-byte grid, "
+        f"staged by the threads: device {row['staged_device_ms']} ms), "
+        f"bound {b1:.7f} ms, addmm + topk(2) device "
+        f"{row['single_library_device_ms']} ms; the span's pair in one "
+        f"launch device {row['device_ms']} ms, as two calls device "
+        f"{row['two_calls_device_ms']} ms (the -x not counted)")
+    return row
 
 
 def check_and_measure_gather(dev) -> dict:
@@ -376,6 +473,7 @@ def check_auction_phase(dev) -> list:
     def lap(i, p):
         return laps[4 * i + p]["kw"]
     last = CHECK_LAPS - 1
+    check_span(lap(0, 0), lap(last, 0))
     xs = torch.stack([lap(i, 0)["x"][0] for i in (0, 1, last)])
     cs = torch.stack([lap(i, 0)["c"][0] for i in (0, 1, last)])
     real = torch.ones((3, k), dtype=torch.bool, device=dev)
@@ -421,6 +519,27 @@ def check_auction_phase(dev) -> list:
         f"d=200, n=8192 d=5 (state in "
         f"device memory; {big[0]} rounds to the end, cut at {big[1]})")
     return laps
+
+
+def check_span(*phases):
+    """The span's pair in one launch against two separate bid_top2 calls,
+    bitwise (v1, j1, v2 of both), on the LAPs of the given phases."""
+    for kw in phases:
+        x, c = kw["x"], kw["c"]
+        pn = 2.0 * torch.stack([(cg * cg).sum(dim=-1) for cg in c])
+        pair = bid_top2_module.bid_top2_span(x, c, pn)
+        two = (cuda_bid_top2(x, c, torch.zeros_like(pn)),
+               cuda_bid_top2(-x, c, pn))
+        for got, want in zip(pair, two):
+            for g, w in zip(got, want):
+                check(torch.equal(g, w), "the span pair differs from two "
+                      "bid_top2 calls")
+    dummies = [int((~kw["is_real"]).sum()) if kw["is_real"] is not None
+               else 0 for kw in phases]
+    check(dummies[0] == 0 and dummies[-1] > 0, f"dummy rows {dummies}")
+    log(f"bid_top2 span pair (one launch) bitwise equal to two bid_top2 "
+        f"calls on {len(phases)} LAPs of the main data (dummy rows "
+        f"{dummies})")
 
 
 def measure_auction_phase(dev, laps) -> dict:
@@ -629,8 +748,8 @@ def main_path(dev, n: int, card: str) -> dict:
           and first_used["rounds"] == used["rounds"],
           "the second call gave other labels or rounds than the first")
     laps = -(-n // k) - 1  # every batch after the first, each solved cold
-    check(used["bid_top2"] == 2 * laps and used["auction_phase"] == 4 * laps,
-          f"expected {2 * laps} bid_top2 and {4 * laps} auction_phase "
+    check(used["bid_top2"] == laps and used["auction_phase"] == 4 * laps,
+          f"expected {laps} bid_top2 (the span) and {4 * laps} auction_phase "
           f"launches for {laps} LAPs: {used}")
     sizes = res.cluster_sizes.cpu().numpy()
     check(sizes.sum() == n and sizes.min() == n // k
@@ -907,6 +1026,11 @@ def measure_entry_kernels(dev, errs) -> list:
         f"(int64 idx)", errs, lambda: cuda_bid_top2_gather(x, idx, c, p),
         "bid_top2_kernel", lambda: bid_top2_gather_ref(x, idx, c, p), None,
         b_bg, by_bg))
+    c_staged = off_grid(c)
+    rows[-1]["staged_device_ms"] = device_ms(
+        lambda: cuda_bid_top2_gather(x, idx, c_staged, p), "bid_top2_kernel")
+    log(f"bid_top2_gather with c off the 16-byte grid (staged by the "
+        f"threads): device {rows[-1]['staged_device_ms']} ms")
     bsz, s, di, ds = SSM_SHAPE
     b_ss, by_ss = bound_ms(4 * (3 * bsz * s * di + 2 * bsz * s * ds + di * ds
                                 + bsz * di * ds),
@@ -916,7 +1040,47 @@ def measure_entry_kernels(dev, errs) -> list:
         "B={} S={} di={} ds={}".format(*SSM_SHAPE), errs,
         lambda: K.ssm_scan(*ssm), "ssm_scan_kernel",
         lambda: ssm_scan_ref(*ssm), None, b_ss, by_ss, plain_reps=SSM_REPS))
+    # beside the bytes: one expf a state and step, each a MUFU.EX2
+    expf = bsz * s * di * ds
+    rows[-1]["expf"] = expf
+    clock, max_clock = sm_clock_mhz(lambda: K.ssm_scan(*ssm))
+
+    def floor_ms(mhz):
+        return expf / (SMS * EX2_PER_CLOCK_PER_SM * mhz * 1e6) * 1e3
+
+    at_clock = ("not measured (the card ran out of queued calls while the "
+                "clock was read)" if clock is None else
+                f"{floor_ms(clock):.4f} ms at {clock} MHz")
+    log(f"ssm_scan: bytes bound {b_ss:.4f} ms; {expf} expf, special-function "
+        f"floor {floor_ms(BOOST_SM_MHZ):.4f} ms at the data sheet's "
+        f"{BOOST_SM_MHZ} MHz, {at_clock}, the SM clock read while calls ran "
+        f"(max {max_clock} MHz)")
     return rows
+
+
+def sm_clock_mhz(fn) -> tuple[int | None, int]:
+    """The SM clock nvidia-smi reads while queued calls of ``fn`` keep the
+    card busy, and the card's maximum SM clock, in MHz.  Calls are queued
+    until the reading returns; the first is None if the queue ran dry on
+    the way (the card idled, so the clock read may be an idle one)."""
+    for _ in range(100):
+        fn()
+    last = torch.cuda.Event()
+    last.record()
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader,nounits"], stdout=subprocess.PIPE, text=True)
+    busy = True
+    while smi.poll() is None:
+        busy &= not last.query()  # the calls queued so far are not all done
+        fn()
+        last = torch.cuda.Event()
+        last.record()
+    out = smi.communicate(timeout=60)[0].strip().splitlines()[0]
+    torch.cuda.synchronize()
+    check(smi.returncode == 0, f"nvidia-smi exited {smi.returncode}")
+    clock, max_clock = (int(v) for v in out.split(","))
+    return (clock if busy else None), max_clock
 
 
 def timed_row(name, source, replaces, shape, errs, fn, kernel, plain,
@@ -947,10 +1111,16 @@ def main():
     ap.add_argument("--n", type=int, default=PRESETS["diabetes"][0],
                     help="rows of the main-path run, cut for development "
                          "runs only (default: diabetes, 253680)")
+    ap.add_argument("--bid-top2-bits", action="store_true",
+                    help="print only bid_top2's digests at phase 2's "
+                         "shapes and exit")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
     dev = torch.device("cuda", 0)
+    if args.bid_top2_bits:
+        log(json.dumps({"root": ROOT, "bid_top2": bid_top2_bits(dev)}))
+        return
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -969,6 +1139,8 @@ def main():
 
     phase("phase 2: kernels against their plain versions")
     err = check_bid_top2(dev)
+    log(f"bid_top2 bits at phase 2's shapes on Gaussian floats: "
+        f"{json.dumps(bid_top2_bits(dev))}")
     solve_rows = [measure_bid_top2(dev, err), check_and_measure_gather(dev)]
     laps = check_auction_phase(dev)
     solve_rows.append(measure_auction_phase(dev, laps))

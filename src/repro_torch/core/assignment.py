@@ -175,11 +175,11 @@ def _solve_factored(x, c, is_real, config: AuctionConfig, prices=None):
         return (torch.zeros((G, 1), dtype=torch.int64, device=x.device),
                 x.new_zeros((G, 1)) if prices is None else prices.to(DTYPE))
     # Span for the eps schedule: the max of the cost is bid_top2 at zero
-    # prices, its min the max of the negated values (x -> -x, p = 2||c||^2).
-    # ||c||^2 is summed group by group so that it does not depend on G.
+    # prices, its min the max of the negated values (x -> -x, p = 2||c||^2);
+    # the two bids are one launch on the card.  ||c||^2 is summed group by
+    # group so that it does not depend on G.
     cn = torch.stack([(cg * cg).sum(dim=-1) for cg in c])
-    hi_v1 = bid_top2(x, c, x.new_zeros((G, n)))[0]
-    lo_v1 = bid_top2(-x, c, 2.0 * cn)[0]
+    (hi_v1, _, _), (lo_v1, _, _) = ops.bid_top2_span(x, c, 2.0 * cn)
     if is_real is None:
         hi = hi_v1.amax(dim=1)
         lo = -lo_v1.amax(dim=1)

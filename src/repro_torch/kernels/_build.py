@@ -47,9 +47,11 @@ _SYMBOLS = {
                       (_P,) * 14 + (_I, _I, _I, _I, _I, _P)),
 }
 # further C functions of a source's library: symbol -> argument types.  The
-# phase kernel's timed instantiation is for measurement only and counts as
-# a launch of "auction_phase".
+# span's pair counts as a launch of "bid_top2"; the phase kernel's timed
+# instantiation is for measurement only and counts as a launch of
+# "auction_phase".
 _MORE_SYMBOLS = {
+    "bid_top2_span_f32": _SYMBOLS["bid_top2"][1],
     "auction_phase_timed_f32": (_P,) * 14 + (_I,) * 5 + (_P, _I, _I, _P),
 }
 

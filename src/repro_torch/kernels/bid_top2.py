@@ -2,7 +2,9 @@
 
 Counterpart of ``repro/kernels/bid_top2.py``'s ``bid_top2_pallas``.  A CUDA
 tensor launches the kernel (or raises); a CPU tensor runs the plain version
-``repro_torch.kernels.ref.bid_top2_ref``.  Launches are counted in
+``repro_torch.kernels.ref.bid_top2_ref``.  :func:`bid_top2_span` is the
+factored auction's span pair in one launch (plain version
+``bid_top2_span_ref``).  Launches are counted in
 ``_build.launches["bid_top2"]``.
 """
 
@@ -11,7 +13,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import bid_top2_ref
+from repro_torch.kernels.ref import bid_top2_ref, bid_top2_span_ref
 
 
 def bid_top2(x: torch.Tensor, c: torch.Tensor, prices: torch.Tensor):
@@ -23,13 +25,27 @@ def bid_top2(x: torch.Tensor, c: torch.Tensor, prices: torch.Tensor):
     """
     if not x.is_cuda:
         return bid_top2_ref(x, c, prices)
-    return _launch(x, c, prices)
-
-
-def _launch(x, c, prices):
     squeeze = x.dim() == 2
     if squeeze:
         x, c, prices = x[None], c[None], prices[None]
+    v1, j1, v2 = _launch("bid_top2_f32", 1, x, c, prices)
+    return (v1[0, 0], j1[0, 0], v2[0, 0]) if squeeze else (v1[0], j1[0], v2[0])
+
+
+def bid_top2_span(x: torch.Tensor, c: torch.Tensor, prices: torch.Tensor):
+    """``(bid_top2(x, c, 0), bid_top2(-x, c, prices))`` on a (G, m, d),
+    (G, k, d), (G, k) stack: the two bids behind the factored auction's
+    span.  On the card one launch (grid axis z is the pair, the rows of the
+    second negated as they are loaded), bitwise the two calls."""
+    if not x.is_cuda:
+        return bid_top2_span_ref(x, c, prices)
+    v1, j1, v2 = _launch("bid_top2_span_f32", 2, x, c, prices)
+    return (v1[0], j1[0], v2[0]), (v1[1], j1[1], v2[1])
+
+
+def _launch(symbol, slots, x, c, prices):
+    """(slots, G, m) v1, j1, v2 of the kernel's entry ``symbol`` on a
+    (G, m, d), (G, k, d), (G, k) stack."""
     if x.dim() != 3 or c.dim() != 3 or prices.dim() != 2:
         raise ValueError(f"bid_top2 takes (m, d), (k, d), (k,) or a (G, ...) "
                          f"stack; got {tuple(x.shape)}, {tuple(c.shape)}, "
@@ -41,13 +57,12 @@ def _launch(x, c, prices):
                          f"c {tuple(c.shape)}, prices {tuple(prices.shape)}")
     if G > 65535:
         raise ValueError(f"bid_top2 takes at most 65535 groups, got {G}")
-    stream = _build.check_operands("bid_top2", x=x, c=c,
-                                   prices=prices)
-    v1, j1, v2 = top2_outputs((G, m), x.device)
+    stream = _build.check_operands("bid_top2", x=x, c=c, prices=prices)
+    v1, j1, v2 = top2_outputs((slots, G, m), x.device)
     _build.launch("bid_top2", x.data_ptr(), c.data_ptr(), prices.data_ptr(),
                   v1.data_ptr(), j1.data_ptr(), v2.data_ptr(), G, m, k, d,
-                  stream)
-    return (v1[0], j1[0], v2[0]) if squeeze else (v1, j1, v2)
+                  stream, symbol=symbol)
+    return v1, j1, v2
 
 
 def top2_outputs(shape, device):

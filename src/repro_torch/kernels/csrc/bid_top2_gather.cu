@@ -12,16 +12,17 @@
 // 1.4 us of operations at 67 TFLOP/s against 0.27 us of bytes, so fp32
 // operations bound it.
 //
-// Design: the kernel of bid_top2.cu (bid_top2.cuh), with one difference.
-// Before the tile loop each CTA loads its 16 indices, clips them to
-// [0, n - 1] and keeps the row offsets in shared memory; the staging of
-// each d-tile then reads x through them.  The gathered rows live only in
-// the CTA's shared-memory tile, never in global memory.  The TPU kernel's
-// DMA ring overlaps row copies on an in-order core; on Hopper many CTAs in
-// flight hide the latency of the scattered row reads instead.  The top-2
-// merge, the tie rule (lowest column; a doubled maximum gives v2 == v1),
-// the masking of columns past k and the fp32 FMA order are those of
-// bid_top2.cu, so the result is bitwise bid_top2(gather_rows(x, idx), ...).
+// Design: the kernel of bid_top2.cu (bid_top2.cuh), with one difference:
+// the CTA stages its rows through the index, each clipped to [0, n - 1],
+// while the TMA brings c.  At 8192 rows the launch takes the wide tile (32
+// rows a CTA, 4 rows by 8 columns a lane: 256 CTAs).  The gathered rows
+// live only in the CTA's shared-memory tile, never in global memory.  The
+// TPU kernel's DMA ring overlaps row copies on an in-order core; on Hopper
+// many CTAs in flight hide the latency of the scattered row reads instead.
+// The top-2 merge, the tie rule (lowest column; a doubled maximum gives
+// v2 == v1), the masking of columns past k and the fp32 FMA order are those
+// of bid_top2.cu, so the result is bitwise bid_top2(gather_rows(x, idx),
+// ...).
 
 #include "bid_top2.cuh"
 
@@ -35,9 +36,9 @@ extern "C" int bid_top2_gather_f32(const float* x, const void* idx,
                                    void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err = idx_is_64
-      ? bid::launch(x, static_cast<const int64_t*>(idx), n, c, p, v1, j1, v2,
-                    1, m, k, d, s)
-      : bid::launch(x, static_cast<const int32_t*>(idx), n, c, p, v1, j1, v2,
-                    1, m, k, d, s);
+      ? bid::launch(x, static_cast<const int64_t*>(idx), n, c, p, nullptr, v1,
+                    j1, v2, 1, 1, m, k, d, s)
+      : bid::launch(x, static_cast<const int32_t*>(idx), n, c, p, nullptr, v1,
+                    j1, v2, 1, 1, m, k, d, s);
   return static_cast<int>(err);
 }

@@ -7,7 +7,9 @@ the plain version on the card too; it exists so that ``chip_smoke.py`` can
 run the whole path against the plain versions, the counterpart of JAX's
 ``force=``.
 
-``auction_phase`` runs one epsilon phase of the factored auction: the phase
+``bid_top2_span`` is the factored auction's two span bids (x at zero
+prices, -x at the given ones) in one launch.  ``auction_phase`` runs one
+epsilon phase of the factored auction: the phase
 kernel on the card, the Python round loop ``ref.auction_phase_ref`` (over
 ``bid_top2_ref``) on the plain path.
 
@@ -28,9 +30,11 @@ import torch
 from repro_torch.kernels import gather as _gather
 from repro_torch.kernels.auction_phase import auction_phase as _auction_phase
 from repro_torch.kernels.bid_top2 import bid_top2 as _bid_top2
+from repro_torch.kernels.bid_top2 import bid_top2_span as _bid_top2_span
 from repro_torch.kernels.cdist import cdist as _cdist
 from repro_torch.kernels.ref import (auction_phase_ref, bid_top2_ref,
-                                     cdist_ref, gather_rows_ref)
+                                     bid_top2_span_ref, cdist_ref,
+                                     gather_rows_ref)
 
 _GATHER_FUSE_MAX_D = 512  # the reference's full-row limit of the fused kernels
 
@@ -110,6 +114,15 @@ def bid_top2(x: torch.Tensor, c: torch.Tensor, prices: torch.Tensor, *,
     if resolve_path(x) == "ref":
         return bid_top2_ref(x, c, prices)
     return _bid_top2(x, c, prices)
+
+
+def bid_top2_span(x: torch.Tensor, c: torch.Tensor, prices: torch.Tensor):
+    """``(bid_top2(x, c, 0), bid_top2(-x, c, prices))`` on a stacked
+    ``(G, m, d) x (G, k, d)`` with ``(G, k)`` prices: one launch on the
+    card, the two plain calls on the plain path."""
+    if resolve_path(x) == "ref":
+        return bid_top2_span_ref(x, c, prices)
+    return _bid_top2_span(x, c, prices)
 
 
 def auction_phase(x: torch.Tensor, c: torch.Tensor, is_real, prices, eps,

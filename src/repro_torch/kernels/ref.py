@@ -93,6 +93,13 @@ def bid_top2_ref(x: torch.Tensor, c: torch.Tensor, prices: torch.Tensor):
     return top2(vals)
 
 
+def bid_top2_span_ref(x: torch.Tensor, c: torch.Tensor, prices: torch.Tensor):
+    """The factored auction's span bids: ``bid_top2_ref(x, c, 0)`` and
+    ``bid_top2_ref(-x, c, prices)``, two calls."""
+    return (bid_top2_ref(x, c, torch.zeros_like(prices)),
+            bid_top2_ref(-x, c, prices))
+
+
 def gather_rows_ref(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``x[clip(idx, 0, n - 1)]`` as float32: (n, d), (m,) -> (m, d)."""
     return x[idx.long().clamp(0, x.shape[0] - 1)].float()

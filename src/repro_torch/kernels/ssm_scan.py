@@ -17,7 +17,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import ssm_scan_chunk_ref, ssm_scan_ref
 
-MAX_STATE = 64  # d_state a kernel thread group holds in registers
+MAX_STATE = 64  # d_state a channel's two lanes hold in registers
 
 
 def ssm_scan(dt, b_in, c_out, x_in, a_mat):

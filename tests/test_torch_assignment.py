@@ -23,7 +23,8 @@ from repro.core.assignment import \
 from repro_torch import state_from_numpy
 from repro_torch.core.assignment import (AuctionConfig, auction_solve,
                                          auction_solve_factored)
-from repro_torch.kernels import ref
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.bid_top2 import bid_top2_span
 
 CPU = "cpu"
 
@@ -178,3 +179,38 @@ def test_fixed_rounds_past_convergence_equals_the_loop():
     fixed = auction_solve(cost, config=AuctionConfig(fixed_rounds=2000),
                           return_prices=True, device=CPU)
     assert torch.equal(loop[0], fixed[0]) and torch.equal(loop[1], fixed[1])
+
+
+def _two_call_span(x, c, prices):
+    """The span as the factored solve formed it before the paired launch:
+    two ``ops.bid_top2`` calls, at zero prices and with ``-x``."""
+    return (ops.bid_top2(x, c, x.new_zeros(prices.shape)),
+            ops.bid_top2(-x, c, prices))
+
+
+@pytest.mark.parametrize("G,n,d", [(1, 18, 5), (3, 18, 5), (2, 33, 1)])
+def test_span_pair_equals_two_calls_bitwise(G, n, d):
+    """The paired span on the plain path (the dispatcher's and the CUDA
+    wrapper's, on CPU tensors) is the two separate calls, bit for bit: v1,
+    j1 and v2 of both slots."""
+    x, c, _ = _factored_instance(300 + G * n + d, G, n, d)
+    x, c = torch.from_numpy(x), torch.from_numpy(c)
+    prices = 2.0 * (c * c).sum(dim=-1)
+    want = _two_call_span(x, c, prices)
+    for span in (ops.bid_top2_span, bid_top2_span):
+        for got_slot, want_slot in zip(span(x, c, prices), want):
+            for g, w in zip(got_slot, want_slot):
+                assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("seed", range(12))
+def test_factored_solve_unchanged_by_the_paired_span(monkeypatch, seed):
+    """The factored solve's labels and prices are those of the two-call span
+    (the seeds and shapes of the stacked-vs-per-instance test)."""
+    x, c, ir = _factored_instance(1000 + seed, 3, 18, 5, n_real=[18, 13, 5])
+    got = auction_solve_factored(x, c, is_real=ir, return_prices=True,
+                                 device=CPU)
+    monkeypatch.setattr(ops, "bid_top2_span", _two_call_span)
+    want = auction_solve_factored(x, c, is_real=ir, return_prices=True,
+                                  device=CPU)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

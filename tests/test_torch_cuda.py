@@ -17,6 +17,7 @@ import repro_torch.kernels as K
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels import auction_phase as phase_kernel
 from repro_torch.kernels.bid_top2 import bid_top2 as cuda_bid_top2
+from repro_torch.kernels.bid_top2 import bid_top2_span as cuda_bid_top2_span
 from repro_torch.kernels.cdist import cdist as cuda_cdist
 from repro_torch.kernels.gather import bid_top2_gather as cuda_bid_gather
 from repro_torch.kernels.gather import cdist_gather as cuda_cdist_gather
@@ -67,6 +68,54 @@ def test_cuda_bid_top2_vs_plain(cuda, G, m, k, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("G,m,k,d", [(1, 1, 256, 22), (3, 37, 256, 22),
+                                     (1, 4097, 256, 22), (1, 300, 513, 22),
+                                     (1, 300, 256, 1), (3, 130, 300, 200),
+                                     (1, 4097, 513, 200)])
+def test_cuda_bid_top2_uneven_tiles(cuda, G, m, k, d):
+    """Shapes the grid splits unevenly: one row, rows past the last full
+    CTA of either tile (2 and 32 rows), k past one pass or past what stays
+    in shared memory, d = 1 and 200, G = 3; exact on integers.  On floats
+    the staged path (c 4 bytes off the TMA's 16-byte grid) gives the bits
+    of the bulk copy, and the first 64 rows of the wide tile those of the
+    narrow one."""
+    x, c, p = (t.to(cuda) for t in _int_inputs(G * m + k + d, m, k, d, G))
+    got = _counted("bid_top2", cuda_bid_top2, x, c, p)
+    for g, w in zip(got, bid_top2_ref(x, c, p)):
+        assert torch.equal(g, w)
+    xf, cf = torch.randn_like(x), torch.randn_like(c)
+    shifted = torch.randn(cf.numel() + 1, device=cuda)[1:].view(cf.shape)
+    shifted.copy_(cf)
+    assert shifted.data_ptr() % 16 != 0
+    got = cuda_bid_top2(xf, cf, p)
+    for g, w in zip(got, cuda_bid_top2(xf, shifted, p)):
+        assert torch.equal(g, w)
+    for g, w in zip(got, cuda_bid_top2(xf[:, :64].contiguous(), cf, p)):
+        assert torch.equal(g[:, :64], w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,n,d,dummies", [(1, 256, 22, 0), (3, 256, 22, 16),
+                                           (1, 64, 200, 0), (2, 4097, 5, 3)])
+def test_cuda_bid_top2_span_equals_two_calls(cuda, G, n, d, dummies):
+    """The span's pair in one launch is bitwise the two separate calls,
+    bid_top2(x, c, 0) and bid_top2(-x, c, 2 ||c||^2), also with zero
+    (dummy) rows."""
+    gen = torch.Generator().manual_seed(G * n + d)
+    x = torch.randn((G, n, d), generator=gen).to(cuda)
+    c = torch.randn((G, n, d), generator=gen).to(cuda)
+    if dummies:
+        x[:, n - dummies:] = 0.0
+    prices = 2.0 * torch.stack([(cg * cg).sum(dim=-1) for cg in c])
+    pair = _counted("bid_top2", cuda_bid_top2_span, x, c, prices)
+    want = (cuda_bid_top2(x, c, torch.zeros_like(prices)),
+            cuda_bid_top2(-x, c, prices))
+    for got_slot, want_slot in zip(pair, want):
+        for g, w in zip(got_slot, want_slot):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("d", [1, 3, 22, 32, 33, 200])
 @pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
 def test_cuda_gather_rows_bitwise(cuda, d, idx_dtype):
@@ -95,7 +144,7 @@ def test_cuda_stream_path_launches_kernels_and_matches_plain(cuda):
     res = anticluster(x.to(cuda), **kw)
     laps = 4096 // 64 - 1  # every batch after the first, cold: 4 phases
     assert _build.launches["gather_rows"] > n0["gather_rows"]
-    assert _build.launches["bid_top2"] - n0["bid_top2"] == 2 * laps
+    assert _build.launches["bid_top2"] - n0["bid_top2"] == laps  # the span
     assert _build.launches["auction_phase"] - n0["auction_phase"] == 4 * laps
     with ops.forced_path("ref"):
         n1 = dict(_build.launches)
@@ -193,10 +242,15 @@ def _ssm_inputs(lead, di, ds, device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bsz,s,di,ds", [(2, 64, 512, 16), (3, 37, 100, 8),
-                                         (1, 20, 64, 24), (2, 9, 48, 64)])
+                                         (1, 20, 64, 24), (2, 9, 48, 64),
+                                         (2, 5, 130, 1), (1, 33, 200, 17),
+                                         (1, 100, 64, 64), (4, 17, 70, 16),
+                                         (65537, 2, 3, 2)])
 def test_cuda_ssm_scan_vs_plain(cuda, bsz, s, di, ds):
     """Within rtol 1e-4 / atol 1e-4 (exp and the sum order of y_t differ),
-    in both layouts, and from a nonzero h0."""
+    in both layouts, and from a nonzero h0; d_inner past the last full
+    64-channel CTA, S past the last full 16-step tile or under one tile,
+    d_state from 1 to 64, more batches than a grid's y axis holds."""
     args = _ssm_inputs((bsz, s), di, ds, cuda)
     y, h = _counted("ssm_scan", K.ssm_scan, *args)
     want_y, want_h = ssm_scan_ref(*args)
