@@ -19,7 +19,11 @@ git-ignored ``build/``), then runs these phases, one or more lines each:
    single-bidder rounds; then the SM clock cycles of every round of the
    first 16 LAPs by bidder count, from the kernel's timed instantiation,
    under its own crossover and with every round sent to each of its two
-   paths), then the kernel entry point's
+   paths), ``auction_phase_dense`` (every phase of 65 LAPs of the main
+   data on the default flat route, a G = 3 warm stack with skip/seed,
+   ``fixed_rounds``, a biting ``max_rounds``, integer costs, n = 1, 512
+   and 8192, all bitwise against the every-round Python loop over
+   ``top2``), then the kernel entry point's
    ``cdist``, ``cdist_gather``, ``bid_top2_gather`` and ``ssm_scan`` at the
    shapes phase 5 gives them (``ssm_scan`` also with its expf count and
    their special-function floor at the data sheet's clock and at the SM
@@ -30,12 +34,20 @@ git-ignored ``build/``), then runs these phases, one or more lines each:
    process's first call of that path, then a second, identical one (the
    main call) with the kernels' launch counters zeroed just before it and
    read just after, then a profile of the first few batches of one chunk;
-4. the same path at n = 16 384 against the plain kernels;
+4. the same path at n = 16 384 against the plain kernels, and the default
+   spec's flat route at n = 16 384 against the forced plain path (the
+   Python loop over ``top2``): labels bitwise equal, both times;
 5. the kernel entry point ``repro_torch.kernels`` at full size, driven
    once with the launch counters zeroed just before and read just after:
    ``cdist`` of the diabetes rows against k = 256 centroids,
    ``cdist(idx=)`` and ``bid_top2(idx=)`` on one streaming chunk's 8192
    indices, and ``ssm_scan`` at one falcon-mamba-7b layer's width;
+6. the default route: ``anticluster(x, k=256)`` with the default spec on
+   phase 3's rows (the ``"flat"`` route, the dense ``"auction"`` solver,
+   every phase one ``auction_phase_dense`` launch), a first call and the
+   main call with the counters zeroed just before it and read just after,
+   logged beside phase 3's stream route; then a stacked (4, 16384, 22)
+   input through the same solver;
 
 then one JSON line describing every kernel, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises, exits non-zero and
@@ -54,6 +66,7 @@ from __future__ import annotations
 import argparse
 import hashlib
 import importlib
+import inspect
 import json
 import os
 import statistics
@@ -135,18 +148,22 @@ def time_ms(fn, reps: int = 30, warmup: int = 5) -> float:
 
 def device_ms(fn, name: str, reps: int = 20) -> float | None:
     """Mean device time of the kernels named ``name`` per call, from the
-    profiler; None where it records no device activity."""
+    profiler; None where it records no device activity in three profiled
+    runs (one run sometimes records none)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(_self_device_us(e) for e in prof.key_averages()
-             if _is_kernel(e) and name in e.key)
-    return us / reps / 1e3 if us else None
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(_self_device_us(e) for e in prof.key_averages()
+                 if _is_kernel(e) and name in e.key)
+        if us:
+            return us / reps / 1e3
+    return None
 
 
 def _self_device_us(evt) -> float:
@@ -174,11 +191,12 @@ def reset_counts():
 
 def counts() -> dict:
     """Launches per kernel, and the bidding rounds of the Python loop and
-    of the phase kernel (read from the card) with the kernel's bids and
-    rounds with a single bidder."""
+    of the phase kernels (read from the card; ``plain_rounds``: the loop's
+    alone) with the kernels' bids and rounds with a single bidder."""
     kernel = phase_kernel.totals()
     return {**_build.launches, "rounds": ref.rounds_executed
-            + kernel["rounds"], "bids": kernel["bids"],
+            + kernel["rounds"], "plain_rounds": ref.rounds_executed,
+            "bids": kernel["bids"],
             "single_bidder_rounds": kernel["single_bidder_rounds"]}
 
 
@@ -379,36 +397,37 @@ def check_and_measure_gather(dev) -> dict:
 
 
 class PhaseRecorder:
-    """Within the block every ``ops.auction_phase`` call (the factored
-    solver's phases) runs as usual and is recorded: its inputs, outputs and
-    the kernel's rounds, bids and single-bidder rounds (a sync per phase:
-    checks only)."""
+    """Within the block every call of the dispatcher ``ops.<name>``
+    (``auction_phase``: the factored solver's phases; ``auction_phase_dense``:
+    the dense solver's) runs as usual and is recorded: its arguments by
+    name, outputs and the kernel's rounds, bids and single-bidder rounds (a
+    sync per phase: checks only)."""
 
-    def __init__(self):
+    def __init__(self, name: str = "auction_phase"):
+        self.name = name
         self.calls = []
 
     def __enter__(self):
-        self.inner = ops.auction_phase
+        self.inner = getattr(ops, self.name)
+        signature = inspect.signature(self.inner)
 
-        def recorded(x, c, is_real, prices, eps, max_rounds,
-                     fixed_rounds=0, *, skip=None, seed_top2=None):
-            kw = dict(x=x, c=c, is_real=is_real, prices=prices.clone(),
-                      eps=eps, max_rounds=max_rounds,
-                      fixed_rounds=fixed_rounds, skip=skip,
-                      seed_top2=seed_top2)
+        def recorded(*args, **kwargs):
+            bound = signature.bind(*args, **kwargs)
+            bound.apply_defaults()
+            kw = dict(bound.arguments)
+            kw["prices"] = kw["prices"].clone()
             t0 = phase_kernel.totals()
-            out = self.inner(x, c, is_real, prices, eps, max_rounds,
-                             fixed_rounds, skip=skip, seed_top2=seed_top2)
+            out = self.inner(*args, **kwargs)
             t1 = phase_kernel.totals()
             self.calls.append({"kw": kw, "out": out,
                                **{key: t1[key] - t0[key] for key in t1}})
             return out
 
-        ops.auction_phase = recorded
+        setattr(ops, self.name, recorded)
         return self
 
     def __exit__(self, *exc):
-        ops.auction_phase = self.inner
+        setattr(ops, self.name, self.inner)
 
 
 def loop_over_bid_top2(x, c, is_real, prices, eps, max_rounds,
@@ -420,14 +439,15 @@ def loop_over_bid_top2(x, c, is_real, prices, eps, max_rounds,
                               seed_top2)
 
 
-def python_loop(kw, check_every=1):
-    """The Python round loop over the CUDA bid_top2 kernel, its predicate
-    tested every ``check_every`` rounds; returns (assign, prices, counts):
-    its rounds, bids and single-bidder rounds."""
+def python_loop(kw, check_every=1, loop=loop_over_bid_top2):
+    """A phase by the Python round loop (by default over the CUDA bid_top2
+    kernel; ``ref.auction_phase_dense_ref`` for a dense phase), its
+    predicate tested every ``check_every`` rounds; returns (assign, prices,
+    counts): its rounds, bids and single-bidder rounds."""
     saved, ref._CHECK_EVERY = ref._CHECK_EVERY, check_every
     r0, b0 = ref.rounds_executed, ref.bid_totals()
     try:
-        a, p = loop_over_bid_top2(**kw)
+        a, p = loop(**kw)
     finally:
         ref._CHECK_EVERY = saved
     b1 = ref.bid_totals()
@@ -435,17 +455,18 @@ def python_loop(kw, check_every=1):
                   **{key: b1[key] - b0[key] for key in b1}}
 
 
-def check_phase_calls(calls, what) -> int:
+def check_phase_calls(calls, what, loop=loop_over_bid_top2,
+                      kernel="auction_phase") -> int:
     """Each recorded kernel phase against the every-round Python loop:
     assignments and prices bitwise, rounds, bids and single-bidder rounds
     equal.  Returns the phases checked."""
     for i, call in enumerate(calls):
-        a, p, loop_counts = python_loop(call["kw"])
+        a, p, loop_counts = python_loop(call["kw"], loop=loop)
         got_a, got_p = call["out"]
         check(torch.equal(got_a, a) and torch.equal(got_p, p),
-              f"auction_phase differs from the Python loop: {what}, phase {i}")
+              f"{kernel} differs from the Python loop: {what}, phase {i}")
         for key, want in loop_counts.items():
-            check(call[key] == want, f"auction_phase ran {call[key]} {key}, "
+            check(call[key] == want, f"{kernel} ran {call[key]} {key}, "
                   f"the Python loop {want}: {what}, phase {i}")
     return len(calls)
 
@@ -575,6 +596,140 @@ def measure_auction_phase(dev, laps) -> dict:
             "replaces": "src/repro/core/assignment.py:115 (the lax.while_loop "
                         "of _auction_phase; no pallas_call)",
             "shape": f"one LAP: 4 phases, G=1 n={n} d={d}, {rounds} rounds, "
+                     f"{bids} bids",
+            "max_abs_err": 0.0, "ms": ms, "device_ms": dms,
+            "plain_ms": plain, "bound_ms": b, "bound_by": by,
+            "library_ms": None}
+
+
+def dense_inputs(gen, G, n, integer, dev):
+    """A (G, n, n) cost stack (integers in [-3, 3], or Gaussian floats
+    times 5) with the last group's last quarter of rows zeroed, as
+    ``_assign_batch`` zeroes dummy rows."""
+    if integer:
+        cost = torch.randint(-3, 4, (G, n, n), generator=gen).float()
+    else:
+        cost = torch.randn((G, n, n), generator=gen) * 5
+    cost[-1, n - n // 4:] = 0.0
+    return cost.to(dev)
+
+
+def check_auction_phase_dense(dev) -> list:
+    """The dense phase kernel against the Python loop over ``ref.top2``,
+    bitwise, with equal rounds, bids and single-bidder rounds: every phase
+    of the first CHECK_LAPS LAPs of the main data on the default spec's flat
+    route (the cost as ``_assign_batch`` builds it; the last LAP with 16
+    dummy rows), then a G = 3 stack of three of those LAPs warm (skip,
+    seed), with fixed_rounds and with a max_rounds cap that bites, integer
+    costs (ties), n = 1, n = 512 (max_k) and n = 8192 (the per-row state
+    in device memory).  Returns the main data's phases."""
+    n, d, _ = PRESETS["diabetes"]
+    k = 256
+    rows = (CHECK_LAPS + 1) * k - 16
+    x = torch.from_numpy(make("mixture", n, d, seed=0)[:rows]).to(dev)
+    with PhaseRecorder("auction_phase_dense") as rec:
+        res = anticluster(x, k=k, device=dev)
+    check(res.route == "flat" and res.solver == "auction",
+          f"route {res.route} solver {res.solver}")
+    check(len(rec.calls) == 4 * CHECK_LAPS, f"{len(rec.calls)} phases")
+    laps = rec.calls
+    last = CHECK_LAPS - 1
+    lap_cost = laps[4 * last]["kw"]["cost"]
+    dummy_rows = int((lap_cost[0].abs().sum(1) == 0).sum())
+    check(dummy_rows == 16, f"the last LAP has {dummy_rows} zero cost rows")
+    loop = ref.auction_phase_dense_ref
+    what = "auction_phase_dense"
+    check_phase_calls(laps, "main data", loop, what)
+    log(f"auction_phase_dense: {len(laps)} phases of the first {CHECK_LAPS} "
+        f"LAPs of the main data on the flat route (n={k}, the cost of "
+        f"_assign_batch, the last LAP with {dummy_rows} dummy rows): "
+        f"assignments and prices bitwise equal to the every-round Python "
+        f"loop over top2; rounds, bids and single-bidder rounds equal")
+
+    costs = torch.cat([laps[4 * i]["kw"]["cost"] for i in (0, 1, last)])
+    warm = torch.cat([laps[4 * i + 3]["out"][1] for i in (0, 1, last)])
+    gen = torch.Generator().manual_seed(9)
+    cases = {
+        "G=3 warm, skip, seed": (costs, asg.AuctionConfig(), warm),
+        "G=3 fixed_rounds=60": (costs, asg.AuctionConfig(fixed_rounds=60),
+                                None),
+        "G=3 max_rounds=5": (costs, asg.AuctionConfig(max_rounds=5), None),
+        "G=3 n=48 integers": (dense_inputs(gen, 3, 48, True, dev),
+                              asg.AuctionConfig(), None),
+        "G=3 n=48 integers warm": (dense_inputs(gen, 3, 48, True, dev),
+                                   asg.AuctionConfig(),
+                                   torch.randint(0, 4, (3, 48), generator=gen)
+                                   .float().to(dev)),
+        "n=512 floats": (dense_inputs(gen, 1, 512, False, dev),
+                         asg.AuctionConfig(), None),
+    }
+    checked = 0
+    for name, (cost, cfg, prices) in cases.items():
+        with PhaseRecorder("auction_phase_dense") as rec:
+            asg.auction_solve(cost, cfg, prices=prices, device=dev)
+        if prices is not None:
+            skips = [c["kw"]["skip"] for c in rec.calls]
+            check(any(s is not None and bool(s.any()) for s in skips)
+                  and rec.calls[0]["kw"]["seed_top2"] is not None,
+                  f"{name}: the warm stack skipped no phase")
+        checked += check_phase_calls(rec.calls, name, loop, what)
+    # n = 1 (the solver never launches it: a direct call) and n = 8192,
+    # the per-row state in device memory: to the end and cut by a cap
+    direct = [("n=1", dense_inputs(gen, 2, 1, False, dev), 1000)]
+    big = dense_inputs(gen, 1, 8192, False, dev)
+    direct += [("n=8192", big, 50 * 8192 + 1000), ("n=8192", big, 40)]
+    big_rounds = []
+    for name, cost, cap in direct:
+        G, nn = cost.shape[:2]
+        with PhaseRecorder("auction_phase_dense") as rec:
+            ops.auction_phase_dense(cost, torch.zeros((G, nn), device=dev),
+                                    torch.full((G,), 2.0, device=dev), cap)
+        checked += check_phase_calls(rec.calls, f"{name} max_rounds={cap}",
+                                     loop, what)
+        if name == "n=8192":
+            big_rounds.append(rec.calls[0]["rounds"])
+    del big
+    log(f"auction_phase_dense: {checked} more phases bitwise equal with "
+        f"equal rounds, bids and single-bidder rounds: {', '.join(cases)}, "
+        f"n=1, n=8192 (state in device memory; {big_rounds[0]} rounds to "
+        f"the end, cut at {big_rounds[1]})")
+    return laps
+
+
+def measure_auction_phase_dense(dev, laps) -> dict:
+    """One LAP of the main data on the flat route (its four dense phases)
+    by the kernel and by the Python loop over top2 as the parent ran it
+    (predicate every _CHECK_EVERY rounds); the bound from the bytes of the
+    cost rows the LAP's counted bids read, or its subtractions."""
+    lap = laps[4:8]  # the second LAP
+    n = lap[0]["kw"]["cost"].shape[1]
+
+    def kernel():
+        for call in lap:
+            phase_kernel.auction_phase_dense(**call["kw"])
+
+    def loop():
+        for call in lap:
+            ref.auction_phase_dense_ref(**call["kw"])
+
+    ms = time_ms(kernel)
+    dms = device_ms(kernel, "auction_phase_kernel")
+    plain = time_ms(loop, reps=3, warmup=1)
+    bids = sum(c["bids"] for c in lap)
+    rounds = sum(c["rounds"] for c in lap)
+    # a bid reads its row of n costs; per phase prices and eps in,
+    # assignment (int64) and prices out
+    n_bytes = 4 * bids * n + 4 * (4 * (n + 1) + 12 * n)
+    b, by = bound_ms(n_bytes, bids * n)
+    log(f"auction_phase_dense one LAP (4 phases, {rounds} rounds, {bids} "
+        f"bids): kernel {ms:.4f} ms (device {dms} ms), Python loop over top2 "
+        f"{plain:.2f} ms, bound {b:.6f} ms ({by})")
+    return {"name": "auction_phase_dense", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/auction_phase_dense.cu",
+            "replaces": "src/repro/core/assignment.py:115 (the lax.while_loop "
+                        "of _auction_phase over _top2_batched, :106; no "
+                        "pallas_call)",
+            "shape": f"one LAP: 4 phases, G=1 n={n}, {rounds} rounds, "
                      f"{bids} bids",
             "max_abs_err": 0.0, "ms": ms, "device_ms": dms,
             "plain_ms": plain, "bound_ms": b, "bound_by": by,
@@ -789,6 +944,96 @@ def main_path(dev, n: int, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 6: the default route at full size
+# ---------------------------------------------------------------------------
+
+STACK_SHAPE = (4, 16384, 22)  # the stacked route's check: G, M, D
+
+
+def default_route(dev, n: int, card: str, stream: dict) -> dict:
+    """``anticluster(x, k=256)`` with the default spec on phase 3's rows:
+    the flat route, the dense ``"auction"`` solver, every phase one
+    ``auction_phase_dense`` launch.  A first call, then the main call with
+    the counters zeroed just before it and read just after; then a stacked
+    (G, M, D) input through the same solver."""
+    d, k = PRESETS["diabetes"][1], 256
+    x = torch.from_numpy(make("mixture", n, d, seed=0)).to(dev)
+
+    def call(xx):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = anticluster(xx, k=k, device=dev)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0, counts()
+
+    first, first_s, first_used = call(x)
+    res, main_s, used = call(x)
+    check(res.route == "flat" and res.solver == "auction",
+          f"route {res.route} solver {res.solver}, expected flat / auction")
+    laps = -(-n // k) - 1
+    check(used["auction_phase_dense"] == 4 * laps
+          and used["plain_rounds"] == 0 and used["auction_phase"] == 0,
+          f"expected {4 * laps} auction_phase_dense launches and no round "
+          f"of the Python loop for {laps} LAPs: {used}")
+    check(torch.equal(first.labels, res.labels)
+          and first_used["rounds"] == used["rounds"],
+          "the second call gave other labels or rounds than the first")
+    sizes = res.cluster_sizes.cpu().numpy()
+    check(sizes.sum() == n and sizes.min() == n // k
+          and sizes.max() == -(-n // k), f"unbalanced sizes {sizes.min()}"
+          f"..{sizes.max()}")
+    gap = float(res.gap)
+    check(np.isfinite(gap) and gap >= 0.0, f"gap {gap}")
+    ofv = float(objective_centroid(x, res.labels, k))
+    check(ofv > stream["ofv_random"],
+          f"objective {ofv} not above random {stream['ofv_random']}")
+    rounds = used["rounds"]
+    launched = sum(used[name] for name in _build.launches)
+    digest = hashlib.sha256(res.labels.cpu().numpy().tobytes()).hexdigest()
+    log(f"default route n={n} d={d} k={k} on {card}: route={res.route} "
+        f"solver={res.solver} {main_s:.3f} s (first call {first_s:.3f} s); "
+        f"launches auction_phase_dense={used['auction_phase_dense']} "
+        f"({launched / rounds:.5f} of the port's kernels per round); "
+        f"bidding rounds {rounds} ({rounds / n:.2f} per row, "
+        f"{main_s / rounds * 1e6:.3f} us per round), plain rounds "
+        f"{used['plain_rounds']}, bids {used['bids']}, rounds with a single "
+        f"bidder {used['single_bidder_rounds']} "
+        f"({used['single_bidder_rounds'] / rounds:.4f}); sizes "
+        f"{sizes.min()}..{sizes.max()}; ofv {ofv:.6e} > random "
+        f"{stream['ofv_random']:.6e}; gap {gap:.6e}; labels sha256 "
+        f"{digest[:16]}")
+    log(f"  beside phase 3's stream route (auction_fused): "
+        f"{stream['main_s']:.3f} s, {stream['launches']['rounds']} rounds, "
+        f"{stream['main_us_per_round']:.3f} us per round, ofv "
+        f"{stream['ofv']:.6e}, gap {stream['gap']:.6e}, labels sha256 "
+        f"{stream['labels_sha256'][:16]} (another solver: other labels)")
+    del x
+    xs = torch.from_numpy(make("mixture", int(np.prod(STACK_SHAPE[:2])),
+                               STACK_SHAPE[2], seed=2)).view(STACK_SHAPE)
+    stacked, stacked_s, stacked_used = call(xs.to(dev))
+    G, M, _ = STACK_SHAPE
+    check(stacked.route == "stacked" and stacked.solver == "auction"
+          and stacked_used["auction_phase_dense"] == 4 * (-(-M // k) - 1)
+          and stacked_used["plain_rounds"] == 0,
+          f"stacked route {stacked.route}/{stacked.solver}: {stacked_used}")
+    for g in range(G):
+        check(balance_ok(stacked.labels[g].cpu(), k),
+              f"stacked group {g} unbalanced")
+    log(f"stacked route {STACK_SHAPE} k={k}: {stacked_s:.3f} s, "
+        f"auction_phase_dense launches {stacked_used['auction_phase_dense']} "
+        f"(G={G} a launch), {stacked_used['rounds']} rounds, every group "
+        f"balanced")
+    return {"n": n, "main_s": main_s, "first_s": first_s,
+            "main_us_per_round": main_s / rounds * 1e6,
+            "port_launches_per_round": launched / rounds,
+            "launches": used, "ofv": ofv, "gap": gap,
+            "labels_sha256": digest,
+            "stacked": {"shape": STACK_SHAPE, "seconds": stacked_s,
+                        "launches": stacked_used}}
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the path against its plain kernels
 # ---------------------------------------------------------------------------
 
@@ -812,7 +1057,42 @@ def against_plain(dev):
     log(f"n={n} k={k} chunk={chunk}: kernels vs plain ofv {o_k:.6e} vs "
         f"{o_p:.6e} (rel {abs(o_k - o_p) / o_p:.2e}); labels agree on "
         f"{agree:.4f} of rows; both balanced")
-    return {"agree": agree, "rel": abs(o_k - o_p) / o_p}
+    return {"agree": agree, "rel": abs(o_k - o_p) / o_p,
+            "flat": flat_against_plain(x, k, dev)}
+
+
+def flat_against_plain(x, k, dev) -> dict:
+    """The default spec's flat route on the same rows, through the dense
+    phase kernel and with every phase in the Python loop over top2
+    (``forced_path("ref")``, the parent's solver): the labels bitwise
+    equal; both wall times.  (The gap is not compared: its cluster sums
+    use ``index_add_``, which adds in no fixed order on the card.)"""
+    def call():
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = anticluster(x, k=k, device=dev)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0, counts()
+
+    res, kernel_s, used = call()
+    check(res.route == "flat" and res.solver == "auction"
+          and used["auction_phase_dense"] == 4 * (-(-x.shape[0] // k) - 1)
+          and used["plain_rounds"] == 0,
+          f"flat route {res.route}/{res.solver} launches {used}")
+    with ops.forced_path("ref"):
+        plain, plain_s, inside = call()
+    check(not any(inside[name] for name in _build.launches)
+          and inside["plain_rounds"] > 0,
+          f"kernels launched under the forced plain path: {inside}")
+    check(torch.equal(res.labels, plain.labels),
+          "the flat route's labels differ from the forced plain path's")
+    log(f"flat route n={x.shape[0]} k={k} (default spec): labels bitwise "
+        f"equal to the forced plain path's; dense kernel {kernel_s:.3f} s "
+        f"({used['rounds']} rounds), Python loop over top2 {plain_s:.3f} s "
+        f"({inside['rounds']} rounds, predicate every {ref._CHECK_EVERY})")
+    return {"kernel_s": kernel_s, "plain_s": plain_s,
+            "rounds": used["rounds"], "plain_rounds": inside["rounds"]}
 
 
 # ---------------------------------------------------------------------------
@@ -1013,11 +1293,15 @@ def measure_entry_kernels(dev, errs) -> list:
     mi = CHUNK_ROWS
     b_cg, by_cg = bound_ms(8 * mi + 4 * (mi * d + k * d + mi * k),
                            2 * mi * k * d + 2 * (mi + k) * d + 3 * mi * k)
+    clipped = idx.clamp(0, n - 1)
     rows.append(timed_row(
         "cdist_gather", "cdist_gather.cu", "src/repro/kernels/gather.py:238",
         f"n={n} m={mi} nc={k} d={d} (int64 idx)", errs,
         lambda: cuda_cdist_gather(x, idx, c), "cdist_kernel",
-        lambda: cdist_gather_ref(x, idx, c), None, b_cg, by_cg))
+        lambda: cdist_gather_ref(x, idx, c),
+        lambda: torch.addmm(xn[clipped][:, None] + cn,
+                            torch.index_select(x, 0, clipped), c.T,
+                            alpha=-2.0), b_cg, by_cg))
     b_bg, by_bg = bound_ms(8 * mi + 4 * (mi * d + k * d + k) + mi * 16,
                            2 * mi * k * d + 2 * k * d + 2 * mi * k)
     rows.append(timed_row(
@@ -1093,6 +1377,7 @@ def timed_row(name, source, replaces, shape, errs, fn, kernel, plain,
             "plain_ms": time_ms(plain, **(plain_reps or {})),
             "bound_ms": b, "bound_by": by,
             "library_ms": time_ms(library) if library else None,
+            "library_device_ms": device_ms(library, "") if library else None,
             "launches_in": "phase 5: the repro_torch.kernels entry point "
                            "(no anticluster path runs this kernel)"}
 
@@ -1100,7 +1385,8 @@ def timed_row(name, source, replaces, shape, errs, fn, kernel, plain,
 def log_rows(rows):
     for r in rows:
         lib = ("none" if r["library_ms"] is None
-               else f"{r['library_ms']:.4f} ms")
+               else f"{r['library_ms']:.4f} ms (device "
+                    f"{r.get('library_device_ms')} ms)")
         log(f"{r['name']} {r['shape']}: kernel {r['ms']:.4f} ms (device "
             f"{r['device_ms']} ms), plain {r['plain_ms']:.4f} ms, library "
             f"{lib}, bound {r['bound_ms']:.6f} ms ({r['bound_by']})")
@@ -1146,9 +1432,12 @@ def main():
     solve_rows.append(measure_auction_phase(dev, laps))
     solve_rows[-1]["rounds_timed"] = time_rounds(laps)
     del laps
+    dense_laps = check_auction_phase_dense(dev)
+    dense_row = measure_auction_phase_dense(dev, dense_laps)
+    del dense_laps
     errs = check_entry_kernels(dev, torch.Generator().manual_seed(4))
     entry_rows = measure_entry_kernels(dev, errs)
-    rows = solve_rows + entry_rows
+    rows = solve_rows + [dense_row] + entry_rows
     log_rows(rows)
 
     phase("phase 3: the main path")
@@ -1162,10 +1451,15 @@ def main():
     entry_run = entry_point(dev)
     for r in entry_rows:
         r["launches"] = entry_run["launches"][r["name"]]
+    phase("phase 6: the default route at full size")
+    default_run = default_route(dev, args.n, smi, main_run)
+    dense_row["launches"] = default_run["launches"]["auction_phase_dense"]
+    dense_row["launches_in"] = ("phase 6: the default route, "
+                                "anticluster(x, k=256)")
     phase("done")
 
     log(json.dumps({"main_path": main_run, "against_plain": plain_run,
-                    "entry_point": entry_run}))
+                    "entry_point": entry_run, "default_route": default_run}))
     log(smi)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

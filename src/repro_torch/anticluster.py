@@ -13,11 +13,13 @@ for an int ``chunk_size`` or, with ``"auto"``, from 65536 rows on, where the
 default solver is upgraded to the matrix-free ``"auction_fused"``) or
 ``"stacked"`` (a (G, M, D) input through the dense core).
 
-Not ported yet, and raising ``NotImplementedError`` with the ROADMAP item
-that brings them: ``categories`` / ``fairness`` / ``valid_mask`` (Queue 1
-item 3), hierarchical plans, i.e. k > ``max_k`` or a tuple plan, and
-``kplus_moments > 1`` (item 5), ``mesh`` (item 9), the ``greedy`` and
-``scipy`` solvers (item 2), ``telemetry`` (item 8) and the engine (item 7).
+Not ported yet, and raising ``NotImplementedError`` with the title of the
+ROADMAP Queue 1 item that brings them: ``categories`` / ``fairness`` /
+``valid_mask`` ("Section 4.3 and masks"), hierarchical plans, i.e. k >
+``max_k`` or a tuple plan, and ``kplus_moments > 1`` ("Hierarchical route
+and k-plus"), ``mesh`` ("Mesh route"), the ``greedy`` and ``scipy`` solvers
+("Remaining solvers"), ``telemetry`` ("Consumers") and the engine
+("Sessions and updates").
 """
 
 from __future__ import annotations
@@ -45,9 +47,10 @@ _AUTO_STREAM_MIN = 1 << 16   # 65536 rows
 _AUTO_CHUNK_ROWS = 1 << 13   # 8192 rows per chunk
 
 
-def _not_ported(feature: str, item: int):
+def _not_ported(feature: str, item: str):
+    """Raise for ``feature``, naming its ROADMAP Queue 1 item by title."""
     raise NotImplementedError(f"{feature} is not ported to PyTorch yet "
-                              f"(ROADMAP Queue 1 item {item})")
+                              f"(ROADMAP Queue 1: {item})")
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -98,17 +101,19 @@ class AnticlusterSpec:
                              "exclusive")
         for name in ("categories", "fairness", "valid_mask"):
             if getattr(self, name) is not None:
-                _not_ported(f"{name}=", 3)
+                _not_ported(f"{name}=", "Section 4.3 and masks")
         if self.mesh is not None:
-            _not_ported("mesh=", 9)
+            _not_ported("mesh=", "Mesh route")
         if self.kplus_moments > 1:
-            _not_ported("kplus_moments > 1", 5)
+            _not_ported("kplus_moments > 1",
+                        "Hierarchical route and k-plus")
         if (isinstance(self.plan, tuple) and len(self.plan) > 1) or \
                 (self.plan == "auto" and self.k > self.max_k):
             _not_ported(f"a hierarchical plan (k={self.k}, max_k="
-                        f"{self.max_k}, plan={self.plan!r})", 5)
+                        f"{self.max_k}, plan={self.plan!r})",
+                        "Hierarchical route and k-plus")
         if self.telemetry:
-            _not_ported("telemetry=True", 8)
+            _not_ported("telemetry=True", "Consumers")
         get_solver(self.solver)  # unknown names and unported solvers raise
 
     def evolve(self, **changes) -> "AnticlusterSpec":
@@ -175,7 +180,7 @@ class AnticlusterEngine:
     """The warm-startable session API: not ported yet."""
 
     def __init__(self, *args, **kwargs):
-        _not_ported("AnticlusterEngine", 7)
+        _not_ported("AnticlusterEngine", "Sessions and updates")
 
 
 def _resolve_spec(spec, overrides: dict) -> AnticlusterSpec:

@@ -8,11 +8,13 @@ the one :func:`_assign_batch`, so ``aba_stream`` with ``chunk_size >= n``
 gives labels bit-identical to ``aba_core(x[None])[0]``.
 
 The scans are Python loops.  The streaming core pulls each chunk's rows
-through the ``gather_rows`` kernel, and with the ``"auction_fused"`` solver
-every epsilon phase of a LAP is one ``auction_phase`` kernel launch.
+through the ``gather_rows`` kernel.  On the card every epsilon phase of a
+LAP is one kernel launch: ``auction_phase_dense`` on the batch's cost stack
+with the ``"auction"`` solver, ``auction_phase`` with ``"auction_fused"``.
 
-Not ported yet (ROADMAP Queue 1 item 3): ``categories`` / ``fair_codes``
-(Section 4.3), ``valid_mask`` and solver telemetry; they raise.
+Not ported yet, and raising with their ROADMAP Queue 1 item's title:
+``categories`` / ``fair_codes`` (Section 4.3) and ``valid_mask`` ("Section
+4.3 and masks"), and solver telemetry ("Remaining solvers").
 """
 
 from __future__ import annotations
@@ -49,9 +51,11 @@ def interleave_permutation(n: int, k: int) -> np.ndarray:
 def _not_ported(**features):
     for name, value in features.items():
         if value is not None and value is not False:
+            item = ("Remaining solvers" if name == "telemetry"
+                    else "Section 4.3 and masks")
             raise NotImplementedError(
-                f"{name}= is not ported to PyTorch yet (ROADMAP Queue 1 "
-                f"item {8 if name == 'telemetry' else 3})")
+                f"{name}= is not ported to PyTorch yet (ROADMAP Queue 1: "
+                f"{item})")
 
 
 def _centrality(xf: torch.Tensor):

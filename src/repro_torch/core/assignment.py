@@ -2,7 +2,8 @@
 
 Counterpart of ``repro/core/assignment.py``: the batched forward auction
 with epsilon scaling, its dense form (``auction_solve``, the top-2 of an
-explicit ``(B, n, n)`` cost stack) and its matrix-free form
+explicit ``(B, n, n)`` cost stack, whose every epsilon phase is one launch
+of the ``auction_phase_dense`` kernel on the card) and its matrix-free form
 (``auction_solve_factored`` on ``cost = -2 x.c^T + ||c||^2``, whose every
 epsilon phase is one launch of the ``auction_phase`` kernel on the card),
 and the solver registry holding ``"auction"`` and ``"auction_fused"``.  All
@@ -10,9 +11,12 @@ solvers MAXIMIZE total cost.
 
 Differences from the JAX engine, none of which changes a result:
 
-* The plain phase loop is a Python loop, ``kernels.ref.auction_rounds``
-  (the dense solver's, and the factored solver's on the CPU and under
-  ``ops.forced_path("ref")``).  Its predicate ("some row is still
+* On the card every epsilon phase of either solver is one kernel launch:
+  ``auction_phase_dense`` for the dense solver (the flat and stacked
+  routes), ``auction_phase`` for the factored one (the stream route).  The
+  plain phase loop, a Python loop (``kernels.ref.auction_rounds``), runs
+  both on the CPU and under ``ops.forced_path("ref")``, and is the kernels'
+  correctness contract.  Its predicate ("some row is still
   unassigned") is a device-to-host read, so it is tested only every
   ``kernels.ref._CHECK_EVERY`` rounds.  A converged state is a
   fixed point of the round (no unassigned row, no bid, no update), so the
@@ -24,7 +28,8 @@ Differences from the JAX engine, none of which changes a result:
   instances solved one by one, bit for bit.  (The JAX factored path misses
   this by one ulp of the span; see ROADMAP fault R1.)
 * Indices are int64 inside; the public solvers return int32 assignments.
-* ``greedy``, ``scipy`` and solver telemetry are not ported yet.
+* ``greedy``, ``scipy`` and solver telemetry are not ported yet (ROADMAP
+  Queue 1: Remaining solvers).
 """
 
 from __future__ import annotations
@@ -38,8 +43,7 @@ import torch
 from repro_torch._device import DTYPE, as_float, resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels.ops import bid_top2
-from repro_torch.kernels.ref import auction_rounds, factored_top2
-from repro_torch.kernels.ref import top2 as _top2_batched
+from repro_torch.kernels.ref import dense_top2, factored_top2
 
 _NEG = -1e30  # sentinel "minus infinity" that survives f32 arithmetic
 
@@ -92,8 +96,9 @@ def _run_phases(phase_fn, top2_fn, eps_sched, n: int, config: AuctionConfig,
     """Run the eps-scaling schedule; returns (assignment, final prices).
 
     ``phase_fn(prices, eps, max_rounds, fixed_rounds, skip, seed_top2)`` runs
-    one phase (``kernels.ref.auction_rounds`` over ``top2_fn``, or the
-    factored solver's dispatcher); ``top2_fn`` is the warm start's probe.
+    one phase (``ops.auction_phase_dense`` on the cost, or
+    ``ops.auction_phase`` on the factored rows); ``top2_fn`` is the warm
+    start's probe, plain PyTorch ops.
 
     ``prices0`` ((B, n)) warm-starts the solve.  An instance whose incoming
     prices are all zero runs the full ramp, exactly as ``prices0=None``.  An
@@ -153,13 +158,13 @@ def _solve_dense(cost, config: AuctionConfig, prices=None):
     if n == 1:
         return (torch.zeros((B, 1), dtype=torch.int64, device=cost.device),
                 cost.new_zeros((B, 1)) if prices is None else prices.to(DTYPE))
+    cost = cost.contiguous()
     finite = torch.where(cost <= _NEG / 2, 0.0, cost)
     span = (finite.amax(dim=(1, 2)) - finite.amin(dim=(1, 2))).clamp(min=1e-6)
-
-    def top2_fn(p):
-        return _top2_batched(cost - p[:, None, :])
-
-    return _run_phases(functools.partial(auction_rounds, top2_fn), top2_fn,
+    # every phase is one dispatch: the dense phase kernel on the card, the
+    # Python loop on the CPU
+    phase_fn = functools.partial(ops.auction_phase_dense, cost)
+    return _run_phases(phase_fn, dense_top2(cost),
                        _eps_schedule(span, n, config), n, config, prices)
 
 
@@ -273,7 +278,8 @@ class Solver(NamedTuple):
 
 _REGISTRY: dict[str, Solver] = {}
 
-_NOT_PORTED = {"greedy": "Queue 1 item 2", "scipy": "Queue 1 item 2"}
+_NOT_PORTED = {"greedy": "Queue 1: Remaining solvers",
+               "scipy": "Queue 1: Remaining solvers"}
 
 
 def register_solver(name: str, solve: Callable, *,

@@ -45,6 +45,8 @@ _SYMBOLS = {
                                   _I, _L, _L, _L, _L, _P)),
     "auction_phase": ("auction_phase_f32",
                       (_P,) * 14 + (_I, _I, _I, _I, _I, _P)),
+    "auction_phase_dense": ("auction_phase_dense_f32",
+                            (_P,) * 12 + (_I, _I, _I, _I, _P)),
 }
 # further C functions of a source's library: symbol -> argument types.  The
 # span's pair counts as a launch of "bid_top2"; the phase kernel's timed

@@ -1,15 +1,21 @@
-"""Wrapper of the CUDA auction-phase kernel ``csrc/auction_phase.cu``.
+"""Wrappers of the CUDA auction-phase kernels: ``csrc/auction_phase.cu``
+(factored values) and ``csrc/auction_phase_dense.cu`` (an explicit cost
+stack), both instantiations of ``csrc/auction_phase.cuh``.
 
-The kernel runs one whole epsilon phase of the matrix-free auction on the
-card, one CTA per group: the counterpart of the JAX ``lax.while_loop`` in
-``repro/core/assignment.py``'s ``_auction_phase`` over the factored
-reduction.  A CUDA tensor launches the kernel (or raises); a CPU tensor runs
-the plain version, the port's Python round loop
-``repro_torch.kernels.ref.auction_phase_ref``.  Launches are counted in
-``_build.launches["auction_phase"]``; the rounds and bids the kernel ran are
+Each launch runs one whole epsilon phase of the auction on the card, one
+CTA per group: the counterpart of the JAX ``lax.while_loop`` in
+``repro/core/assignment.py``'s ``_auction_phase``, over the factored
+reduction (:func:`auction_phase`, the ``"auction_fused"`` solver of the
+stream route) or over ``_top2_batched`` of a dense cost
+(:func:`auction_phase_dense`, the ``"auction"`` solver of the default flat
+route and the stacked route).  A CUDA tensor launches the kernel (or
+raises); a CPU tensor runs the plain version, the port's Python round loop
+``repro_torch.kernels.ref.auction_rounds`` over the same reduction.
+Launches are counted in ``_build.launches["auction_phase"]`` and
+``["auction_phase_dense"]``; the rounds and bids both kernels ran are
 summed on the card and read by :func:`totals`.  :func:`auction_phase_timed`
-runs the kernel's timed instantiation, which also records the SM clock
-cycles of every round of group 0 (measurement only).
+runs the factored kernel's timed instantiation, which also records the SM
+clock cycles of every round of group 0 (measurement only).
 """
 
 from __future__ import annotations
@@ -17,7 +23,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import auction_phase_ref
+from repro_torch.kernels.ref import auction_phase_dense_ref, auction_phase_ref
 
 # CUDA device index -> int64 [rounds, bids, ticket, single-bidder rounds]
 _totals: dict[int, torch.Tensor] = {}
@@ -71,40 +77,84 @@ def auction_phase_timed(x, c, is_real, prices, eps, max_rounds: int,
     return assign, p_out, trace
 
 
-def _launch(x, c, is_real, prices, eps, max_rounds, fixed_rounds, skip,
-            seed_top2, timed=()):
-    G, n, d = x.shape
+def auction_phase_dense(cost, prices, eps, max_rounds: int,
+                        fixed_rounds: int = 0, skip=None, seed_top2=None):
+    """One epsilon phase of the dense-cost auction on each group of a stack.
+
+    cost (G, n, n) float32, finite (dummy rows zeroed by the caller);
+    prices, eps, ``skip`` and ``seed_top2`` as :func:`auction_phase`.
+    Returns ``(assign (G, n) int64 with -1 for an unassigned row, prices
+    (G, n))``, bitwise those of ``ref.auction_rounds`` over ``ref.top2`` of
+    ``cost - p``.
+    """
+    _check_dense_shapes(cost, prices, eps, skip, seed_top2)
+    if not cost.is_cuda:
+        return auction_phase_dense_ref(cost, prices, eps, max_rounds,
+                                       fixed_rounds, skip, seed_top2)
+    G, n, _ = cost.shape
+    seed, stream = _operands("auction_phase_dense", G, max_rounds,
+                             fixed_rounds, skip, seed_top2, cost=cost,
+                             prices=prices, eps=eps)
+    assign, p_out, rounds, counters = _outputs(G, n, cost.device)
+    # the per-row state where it does not fit in shared memory (the kernel
+    # decides), 10 words a row
+    scratch = torch.empty(G * 10 * n, dtype=torch.float32, device=cost.device)
+    _build.launch("auction_phase_dense", cost.data_ptr(), prices.data_ptr(),
+                  eps.data_ptr(), _ptr(skip), _ptr(seed.get("v1")),
+                  _ptr(seed.get("j1")), _ptr(seed.get("v2")),
+                  assign.data_ptr(), p_out.data_ptr(), rounds.data_ptr(),
+                  counters.data_ptr(), scratch.data_ptr(), G, n, max_rounds,
+                  fixed_rounds, stream)
+    return assign, p_out
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _operands(kernel, G, max_rounds, fixed_rounds, skip, seed_top2,
+              **tensors):
+    """Check the launch's integers and operands; returns (the seed's
+    tensors by name, the current stream's handle)."""
     if G > 2**31 - 1 or not 0 <= max_rounds < 2**31 \
             or not 0 <= fixed_rounds < 2**31:
-        raise ValueError("auction_phase: G, max_rounds and fixed_rounds "
-                         "must fit int32")
+        raise ValueError(f"{kernel}: G, max_rounds and fixed_rounds must "
+                         f"fit int32")
     seed = {} if seed_top2 is None else dict(zip(("v1", "j1", "v2"),
                                                  seed_top2))
     stream = _build.check_operands(
-        "auction_phase", x=x, c=c, prices=prices, eps=eps,
-        **({} if is_real is None else {"is_real": is_real}),
+        kernel, **{k: t for k, t in tensors.items() if t is not None},
         **({} if skip is None else {"skip": skip}), **seed)
-    dev = x.device
-    assign = torch.empty((G, n), dtype=torch.int64, device=dev)
-    p_out = torch.empty((G, n), dtype=torch.float32, device=dev)
-    rounds = torch.empty((G,), dtype=torch.int64, device=dev)
-    # what does not fit in shared memory (the kernel decides): c
-    # feature-major with a row of column terms, (d + 1, n rounded up to
-    # 4), and the per-row state, 10 words a row
-    scratch = torch.empty(G * (10 * n + (d + 1) * ((n + 3) & ~3)),
-                          dtype=torch.float32, device=dev)
+    return seed, stream
+
+
+def _outputs(G, n, dev):
+    """(assign, prices, per-group rounds, the device's counters)."""
     counters = _totals.get(dev.index)
     if counters is None:
         counters = _totals[dev.index] = torch.zeros(4, dtype=torch.int64,
                                                     device=dev)
+    return (torch.empty((G, n), dtype=torch.int64, device=dev),
+            torch.empty((G, n), dtype=torch.float32, device=dev),
+            torch.empty((G,), dtype=torch.int64, device=dev), counters)
 
-    def ptr(t):
-        return None if t is None else t.data_ptr()
 
-    _build.launch("auction_phase", x.data_ptr(), c.data_ptr(), ptr(is_real),
-                  prices.data_ptr(), eps.data_ptr(), ptr(skip),
-                  ptr(seed.get("v1")), ptr(seed.get("j1")),
-                  ptr(seed.get("v2")), assign.data_ptr(), p_out.data_ptr(),
+def _launch(x, c, is_real, prices, eps, max_rounds, fixed_rounds, skip,
+            seed_top2, timed=()):
+    G, n, d = x.shape
+    seed, stream = _operands("auction_phase", G, max_rounds, fixed_rounds,
+                             skip, seed_top2, x=x, c=c, prices=prices,
+                             eps=eps, is_real=is_real)
+    assign, p_out, rounds, counters = _outputs(G, n, x.device)
+    # what does not fit in shared memory (the kernel decides): c
+    # feature-major with a row of column terms, (d + 1, n rounded up to
+    # 4), and the per-row state, 10 words a row
+    scratch = torch.empty(G * (10 * n + (d + 1) * ((n + 3) & ~3)),
+                          dtype=torch.float32, device=x.device)
+    _build.launch("auction_phase", x.data_ptr(), c.data_ptr(), _ptr(is_real),
+                  prices.data_ptr(), eps.data_ptr(), _ptr(skip),
+                  _ptr(seed.get("v1")), _ptr(seed.get("j1")),
+                  _ptr(seed.get("v2")), assign.data_ptr(), p_out.data_ptr(),
                   rounds.data_ptr(), counters.data_ptr(), scratch.data_ptr(),
                   G, n, d, max_rounds, fixed_rounds, *timed, stream,
                   symbol="auction_phase_timed_f32" if timed else None)
@@ -119,27 +169,46 @@ def _check_shapes(x, c, is_real, prices, eps, skip, seed_top2):
     G, n, d = x.shape
     if n < 1 or d < 1:
         raise ValueError(f"auction_phase: empty problem {tuple(x.shape)}")
+    _check_state("auction_phase", G, n, prices, eps, skip, seed_top2,
+                 is_real=(is_real, (G, n), torch.bool))
+
+
+def _check_dense_shapes(cost, prices, eps, skip, seed_top2):
+    if cost.dim() != 3 or cost.shape[1] != cost.shape[2] \
+            or cost.dtype != torch.float32:
+        raise ValueError(f"auction_phase_dense takes a (G, n, n) float32 "
+                         f"cost stack; got {cost.dtype} "
+                         f"{tuple(cost.shape)}")
+    G, n, _ = cost.shape
+    if n < 1:
+        raise ValueError(f"auction_phase_dense: empty problem "
+                         f"{tuple(cost.shape)}")
+    _check_state("auction_phase_dense", G, n, prices, eps, skip, seed_top2)
+
+
+def _check_state(kernel, G, n, prices, eps, skip, seed_top2, **more):
+    """The per-group operands both kernels take: prices, eps, ``skip`` and
+    ``seed_top2`` (and ``more``: name -> (tensor, shape, dtype))."""
     want = {"prices": (prices, (G, n), torch.float32),
             "eps": (eps, (G,), torch.float32),
-            "is_real": (is_real, (G, n), torch.bool),
+            **more,
             "skip": (skip, (G,), torch.bool)}
     if seed_top2 is not None:
         if len(seed_top2) != 3:
-            raise ValueError("auction_phase: seed_top2 is (v1, j1, v2)")
+            raise ValueError(f"{kernel}: seed_top2 is (v1, j1, v2)")
         for name, t, dtype in zip(("v1", "j1", "v2"), seed_top2,
                                   (torch.float32, torch.int64,
                                    torch.float32)):
             want[name] = (t, (G, n), dtype)
     for name, (t, shape, dtype) in want.items():
         if t is not None and (tuple(t.shape) != shape or t.dtype != dtype):
-            raise ValueError(f"auction_phase: {name} must be {dtype} of "
+            raise ValueError(f"{kernel}: {name} must be {dtype} of "
                              f"shape {shape}, got {t.dtype} "
                              f"{tuple(t.shape)}")
-    return G, n, d
 
 
 def totals() -> dict:
-    """Rounds, bids and rounds with a single bidder that the kernel ran since
+    """Rounds, bids and rounds with a single bidder that the kernels ran since
     :func:`reset_totals`, summed over devices (a read from the card).  A
     launch on a stack adds its longest group's rounds, as the Python loop
     over the stack counts them, and every group's bids and single-bidder

@@ -14,24 +14,11 @@
 // once, straight from registers, and nothing else of size m x n is read or
 // written; the FMA work stays on the CUDA cores.
 //
-// Design:
-//   * fp32 FMA, no tensor cores: a TF32 product keeps ~3 decimal digits and
-//     would break parity with the float32 reference (the TPU kernel
-//     accumulates in fp32 on the MXU).
-//   * A CTA of 256 threads owns a 64 x 128 output tile; each thread keeps
-//     a 4 x 8 block of sums in registers (rows ty + 16 i, columns
-//     tx + 16 j), so each feature step reads 12 shared-memory words for 32
-//     FMA.  Of the tiles tried on the H100 (32, 64 or 128 rows by 64 or 128
-//     columns), this one ran fastest at the shape above.
-//     The TPU kernel's sequential reduction grid axis over D becomes a loop
-//     inside the CTA: x and c tiles of 32 features are staged in shared
-//     memory, feature-major and padded, so any d is taken.
-//   * ||x_i||^2 and ||c_j||^2 are summed in the kernel from the staged tiles
-//     (the TPU wrapper computes them outside), and folded in once at the
-//     end: (||x||^2 - 2 x.c) + ||c||^2, the reference's order.
-//   * 16 neighbouring threads store 16 neighbouring columns of one row, so
-//     every output write is coalesced.  Ragged edges are masked; no
-//     padded copy of x or c is made.  One pass, no atomics.
+// Design (in full in cdist.cuh): persistent CTAs of 128 threads walk
+// 32-row tiles against 128 columns, rows and centroids staged by cp.async
+// into double buffers, ||c||^2 summed once per CTA, and the output written
+// as float4s with the evict-first hint, so the stores stream while the next
+// tile's rows land and its FMAs run.
 
 #include "cdist.cuh"
 

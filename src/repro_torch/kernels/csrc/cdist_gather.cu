@@ -11,16 +11,16 @@
 // 8.4 MB of ~9.1 MB moved, 2.7 us at 3.35 TB/s, against 92 MFLOP, 1.4 us
 // at 67 TFLOP/s.
 //
-// Design: the kernel of cdist.cu (cdist.cuh), with one difference.  Each
-// CTA loads its 64 indices, clips them to [0, n - 1] in the kernel and
-// keeps the row offsets in shared memory; the staging of each d-tile reads
-// x through them.  The gathered rows exist only in the CTA's shared-memory
-// tile, never in global memory, and ||x_i||^2 is computed from those staged
-// rows, as the TPU kernel computes it from its landed scratch rows.  The
-// TPU kernel's DMA ring overlaps row copies on an in-order core; on Hopper
-// many CTAs in flight hide the latency of the scattered row reads.  The
-// arithmetic is cdist.cu's, so the result is bitwise
-// cdist(gather_rows(x, idx), c).
+// Design: the kernel of cdist.cu (cdist.cuh), with one difference.  The
+// warp that stages a row loads its index, clips it to [0, n - 1] and
+// copies the row's features by cp.async, with no barrier between the two;
+// the gathered rows exist only in the CTA's shared-memory stage, never in
+// global memory, and ||x_i||^2 is summed from those staged rows, as the TPU
+// kernel sums it from its landed scratch rows.  The TPU kernel's DMA ring
+// overlaps row copies on an in-order core; on Hopper the 32-row tiles make
+// this shape 512 CTAs, all resident at once, whose short chains (index,
+// row, 22 FMA steps, stores) overlap one another.  The arithmetic is
+// cdist.cu's, so the result is bitwise cdist(gather_rows(x, idx), c).
 
 #include "cdist.cuh"
 

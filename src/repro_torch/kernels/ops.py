@@ -8,10 +8,14 @@ run the whole path against the plain versions, the counterpart of JAX's
 ``force=``.
 
 ``bid_top2_span`` is the factored auction's two span bids (x at zero
-prices, -x at the given ones) in one launch.  ``auction_phase`` runs one
-epsilon phase of the factored auction: the phase
-kernel on the card, the Python round loop ``ref.auction_phase_ref`` (over
-``bid_top2_ref``) on the plain path.
+prices, -x at the given ones) in one launch.  Each epsilon phase of the
+auction is one dispatch: ``auction_phase`` for the factored values (the
+``"auction_fused"`` solver, which the stream route runs) and
+``auction_phase_dense`` for an explicit cost stack (the ``"auction"``
+solver, which the default flat route and the stacked route run).  On the
+card each launches its phase kernel; on the plain path each runs the
+Python round loop ``ref.auction_rounds``, over ``bid_top2_ref`` or over
+``ref.top2`` of ``cost - p``.
 
 ``cdist`` and ``bid_top2`` take the reference's ``idx=``: the rows are
 ``x[clip(idx, 0, n - 1)]``, read by the fused gather kernels for
@@ -29,10 +33,13 @@ import torch
 
 from repro_torch.kernels import gather as _gather
 from repro_torch.kernels.auction_phase import auction_phase as _auction_phase
+from repro_torch.kernels.auction_phase import \
+    auction_phase_dense as _auction_phase_dense
 from repro_torch.kernels.bid_top2 import bid_top2 as _bid_top2
 from repro_torch.kernels.bid_top2 import bid_top2_span as _bid_top2_span
 from repro_torch.kernels.cdist import cdist as _cdist
-from repro_torch.kernels.ref import (auction_phase_ref, bid_top2_ref,
+from repro_torch.kernels.ref import (auction_phase_dense_ref,
+                                     auction_phase_ref, bid_top2_ref,
                                      bid_top2_span_ref, cdist_ref,
                                      gather_rows_ref)
 
@@ -135,3 +142,15 @@ def auction_phase(x: torch.Tensor, c: torch.Tensor, is_real, prices, eps,
                                   fixed_rounds, skip, seed_top2)
     return _auction_phase(x, c, is_real, prices, eps, max_rounds,
                           fixed_rounds, skip, seed_top2)
+
+
+def auction_phase_dense(cost: torch.Tensor, prices, eps, max_rounds: int,
+                        fixed_rounds: int = 0, *, skip=None, seed_top2=None):
+    """One epsilon phase of the dense-cost auction on a (G, n, n) cost stack
+    (see ``kernels.auction_phase.auction_phase_dense``); returns (assign,
+    prices)."""
+    if resolve_path(cost) == "ref":
+        return auction_phase_dense_ref(cost, prices, eps, max_rounds,
+                                       fixed_rounds, skip, seed_top2)
+    return _auction_phase_dense(cost, prices, eps, max_rounds, fixed_rounds,
+                                skip, seed_top2)

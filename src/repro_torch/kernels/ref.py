@@ -7,9 +7,13 @@ holds each CUDA kernel against them on the card.  Counterparts of
 ``gather_rows`` / ``cdist(idx=)`` / ``bid_top2(idx=)``.  Every gather here
 clips its indices to ``[0, n - 1]``, as the TPU kernels do.
 
-The plain version of the ``auction_phase`` kernel is the auction's Python
-round loop, :func:`auction_rounds` over :func:`factored_top2`; the dense
-solver of ``core.assignment`` runs the same loop over its own reduction.
+The plain versions of the two phase kernels are the auction's Python
+round loop :func:`auction_rounds`: over :func:`factored_top2` for
+``auction_phase`` (the ``"auction_fused"`` solver, the stream route) and
+over :func:`top2` of ``cost - p`` for ``auction_phase_dense`` (the
+``"auction"`` solver, the flat and stacked routes).  The solvers run them
+on CPU tensors and under ``ops.forced_path("ref")``; on the card they
+launch the kernels.
 """
 
 from __future__ import annotations
@@ -244,3 +248,19 @@ def auction_phase_ref(x, c, is_real, prices, eps, max_rounds: int,
     loop over the plain factored reduction (see ``kernels.auction_phase``)."""
     return auction_rounds(factored_top2(x, c, is_real), prices, eps,
                           max_rounds, fixed_rounds, skip, seed_top2)
+
+
+def dense_top2(cost):
+    """The dense bidding reduction at prices p: :func:`top2` of
+    ``cost - p`` over the objects, for a (B, n, n) cost stack."""
+    def top2_fn(p):
+        return top2(cost - p[:, None, :])
+    return top2_fn
+
+
+def auction_phase_dense_ref(cost, prices, eps, max_rounds: int,
+                            fixed_rounds: int = 0, skip=None, seed_top2=None):
+    """The plain version of the ``auction_phase_dense`` kernel: the Python
+    round loop over the dense reduction (see ``kernels.auction_phase``)."""
+    return auction_rounds(dense_top2(cost), prices, eps, max_rounds,
+                          fixed_rounds, skip, seed_top2)

@@ -7,6 +7,9 @@ port, the streaming core with ``chunk_size >= n`` gives the dense core's
 labels bit for bit.
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -198,21 +201,41 @@ def test_default_device_is_cuda():
             aba_stream(x, 4, 32)
 
 
-@pytest.mark.parametrize("kw", [
-    {"categories": np.zeros(64, np.int32)},
-    {"fairness": np.zeros(64, np.int32)},
-    {"valid_mask": np.ones(64, bool)},
-    {"mesh": object()},
-    {"kplus_moments": 2},
-    {"telemetry": True},
-    {"solver": "greedy"},
-    {"solver": "scipy"},
-    {"k": 1024},
-    {"plan": (2, 2)},
-], ids=lambda kw: next(iter(kw)) + "=" + str(next(iter(kw.values())))[:12])
-def test_out_of_slice_fields_raise(kw):
+def _queue1_titles():
+    """The bold titles of ROADMAP.md's Queue 1 items."""
+    text = (Path(__file__).resolve().parents[1] / "ROADMAP.md").read_text()
+    queue = text.split("### Queue 1", 1)[1].split("\n### ", 1)[0]
+    return re.findall(r"^\d+\. \*\*(.+?)\*\*", queue, flags=re.M)
+
+
+def _out_of_slice(kw, title):
+    key = next(iter(kw))
+    return pytest.param(kw, title,
+                        id=key + "=" + str(next(iter(kw.values())))[:12])
+
+
+@pytest.mark.parametrize("kw,title", [
+    _out_of_slice({"categories": np.zeros(64, np.int32)},
+                  "Section 4.3 and masks"),
+    _out_of_slice({"fairness": np.zeros(64, np.int32)},
+                  "Section 4.3 and masks"),
+    _out_of_slice({"valid_mask": np.ones(64, bool)}, "Section 4.3 and masks"),
+    _out_of_slice({"mesh": object()}, "Mesh route"),
+    _out_of_slice({"kplus_moments": 2}, "Hierarchical route and k-plus"),
+    _out_of_slice({"telemetry": True}, "Consumers"),
+    _out_of_slice({"solver": "greedy"}, "Remaining solvers"),
+    _out_of_slice({"solver": "scipy"}, "Remaining solvers"),
+    _out_of_slice({"k": 1024}, "Hierarchical route and k-plus"),
+    _out_of_slice({"plan": (2, 2)}, "Hierarchical route and k-plus"),
+])
+def test_out_of_slice_fields_raise(kw, title):
+    """Each raises naming its ROADMAP Queue 1 item by a title that the
+    ROADMAP has (an item's title, not its number, which a re-anchor may
+    change)."""
+    assert any(t.startswith(title) for t in _queue1_titles()), title
     kw = {"k": 4, **kw}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError,
+                       match=re.escape(f"ROADMAP Queue 1: {title}")):
         anticluster(_data(64, 4), device=CPU, **kw)
 
 
@@ -224,5 +247,17 @@ def test_out_of_slice_core_arguments_and_engine_raise():
         aba_stream(x, 4, 32, categories=np.zeros(64), device=CPU)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         AnticlusterEngine(AnticlusterSpec(k=4))
+    titles = _queue1_titles()
+    for call, title in (
+            (lambda: aba_core(x[None], 4, telemetry=True, device=CPU),
+             "Remaining solvers"),
+            (lambda: aba_stream(x, 4, 32, valid_mask=np.ones(64, bool),
+                                device=CPU), "Section 4.3 and masks"),
+            (lambda: AnticlusterEngine(AnticlusterSpec(k=4)),
+             "Sessions and updates")):
+        assert any(t.startswith(title) for t in titles), title
+        with pytest.raises(NotImplementedError,
+                           match=re.escape(f"ROADMAP Queue 1: {title}")):
+            call()
     with pytest.raises(KeyError):
         AnticlusterSpec(k=4, solver="no-such-solver")

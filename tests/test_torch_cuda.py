@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from repro_torch.anticluster import anticluster
+from repro_torch.core.aba import aba_core
 from repro_torch.core.objective import balance_ok
 import repro_torch.kernels as K
 from repro_torch.kernels import _build, ops, ref
@@ -225,7 +226,7 @@ def test_cuda_wide_rows_take_gather_then_unfused_kernel(cuda):
     moved = {k: v - n0[k] for k, v in _build.launches.items()}
     assert moved == {"gather_rows": 2, "cdist": 1, "bid_top2": 1,
                      "cdist_gather": 0, "bid_top2_gather": 0, "ssm_scan": 0,
-                     "auction_phase": 0}
+                     "auction_phase": 0, "auction_phase_dense": 0}
     assert torch.equal(dist, cdist_gather_ref(x, idx, c))
     for g, w in zip(bids, bid_top2_gather_ref(x, idx, c, p)):
         assert torch.equal(g, w)
@@ -478,3 +479,185 @@ def test_cuda_auction_phase_checks_operands(cuda):
                                    **{**kw, "eps": kw["eps"].double()})
     with pytest.raises(ValueError):
         phase_kernel.auction_phase(x[:, :, :4], c[:, :, :4], is_real, **kw)
+
+
+# ---------------------------------------------------------------------------
+# the dense phase kernel (auction_phase_dense.cu) and the routes that run it
+# ---------------------------------------------------------------------------
+
+def _dense_cases(G, n, integer, device):
+    """A (G, n, n) cost stack as ``_assign_batch`` builds it (the last
+    group's last rows are dummies: zeroed), and the runs to compare: cold;
+    warm prices with ``skip`` on group 0 and the seed reduction;
+    ``fixed_rounds``; a ``max_rounds`` cap that stops the phase early."""
+    gen = torch.Generator().manual_seed(G * n + integer)
+    if integer:
+        cost = torch.randint(-3, 4, (G, n, n), generator=gen).float()
+    else:
+        cost = torch.randn((G, n, n), generator=gen) * 5
+    cost[-1, n - n // 4:] = 0.0
+    warm = torch.rand((G, n), generator=gen) * 3
+    eps = torch.rand((G,), generator=gen) * 0.5 + 0.05
+    cost, warm, eps = (t.to(device) for t in (cost, warm, eps))
+    zero = torch.zeros_like(warm)
+    skip = torch.zeros((G,), dtype=torch.bool, device=device)
+    skip[0] = G > 1
+    seed = ref.dense_top2(cost)(warm)
+    big = 50 * n + 1000
+    return cost, [
+        dict(prices=zero, eps=eps, max_rounds=big),
+        dict(prices=warm, eps=eps, max_rounds=big, skip=skip,
+             seed_top2=seed),
+        dict(prices=zero, eps=eps, max_rounds=big, fixed_rounds=7),
+        dict(prices=warm, eps=eps, max_rounds=big, fixed_rounds=5,
+             seed_top2=seed),
+        dict(prices=zero, eps=eps, max_rounds=3)]
+
+
+def _check_dense_kernel(monkeypatch, cost, kw):
+    """One launch of the dense phase kernel against the Python round loop
+    over ``ref.top2`` of ``cost - p``, its predicate tested every round:
+    assignments and prices bitwise, the same rounds, bids and single-bidder
+    rounds."""
+    monkeypatch.setattr(ref, "_CHECK_EVERY", 1)
+    t0, r0, b0 = phase_kernel.totals(), ref.rounds_executed, ref.bid_totals()
+    got = _counted("auction_phase_dense", phase_kernel.auction_phase_dense,
+                   cost, **kw)
+    t1 = phase_kernel.totals()
+    want = ref.auction_rounds(ref.dense_top2(cost), **kw)
+    b1 = ref.bid_totals()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert t1["rounds"] - t0["rounds"] == ref.rounds_executed - r0
+    for key in ("bids", "single_bidder_rounds"):
+        assert t1[key] - t0[key] == b1[key] - b0[key], key
+    assert t1["bids"] > t0["bids"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,n", [(1, 1), (1, 5), (1, 8), (3, 48), (1, 256),
+                                 (4, 256), (2, 130), (1, 512)])
+@pytest.mark.parametrize("integer", [False, True])
+def test_cuda_auction_phase_dense_equals_python_loop(cuda, monkeypatch, G, n,
+                                                     integer):
+    """The dense phase kernel against the Python loop, bitwise, on cold,
+    warm (skip, seed), fixed-round and capped phases; n = 1, n off the
+    float4 grid (5, 130: one column a lane), the warp path's and the CTA
+    path's sizes, G up to 4, dummy rows; integer costs make value and bid
+    ties common."""
+    cost, runs = _dense_cases(G, n, integer, cuda)
+    for kw in runs:
+        _check_dense_kernel(monkeypatch, cost, kw)
+    # a stack 4 bytes off the 16-byte grid takes the one-column-a-lane path
+    shifted = torch.empty(cost.numel() + 1, device=cuda)[1:].view(cost.shape)
+    shifted.copy_(cost)
+    _check_dense_kernel(monkeypatch, shifted, runs[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_rounds", [50 * 8192 + 1000, 40])
+def test_cuda_auction_phase_dense_state_in_device_memory(cuda, monkeypatch,
+                                                         max_rounds):
+    """n = 8192 (a 256 MB cost): the per-row state does not fit in shared
+    memory and lives in device memory; one phase to its end, one cut."""
+    gen = torch.Generator().manual_seed(8193)
+    cost = (torch.randn((1, 8192, 8192), generator=gen) * 5).to(cuda)
+    kw = dict(prices=torch.zeros((1, 8192), device=cuda),
+              eps=torch.full((1,), 2.0, device=cuda), max_rounds=max_rounds)
+    _check_dense_kernel(monkeypatch, cost, kw)
+
+
+@pytest.mark.cuda
+def test_cuda_auction_phase_dense_checks_operands(cuda):
+    cost, runs = _dense_cases(2, 8, False, cuda)
+    kw = runs[0]
+    with pytest.raises(ValueError):
+        phase_kernel.auction_phase_dense(cost.double(), **kw)
+    with pytest.raises(ValueError):
+        phase_kernel.auction_phase_dense(cost.transpose(1, 2), **kw)
+    with pytest.raises(ValueError):
+        phase_kernel.auction_phase_dense(cost[:, :, :4], **kw)
+    with pytest.raises(ValueError):
+        phase_kernel.auction_phase_dense(
+            cost, **{**kw, "prices": kw["prices"].cpu()})
+
+
+def _route_run(x, dev, **kw):
+    """anticluster on the card: (result, dense launches, plain rounds)."""
+    n0 = _build.launches["auction_phase_dense"]
+    r0 = ref.rounds_executed
+    res = anticluster(x, device=dev, **kw)
+    return (res, _build.launches["auction_phase_dense"] - n0,
+            ref.rounds_executed - r0)
+
+
+@pytest.mark.cuda
+def test_cuda_flat_and_stacked_routes_launch_the_dense_kernel(cuda):
+    """The default spec's flat route and the stacked route run every phase
+    as one auction_phase_dense launch (four a LAP) and no round of the
+    Python loop; both balanced."""
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.normal(size=(2048, 22)).astype(np.float32))
+    res, dense, plain = _route_run(x.to(cuda), cuda, k=64)
+    assert (res.route, res.solver) == ("flat", "auction")
+    assert dense == 4 * (2048 // 64 - 1) and plain == 0
+    assert balance_ok(res.labels.cpu(), 64)
+    xs = torch.from_numpy(rng.normal(size=(3, 500, 7)).astype(np.float32))
+    res, dense, plain = _route_run(xs.to(cuda), cuda, k=32)
+    assert (res.route, res.solver) == ("stacked", "auction")
+    assert dense == 4 * (-(-500 // 32) - 1) and plain == 0
+    for g in range(3):
+        assert balance_ok(res.labels[g].cpu(), 32)
+
+
+@pytest.mark.cuda
+def test_cuda_flat_route_labels_equal_forced_plain_path(cuda):
+    """The flat route's labels through the dense kernel are bitwise those
+    of the same call with every phase in the Python loop
+    (``ops.forced_path("ref")``), dummy rows in the last batch included;
+    so are the dense core's final prices.  (Not the gap: its cluster sums
+    use ``index_add_``, which adds in no fixed order on the card.)"""
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.normal(size=(2000, 22)).astype(np.float32))
+    x = x.to(cuda)
+    res, dense, plain = _route_run(x, cuda, k=64)
+    assert dense > 0 and plain == 0
+    _, state = aba_core(x[None], 64, return_state=True, device=cuda)
+    with ops.forced_path("ref"):
+        ref_res, dense_ref, plain_ref = _route_run(x, cuda, k=64)
+        _, ref_state = aba_core(x[None], 64, return_state=True, device=cuda)
+    assert dense_ref == 0 and plain_ref > 0
+    assert torch.equal(res.labels, ref_res.labels)
+    assert torch.equal(state["prices"], ref_state["prices"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,nc,d", [(1, 1, 1), (31, 127, 22), (33, 129, 22),
+                                    (100_003, 256, 22), (4097, 130, 33),
+                                    (70, 5, 200), (257, 258, 1),
+                                    (65, 384, 33)])
+def test_cuda_cdist_off_tile_edges(cuda, m, nc, d):
+    """cdist at shapes off every edge of its tiles (32 rows, 128 columns,
+    float4 column groups, 24-feature stages) and with more tiles than the
+    card holds CTAs: exact on integers, within the tolerance on floats."""
+    x, c, _ = (t[0].to(cuda) for t in _int_inputs(m * nc + d, m, nc, d, 1))
+    assert torch.equal(_counted("cdist", cuda_cdist, x, c), cdist_ref(x, c))
+    xf, cf = torch.randn_like(x), torch.randn_like(c)
+    _assert_cdist_close(cuda_cdist(xf, cf), cdist_ref(xf, cf), xf, cf)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,nc,d", [(8192, 256, 22), (33, 129, 1),
+                                    (1, 1, 33), (3001, 130, 200),
+                                    (5000, 7, 22)])
+@pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
+def test_cuda_cdist_gather_off_tile_edges(cuda, m, nc, d, idx_dtype):
+    """cdist_gather at the same edges, with negative and out-of-range
+    indices: bitwise cdist(gather_rows(x, idx), c) on floats, and the plain
+    version on integers."""
+    x, c, _ = (t[0].to(cuda) for t in _int_inputs(m + nc * d, 2537, nc, d, 1))
+    idx = torch.randint(-60, 2600, (m,), device=cuda, dtype=idx_dtype)
+    got = _counted("cdist_gather", cuda_cdist_gather, x, idx, c)
+    assert torch.equal(got, cdist_gather_ref(x, idx, c))
+    xf, cf = torch.randn_like(x), torch.randn_like(c)
+    assert torch.equal(cuda_cdist_gather(xf, idx, cf),
+                       cuda_cdist(cuda_gather_rows(xf, idx), cf))
