@@ -23,7 +23,12 @@ git-ignored ``build/``), then runs these phases, one or more lines each:
    data on the default flat route, a G = 3 warm stack with skip/seed,
    ``fixed_rounds``, a biting ``max_rounds``, integer costs, n = 1, 512
    and 8192, all bitwise against the every-round Python loop over
-   ``top2``), then the kernel entry point's
+   ``top2``; then every phase of every masked LAP of phase 7's call (b),
+   whose quota mask puts -1e9 in the cost, and a warm G = 3 stack of them,
+   likewise; one masked LAP timed beside an unmasked one, and the cycles
+   of their rounds by bidder count through the dense kernel's timed
+   instantiation, under its crossover and forced to each path), then the
+   kernel entry point's
    ``cdist``, ``cdist_gather``, ``bid_top2_gather`` and ``ssm_scan`` at the
    shapes phase 5 gives them (``ssm_scan`` also with its expf count and
    their special-function floor at the data sheet's clock and at the SM
@@ -36,7 +41,9 @@ git-ignored ``build/``), then runs these phases, one or more lines each:
    read just after, then a profile of the first few batches of one chunk;
 4. the same path at n = 16 384 against the plain kernels, and the default
    spec's flat route at n = 16 384 against the forced plain path (the
-   Python loop over ``top2``): labels bitwise equal, both times;
+   Python loop over ``top2``): labels bitwise equal, both times; likewise
+   phase 7's calls (a), (b) and (d) at that n, and the categorical stream
+   core with ``chunk_size >= n`` against the flat core;
 5. the kernel entry point ``repro_torch.kernels`` at full size, driven
    once with the launch counters zeroed just before and read just after:
    ``cdist`` of the diabetes rows against k = 256 centroids,
@@ -48,6 +55,15 @@ git-ignored ``build/``), then runs these phases, one or more lines each:
    main call with the counters zeroed just before it and read just after,
    logged beside phase 3's stream route; then a stacked (4, 16384, 22)
    input through the same solver;
+7. the constrained routes on phase 3's rows at k = 256, each a first call
+   (its LAPs counted, and those holding the quota mask) and a main call
+   with the counters zeroed just before it and read just after: (a)
+   ``categories`` (the diabetes_012 class counts), (b) ``fairness`` over
+   class, sex and age, (c) ``categories`` with ``chunk_size="auto"``
+   (``"stream"``, the solver kept ``"auction"``), (d) the rows padded to
+   262 144 under a ``valid_mask``, (e) a stacked (4, 16384, 22) input with
+   categories; exact balance, constraint (5) for one attribute, (b)'s
+   largest quota excess logged;
 
 then one JSON line describing every kernel, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises, exits non-zero and
@@ -82,7 +98,7 @@ import torch  # noqa: E402
 
 from repro_torch.anticluster import anticluster  # noqa: E402
 from repro_torch.core import assignment as asg  # noqa: E402
-from repro_torch.core.aba import aba_stream  # noqa: E402
+from repro_torch.core.aba import _MASK_COST, aba_core, aba_stream  # noqa: E402
 from repro_torch.core.objective import (balance_ok,  # noqa: E402
                                         objective_centroid)
 from repro_torch.data.synthetic import PRESETS, make  # noqa: E402
@@ -736,23 +752,196 @@ def measure_auction_phase_dense(dev, laps) -> dict:
             "library_ms": None}
 
 
-def time_rounds(laps) -> dict:
-    """Every phase of the first TIMED_LAPS LAPs of the main data through the
-    phase kernel's timed instantiation, which stamps the SM clock around
-    each round: under the kernel's own crossover ("rule"), with every round
-    on the CTA path (threshold 0, "cta") and with every round of up to 32
-    bidders on the one-warp path ("warp").  Each launch is checked bitwise
-    against the recorded phase.  Logs the cycles a round by bidder bucket
-    and the crossover; returns them."""
+# ---------------------------------------------------------------------------
+# Section 4.3: attributes, checks, and phase 2's masked LAPs
+# ---------------------------------------------------------------------------
+
+# The constrained calls' attributes: the CDC BRFSS 2015 table behind the
+# *diabetes* shape (the diabetes_012 target's class counts; sex; age in 13
+# bands), each a seeded permutation of its levels with these counts, scaled
+# to the rows of a cut run.  PERF.md states their source.
+ATTRIBUTE_COUNTS = {
+    "class": (213703, 4631, 35346),
+    "sex": (141974, 111706),
+    "age": (5700, 7598, 11123, 13823, 16157, 19819, 26314, 30832, 33244,
+            32194, 23533, 15980, 17363),
+}
+ATTRIBUTE_SEED = 7
+
+
+def attributes(n: int, seed: int = ATTRIBUTE_SEED) -> dict:
+    """The three attributes of n rows: int64 level codes whose counts are
+    ATTRIBUTE_COUNTS scaled to n, each in a seeded order."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name, counts in ATTRIBUTE_COUNTS.items():
+        c = np.asarray(counts) * n // sum(counts)
+        c[np.argmax(c)] += n - c.sum()
+        out[name] = rng.permutation(np.repeat(np.arange(len(c)), c))
+    return out
+
+
+def per_cluster(labels: np.ndarray, codes: np.ndarray, k: int):
+    """(each level's count in each cluster (levels, k), each level's
+    floor(|N|/k) and ceil(|N|/k))."""
+    levels = codes.max() + 1
+    cnt = np.bincount(codes * k + labels, minlength=levels * k)
+    size = np.bincount(codes, minlength=levels)
+    return cnt.reshape(levels, k), size // k, -(-size // k)
+
+
+def stratified(labels, codes, k: int) -> bool:
+    """Constraint (5): each level's count in every cluster within
+    floor(|N|/k)..ceil(|N|/k)."""
+    cnt, lo, hi = per_cluster(labels, codes, k)
+    return bool((cnt.min(1) >= lo).all() and (cnt.max(1) <= hi).all())
+
+
+def quota_excess(labels, codes, k: int) -> int:
+    """The largest count of a level in a cluster above its quota
+    ceil(|N|/k) (0 when every quota holds)."""
+    cnt, _, hi = per_cluster(labels, codes, k)
+    return int(max((cnt - hi[:, None]).max(), 0))
+
+
+class MaskedLaps:
+    """Within the block every dense LAP is counted (its four phases share
+    one cost tensor), and those whose cost holds the quota mask's
+    ``_MASK_COST``: a read from the card a LAP, so checks only."""
+
+    def __enter__(self):
+        self.inner, self.last = ops.auction_phase_dense, None
+        self.laps = self.masked = 0
+
+        def counted(cost, *args, **kwargs):
+            if cost is not self.last:
+                self.last = cost
+                self.laps += 1
+                self.masked += bool((cost == _MASK_COST).any())
+            return self.inner(cost, *args, **kwargs)
+
+        ops.auction_phase_dense = counted
+        return self
+
+    def __exit__(self, *exc):
+        ops.auction_phase_dense = self.inner
+        self.last = None
+
+
+def check_masked_dense(dev, n: int) -> dict:
+    """The dense phase kernel on the masked LAPs of phase 7's call (b),
+    ``anticluster(x, k=256, fairness={class, sex, age})`` on the main
+    data: every phase of every LAP whose cost holds the quota mask, each
+    with its own eps schedule (~1.25e8 down to ~1e6: ROADMAP fault R6),
+    against the every-round Python loop over top2, bitwise, with equal
+    rounds, bids and single-bidder rounds; then a G = 3 stack of three of
+    them, warm, through the solver and as one phase with skip and seed.
+    Then one masked LAP timed against one unmasked LAP of the same call,
+    and the rounds of the masked LAPs and of TIMED_LAPS unmasked ones
+    through the dense kernel's timed instantiation (the crossover)."""
+    d, k = PRESETS["diabetes"][1], 256
+    x = torch.from_numpy(make("mixture", n, d, seed=0)).to(dev)
+    with PhaseRecorder("auction_phase_dense") as rec:
+        res = anticluster(x, k=k, device=dev, fairness=attributes(n))
+    calls = rec.calls
+    check(res.route == "flat" and res.solver == "auction"
+          and len(calls) == 4 * (-(-n // k) - 1),
+          f"call (b): route {res.route} solver {res.solver}, "
+          f"{len(calls)} phases")
+    laps = [calls[i:i + 4] for i in range(0, len(calls), 4)]
+    is_masked = [bool((lap[0]["kw"]["cost"] == _MASK_COST).any())
+                 for lap in laps]
+    masked = [lap for lap, m in zip(laps, is_masked) if m]
+    unmasked = [lap for lap, m in zip(laps, is_masked) if not m][:TIMED_LAPS]
+    del calls, rec, laps
+    check(len(masked) > 0, "call (b) ran no masked LAP")
+    loop = ref.auction_phase_dense_ref
+    what = "auction_phase_dense"
+    for i, lap in enumerate(masked):
+        check_phase_calls(lap, f"masked LAP {i}", loop, what)
+    eps = [float(lap[p]["kw"]["eps"][0]) for lap in masked for p in (0, 3)]
+    stats = {key: sum(c[key] for lap in masked for c in lap)
+             for key in ("rounds", "bids", "single_bidder_rounds")}
+    cells = [int((lap[0]["kw"]["cost"] == _MASK_COST).sum())
+             for lap in masked]
+    log(f"auction_phase_dense on the {len(masked)} masked LAPs of call (b) "
+        f"(of {len(is_masked)}; {sum(cells)} masked cells, at most "
+        f"{max(cells)} in one LAP; eps from {max(eps[0::2]):.4e} down to "
+        f"{min(eps[1::2]):.4e}): all {4 * len(masked)} phases bitwise equal "
+        f"to the every-round Python loop over top2; rounds, bids and "
+        f"single-bidder rounds equal: {stats}")
+
+    pick = [masked[i] for i in sorted({0, len(masked) // 2,
+                                       len(masked) - 1})]
+    while len(pick) < 3:
+        pick.append(pick[-1])
+    costs = torch.cat([lap[0]["kw"]["cost"] for lap in pick])
+    warm = torch.cat([lap[3]["out"][1] for lap in pick])
+    checked = 0
+    with PhaseRecorder("auction_phase_dense") as rec:
+        asg.auction_solve(costs, prices=warm, device=dev)
+        skip = torch.tensor([True, False, False], device=dev)
+        ops.auction_phase_dense(costs, warm, torch.cat(
+            [lap[3]["kw"]["eps"] for lap in pick]), 50 * k + 1000,
+            skip=skip, seed_top2=ref.dense_top2(costs)(warm))
+    checked += check_phase_calls(rec.calls, "G=3 masked warm stack", loop,
+                                 what)
+    log(f"auction_phase_dense: {checked} phases of a G=3 stack of masked "
+        f"LAPs, warm (the solver's adaptive re-entry, then one phase with "
+        f"skip and seed), bitwise equal with equal counts")
+
+    def time_lap(lap):
+        def kernel():
+            for call in lap:
+                phase_kernel.auction_phase_dense(**call["kw"])
+        return time_ms(kernel), device_ms(kernel, "auction_phase_kernel")
+
+    one, plain_lap = masked[0], unmasked[0]
+    ms, dms = time_lap(one)
+    plain_ms, plain_dms = time_lap(plain_lap)
+    counts_one = {key: sum(c[key] for c in one)
+                  for key in ("rounds", "bids", "single_bidder_rounds")}
+    counts_plain = {key: sum(c[key] for c in plain_lap)
+                    for key in ("rounds", "bids", "single_bidder_rounds")}
+    log(f"one masked LAP of call (b) (4 phases, {counts_one}): kernel "
+        f"{ms:.4f} ms (device {dms} ms); an unmasked LAP of the same call "
+        f"({counts_plain}): {plain_ms:.4f} ms (device {plain_dms} ms)")
+    timed = phase_kernel.auction_phase_dense_timed
+    rounds_timed = {
+        "masked": time_rounds([c for lap in masked for c in lap], timed,
+                              f"the {len(masked)} masked LAPs of call (b)"),
+        "unmasked": time_rounds([c for lap in unmasked for c in lap], timed,
+                                f"the first {len(unmasked)} unmasked LAPs "
+                                f"of call (b)")}
+    return {"masked_laps": len(masked), "laps": len(is_masked),
+            "masked_cells": sum(cells), "eps_hi": max(eps[0::2]),
+            "eps_lo": min(eps[1::2]), "counts": stats,
+            "warm_stack_phases": checked,
+            "rounds_timed": rounds_timed,
+            "masked_lap": {"ms": ms, "device_ms": dms, **counts_one},
+            "unmasked_lap": {"ms": plain_ms, "device_ms": plain_dms,
+                             **counts_plain},
+            "labels_sha256": hashlib.sha256(
+                res.labels.cpu().numpy().tobytes()).hexdigest()}
+
+
+def time_rounds(calls, timed, what: str) -> dict:
+    """Every recorded phase of ``calls`` through ``timed``, a phase kernel's
+    timed instantiation, which stamps the SM clock around each round:
+    under the kernel's own crossover ("rule"), with every round on the CTA
+    path (threshold 0, "cta") and with every round of up to 32 bidders on
+    the one-warp path ("warp").  Each launch is checked bitwise against the
+    recorded phase.  Logs the cycles a round by bidder bucket and the
+    crossover; returns them."""
     runs = {}
     for name, threshold in (("rule", -1), ("cta", 0), ("warp", 32)):
         traces = []
-        for i, call in enumerate(laps[:4 * TIMED_LAPS]):
-            a, p, trace = phase_kernel.auction_phase_timed(
-                **call["kw"], trace_rounds=call["rounds"], threshold=threshold)
+        for i, call in enumerate(calls):
+            a, p, trace = timed(**call["kw"], trace_rounds=call["rounds"],
+                                threshold=threshold)
             check(torch.equal(a, call["out"][0])
                   and torch.equal(p, call["out"][1]),
-                  f"timed auction_phase ({name}) differs, phase {i}")
+                  f"{timed.__name__} ({name}) differs, phase {i}")
             traces.append(trace)
         trace = torch.cat(traces).cpu()
         runs[name] = trace[trace[:, 0] >= 0].numpy()
@@ -790,10 +979,9 @@ def time_rounds(laps) -> dict:
     on_cta = rule[(rule[:, 2] == 0) & (rule[:, 0] <= 32), 0]
     chosen = {"warp_path_up_to": int(in_warp.max()) if len(in_warp) else 0,
               "cta_path_from": int(on_cta.min()) if len(on_cta) else None}
-    log(f"auction_phase timed rounds: {len(bidders)} rounds of "
-        f"{4 * TIMED_LAPS} phases (the first {TIMED_LAPS} LAPs of the main "
-        f"data), SM clock cycles a round by bidders (count / median / p90 "
-        f"[median of the steps: top-2s / posting the bids / update]):")
+    log(f"{timed.__name__}: {len(bidders)} rounds of {len(calls)} phases "
+        f"({what}), SM clock cycles a round by bidders (count / median / "
+        f"p90 [median of the steps: top-2s / posting the bids / update]):")
     for name in runs:
         log(f"  {name:4s} " + "; ".join(
             f"{label}: {v['count']} / {v.get('median', 0):.0f} / "
@@ -868,17 +1056,21 @@ def profile_batches(x, k):
     return split
 
 
-def timed_call(x, k, dev, **kw):
-    """One user call of the main path, synchronized; (result, seconds,
-    counts read just after, zeroed just before)."""
-    kw.setdefault("chunk_size", "auto")
+def user_call(x, k, dev, **kw):
+    """One ``anticluster`` call as a user makes it, synchronized:
+    (result, seconds, counts read just after, zeroed just before)."""
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
     res = anticluster(x, k=k, device=dev, **kw)
     torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    used = counts()
+    return res, time.perf_counter() - t0, counts()
+
+
+def timed_call(x, k, dev):
+    """One call of the main path (the stream route) by :func:`user_call`,
+    checked to launch the route's kernels."""
+    res, seconds, used = user_call(x, k, dev, chunk_size="auto")
     check(res.route == "stream", f"route {res.route}, expected stream")
     check(res.solver == "auction_fused", f"solver {res.solver}")
     check(all(used[name] > 0 for name in
@@ -958,17 +1150,8 @@ def default_route(dev, n: int, card: str, stream: dict) -> dict:
     (G, M, D) input through the same solver."""
     d, k = PRESETS["diabetes"][1], 256
     x = torch.from_numpy(make("mixture", n, d, seed=0)).to(dev)
-
-    def call(xx):
-        torch.cuda.synchronize()
-        reset_counts()
-        t0 = time.perf_counter()
-        res = anticluster(xx, k=k, device=dev)
-        torch.cuda.synchronize()
-        return res, time.perf_counter() - t0, counts()
-
-    first, first_s, first_used = call(x)
-    res, main_s, used = call(x)
+    first, first_s, first_used = user_call(x, k, dev)
+    res, main_s, used = user_call(x, k, dev)
     check(res.route == "flat" and res.solver == "auction",
           f"route {res.route} solver {res.solver}, expected flat / auction")
     laps = -(-n // k) - 1
@@ -1011,7 +1194,7 @@ def default_route(dev, n: int, card: str, stream: dict) -> dict:
     del x
     xs = torch.from_numpy(make("mixture", int(np.prod(STACK_SHAPE[:2])),
                                STACK_SHAPE[2], seed=2)).view(STACK_SHAPE)
-    stacked, stacked_s, stacked_used = call(xs.to(dev))
+    stacked, stacked_s, stacked_used = user_call(xs.to(dev), k, dev)
     G, M, _ = STACK_SHAPE
     check(stacked.route == "stacked" and stacked.solver == "auction"
           and stacked_used["auction_phase_dense"] == 4 * (-(-M // k) - 1)
@@ -1031,6 +1214,152 @@ def default_route(dev, n: int, card: str, stream: dict) -> dict:
             "labels_sha256": digest,
             "stacked": {"shape": STACK_SHAPE, "seconds": stacked_s,
                         "launches": stacked_used}}
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the constrained routes at full size
+# ---------------------------------------------------------------------------
+
+def constrained_call(x, k, dev, expect, **kw):
+    """One constrained call as a user makes it, twice: the first with its
+    dense LAPs counted (and those holding the quota mask), the second the
+    main call with the counters zeroed just before it and read just after.
+    Checks the route and solver, four auction_phase_dense launches a LAP,
+    no round of the Python loop and equal labels and rounds in both."""
+    with MaskedLaps() as lap_count:
+        first, first_s, first_used = user_call(x, k, dev, **kw)
+    res, main_s, used = user_call(x, k, dev, **kw)
+    route, solver, laps = expect
+    check(res.route == route and res.solver == solver,
+          f"route {res.route} solver {res.solver}, expected {route} / "
+          f"{solver}")
+    check(used["auction_phase_dense"] == 4 * laps and lap_count.laps == laps
+          and used["plain_rounds"] == 0 and used["auction_phase"] == 0
+          and used["bid_top2"] == 0,
+          f"expected {4 * laps} auction_phase_dense launches for {laps} "
+          f"LAPs and no other solver kernel: {used}, {lap_count.laps} LAPs")
+    check(torch.equal(first.labels, res.labels)
+          and first_used["rounds"] == used["rounds"],
+          "the second call gave other labels or rounds than the first")
+    gap = float(res.gap.max())
+    check(bool(torch.isfinite(res.gap).all()) and float(res.gap.min()) >= 0,
+          f"gap {res.gap}")
+    return {"main_s": main_s, "first_s": first_s, "launches": used,
+            "masked_laps": lap_count.masked, "laps": laps,
+            "route": res.route, "solver": res.solver, "gap": gap,
+            "labels_sha256": hashlib.sha256(
+                res.labels.cpu().numpy().tobytes()).hexdigest()}, res
+
+
+def quality(x, labels, k, real=None) -> dict:
+    """Exact balance of the real rows and their objective against a seeded
+    random balanced partition of them (both checked)."""
+    if real is not None:
+        x, labels = x[real], labels[real]
+    n = x.shape[0]
+    sizes = np.bincount(labels.cpu().numpy(), minlength=k)
+    check(sizes.sum() == n and sizes.min() == n // k
+          and sizes.max() == -(-n // k),
+          f"unbalanced sizes {sizes.min()}..{sizes.max()}")
+    ofv = float(objective_centroid(x, labels, k))
+    rand = np.random.default_rng(0).permutation(np.arange(n) % k)
+    ofv_rand = float(objective_centroid(x, torch.from_numpy(rand).to(
+        x.device), k))
+    check(ofv > ofv_rand, f"objective {ofv} not above random {ofv_rand}")
+    return {"sizes": (int(sizes.min()), int(sizes.max())), "ofv": ofv,
+            "ofv_random": ofv_rand}
+
+
+def constrained_routes(dev, n: int, card: str, masked_run: dict) -> dict:
+    """Phase 7: the Section 4.3 and padding calls on phase 3's rows at full
+    width, k = 256, each through :func:`constrained_call`: (a) categories
+    (flat), (b) three fairness attributes (flat; the masked LAPs), (c)
+    categories with chunk_size="auto" (stream, the solver kept "auction",
+    the chunks through gather_rows), (d) the rows padded to the next power
+    of two (262 144) with a valid_mask (flat), (e) a stacked (4, 16384, 22) input with (4, 16384)
+    categories.  Checks exact balance, constraint (5) for one attribute,
+    the objective above random, a finite gap >= 0; logs (b)'s largest
+    quota excess per attribute."""
+    d, k = PRESETS["diabetes"][1], 256
+    x = torch.from_numpy(make("mixture", n, d, seed=0)).to(dev)
+    attrs = attributes(n)
+    cls = attrs["class"]
+    laps = -(-n // k) - 1
+    out = {}
+
+    def report(name, run, q, extra=""):
+        used = run["launches"]
+        log(f"({name}) on {card}: route={run['route']} solver="
+            f"{run['solver']} {run['main_s']:.3f} s (first call "
+            f"{run['first_s']:.3f} s); auction_phase_dense "
+            f"{used['auction_phase_dense']} launches ({run['laps']} LAPs, "
+            f"{run['masked_laps']} masked), gather_rows "
+            f"{used['gather_rows']}; rounds {used['rounds']}, plain rounds "
+            f"{used['plain_rounds']}, bids {used['bids']}, single-bidder "
+            f"rounds {used['single_bidder_rounds']}; sizes "
+            f"{q['sizes'][0]}..{q['sizes'][1]}; ofv {q['ofv']:.6e} > random "
+            f"{q['ofv_random']:.6e}; gap {run['gap']:.6e}{extra}; labels "
+            f"sha256 {run['labels_sha256'][:16]}")
+        out[name] = {**run, **q}
+
+    run, res = constrained_call(x, k, dev, ("flat", "auction", laps),
+                                categories=cls)
+    lab = res.labels.cpu().numpy()
+    check(stratified(lab, cls, k), "(a): constraint (5) does not hold")
+    report("a", run, quality(x, res.labels, k), "; constraint (5) exact")
+
+    run, res = constrained_call(x, k, dev, ("flat", "auction", laps),
+                                fairness=attrs)
+    lab = res.labels.cpu().numpy()
+    excess = {a: quota_excess(lab, codes, k) for a, codes in attrs.items()}
+    check(run["labels_sha256"] == masked_run["labels_sha256"]
+          and run["masked_laps"] == masked_run["masked_laps"],
+          "(b): other labels or masked LAPs than phase 2's run of (b)")
+    report("b", run, quality(x, res.labels, k),
+           f"; largest quota excess {excess} (best-effort, not checked)")
+    out["b"]["quota_excess"] = excess
+
+    run, res = constrained_call(x, k, dev, ("stream", "auction", laps),
+                                categories=cls, chunk_size="auto")
+    chunks = 1 + -(-laps // (CHUNK_ROWS // k))
+    check(run["launches"]["gather_rows"] == chunks,
+          f"(c): {run['launches']['gather_rows']} gather_rows launches, "
+          f"expected {chunks}")
+    check(stratified(res.labels.cpu().numpy(), cls, k),
+          "(c): constraint (5) does not hold")
+    report("c", run, quality(x, res.labels, k), "; constraint (5) exact")
+
+    pad = 1 << (n - 1).bit_length()  # the next power of two, as a mesh pads
+    xp = torch.cat([x, x.new_zeros((pad - n, d))])
+    vm = torch.arange(pad, device=dev) < n
+    run, res = constrained_call(xp, k, dev,
+                                ("flat", "auction", pad // k - 1),
+                                valid_mask=vm)
+    check(int(res.n_valid) == n and res.balanced,
+          f"(d): {res.n_valid} valid rows, balanced {res.balanced}")
+    report("d", run, quality(xp, res.labels, k, vm),
+           f"; {pad} rows, {n} valid")
+    del xp, vm
+
+    G, M, D = STACK_SHAPE
+    xs = torch.from_numpy(make("mixture", G * M, D, seed=2)).view(
+        STACK_SHAPE).to(dev)
+    cs = np.stack([attributes(M, ATTRIBUTE_SEED + g)["class"]
+                   for g in range(G)])
+    run, res = constrained_call(xs, k, dev, ("stacked", "auction",
+                                             -(-M // k) - 1),
+                                categories=cs)
+    qs = [quality(xs[g], res.labels[g], k) for g in range(G)]
+    for g in range(G):
+        check(stratified(res.labels[g].cpu().numpy(), cs[g], k),
+              f"(e): constraint (5) does not hold in group {g}")
+    report("e", run, {"sizes": (min(q["sizes"][0] for q in qs),
+                                max(q["sizes"][1] for q in qs)),
+                      "ofv": min(q["ofv"] for q in qs),
+                      "ofv_random": max(q["ofv_random"] for q in qs)},
+           f"; {STACK_SHAPE}, G={G} a launch, constraint (5) exact in "
+           f"every group (ofv: the least group's, random: the largest)")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1058,7 +1387,8 @@ def against_plain(dev):
         f"{o_p:.6e} (rel {abs(o_k - o_p) / o_p:.2e}); labels agree on "
         f"{agree:.4f} of rows; both balanced")
     return {"agree": agree, "rel": abs(o_k - o_p) / o_p,
-            "flat": flat_against_plain(x, k, dev)}
+            "flat": flat_against_plain(x, k, dev),
+            "constrained": constrained_against_plain(x, k, dev)}
 
 
 def flat_against_plain(x, k, dev) -> dict:
@@ -1067,21 +1397,13 @@ def flat_against_plain(x, k, dev) -> dict:
     (``forced_path("ref")``, the parent's solver): the labels bitwise
     equal; both wall times.  (The gap is not compared: its cluster sums
     use ``index_add_``, which adds in no fixed order on the card.)"""
-    def call():
-        torch.cuda.synchronize()
-        reset_counts()
-        t0 = time.perf_counter()
-        res = anticluster(x, k=k, device=dev)
-        torch.cuda.synchronize()
-        return res, time.perf_counter() - t0, counts()
-
-    res, kernel_s, used = call()
+    res, kernel_s, used = user_call(x, k, dev)
     check(res.route == "flat" and res.solver == "auction"
           and used["auction_phase_dense"] == 4 * (-(-x.shape[0] // k) - 1)
           and used["plain_rounds"] == 0,
           f"flat route {res.route}/{res.solver} launches {used}")
     with ops.forced_path("ref"):
-        plain, plain_s, inside = call()
+        plain, plain_s, inside = user_call(x, k, dev)
     check(not any(inside[name] for name in _build.launches)
           and inside["plain_rounds"] > 0,
           f"kernels launched under the forced plain path: {inside}")
@@ -1093,6 +1415,61 @@ def flat_against_plain(x, k, dev) -> dict:
         f"({inside['rounds']} rounds, predicate every {ref._CHECK_EVERY})")
     return {"kernel_s": kernel_s, "plain_s": plain_s,
             "rounds": used["rounds"], "plain_rounds": inside["rounds"]}
+
+
+def constrained_against_plain(x, k, dev) -> dict:
+    """Phase 7's calls (a), (b) and (d) at phase 4's n through the dense
+    phase kernel and with every phase in the Python loop over top2
+    (``forced_path("ref")``): labels bitwise equal, both times.  (d) keeps
+    the share of real rows of the full call (253 680 of 262 144) and zeroes
+    the rest.  Then the categorical stream core with ``chunk_size >= n``
+    against the flat core: labels bitwise equal."""
+    n = x.shape[0]
+    attrs = attributes(n)
+    real = n * PRESETS["diabetes"][0] // (1 << (PRESETS["diabetes"][0]
+                                                 - 1).bit_length())
+    xp = torch.cat([x[:real], x.new_zeros((n - real, x.shape[1]))])
+    calls = {"a": (x, {"categories": attrs["class"]}),
+             "b": (x, {"fairness": attrs}),
+             "d": (xp, {"valid_mask": torch.arange(n, device=dev) < real})}
+    out = {}
+    for name, (xx, kw) in calls.items():
+        res, kernel_s, used = user_call(xx, k, dev, **kw)
+        check(res.route == "flat" and res.solver == "auction"
+              and used["auction_phase_dense"] == 4 * (-(-n // k) - 1)
+              and used["plain_rounds"] == 0,
+              f"({name}) route {res.route}/{res.solver} launches {used}")
+        with ops.forced_path("ref"):
+            plain, plain_s, inside = user_call(xx, k, dev, **kw)
+        check(not any(inside[kn] for kn in _build.launches)
+              and inside["plain_rounds"] > 0,
+              f"({name}): kernels launched under the forced plain path: "
+              f"{inside}")
+        check(torch.equal(res.labels, plain.labels),
+              f"({name}): labels differ from the forced plain path's")
+        log(f"({name}) n={n} k={k} {list(kw)}: labels bitwise equal to the "
+            f"forced plain path's; dense kernel {kernel_s:.3f} s "
+            f"({used['rounds']} rounds), Python loop over top2 "
+            f"{plain_s:.3f} s ({inside['rounds']} rounds)")
+        out[name] = {"kernel_s": kernel_s, "plain_s": plain_s,
+                     "rounds": used["rounds"],
+                     "plain_rounds": inside["rounds"]}
+    cls = torch.from_numpy(attrs["class"]).to(dev)
+    flat = aba_core(x[None], k, categories=cls[None], n_categories=3,
+                    device=dev)[0]
+    reset_counts()
+    stream = aba_stream(x, k, n, categories=cls, n_categories=3, device=dev)
+    used = counts()
+    check(used["gather_rows"] > 0 and used["auction_phase_dense"] > 0,
+          f"the categorical stream core launched {used}")
+    check(torch.equal(stream, flat),
+          "the categorical stream core (chunk_size >= n) differs from the "
+          "flat core")
+    log(f"categorical stream core n={n} k={k} chunk_size=n: labels bitwise "
+        f"equal to the flat core's ({used['gather_rows']} gather_rows, "
+        f"{used['auction_phase_dense']} auction_phase_dense launches)")
+    out["stream_equals_flat"] = True
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1308,8 +1685,9 @@ def measure_entry_kernels(dev, errs) -> list:
         "bid_top2_gather", "bid_top2_gather.cu",
         "src/repro/kernels/gather.py:129", f"n={n} m={mi} k={k} d={d} "
         f"(int64 idx)", errs, lambda: cuda_bid_top2_gather(x, idx, c, p),
-        "bid_top2_kernel", lambda: bid_top2_gather_ref(x, idx, c, p), None,
-        b_bg, by_bg))
+        "bid_top2_kernel", lambda: bid_top2_gather_ref(x, idx, c, p),
+        lambda: torch.topk(torch.addmm(cn - p, torch.index_select(
+            x, 0, clipped), c.T, alpha=-2.0), 2, dim=1), b_bg, by_bg))
     c_staged = off_grid(c)
     rows[-1]["staged_device_ms"] = device_ms(
         lambda: cuda_bid_top2_gather(x, idx, c_staged, p), "bid_top2_kernel")
@@ -1430,11 +1808,16 @@ def main():
     solve_rows = [measure_bid_top2(dev, err), check_and_measure_gather(dev)]
     laps = check_auction_phase(dev)
     solve_rows.append(measure_auction_phase(dev, laps))
-    solve_rows[-1]["rounds_timed"] = time_rounds(laps)
+    solve_rows[-1]["rounds_timed"] = time_rounds(
+        laps[:4 * TIMED_LAPS], phase_kernel.auction_phase_timed,
+        f"the first {TIMED_LAPS} LAPs of the main data")
     del laps
     dense_laps = check_auction_phase_dense(dev)
     dense_row = measure_auction_phase_dense(dev, dense_laps)
     del dense_laps
+    masked_run = check_masked_dense(dev, args.n)
+    dense_row["masked_lap"] = masked_run["masked_lap"]
+    dense_row["rounds_timed"] = masked_run["rounds_timed"]
     errs = check_entry_kernels(dev, torch.Generator().manual_seed(4))
     entry_rows = measure_entry_kernels(dev, errs)
     rows = solve_rows + [dense_row] + entry_rows
@@ -1456,10 +1839,19 @@ def main():
     dense_row["launches"] = default_run["launches"]["auction_phase_dense"]
     dense_row["launches_in"] = ("phase 6: the default route, "
                                 "anticluster(x, k=256)")
+    phase("phase 7: the constrained routes at full size")
+    constrained_run = constrained_routes(dev, args.n, smi, masked_run)
+    for r in rows:
+        if r["name"] in ("auction_phase_dense", "gather_rows"):
+            r["launches_phase7"] = {
+                call: run["launches"][r["name"]]
+                for call, run in constrained_run.items()}
     phase("done")
 
     log(json.dumps({"main_path": main_run, "against_plain": plain_run,
-                    "entry_point": entry_run, "default_route": default_run}))
+                    "entry_point": entry_run, "default_route": default_run,
+                    "masked_laps": masked_run,
+                    "constrained_routes": constrained_run}))
     log(smi)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

@@ -10,12 +10,14 @@ Counterpart of ``repro/anticluster.py``::
 ``_route`` picks the execution route from the spec and the input's shape:
 ``"flat"`` (the dense core at G = 1), ``"stream"`` (the chunked core, taken
 for an int ``chunk_size`` or, with ``"auto"``, from 65536 rows on, where the
-default solver is upgraded to the matrix-free ``"auction_fused"``) or
-``"stacked"`` (a (G, M, D) input through the dense core).
+default solver is upgraded to the matrix-free ``"auction_fused"`` unless
+categories are given: their quota mask cannot be factored) or
+``"stacked"`` (a (G, M, D) input through the dense core).  Every route
+takes ``categories`` / ``fairness`` (Section 4.3, one or several
+attributes) and ``valid_mask`` (padding rows).
 
 Not ported yet, and raising ``NotImplementedError`` with the title of the
-ROADMAP Queue 1 item that brings them: ``categories`` / ``fairness`` /
-``valid_mask`` ("Section 4.3 and masks"), hierarchical plans, i.e. k >
+ROADMAP Queue 1 item that brings them: hierarchical plans, i.e. k >
 ``max_k`` or a tuple plan, and ``kplus_moments > 1`` ("Hierarchical route
 and k-plus"), ``mesh`` ("Mesh route"), the ``greedy`` and ``scipy`` solvers
 ("Remaining solvers"), ``telemetry`` ("Consumers") and the engine
@@ -36,7 +38,7 @@ from repro_torch._device import DTYPE, resolve_device
 from repro_torch.core.aba import aba_core, aba_stream
 from repro_torch.core.assignment import AuctionConfig, get_solver
 from repro_torch.core.objective import (cluster_sizes, diversity_per_cluster,
-                                        dual_certificate)
+                                        dual_certificate, segment_ids)
 
 __all__ = ["AnticlusterSpec", "AnticlusterResult", "anticluster",
            "AnticlusterEngine"]
@@ -96,12 +98,11 @@ class AnticlusterSpec:
                  or self.chunk_size < 1):
             raise ValueError(f'chunk_size must be None, "auto", or a '
                              f"positive int; got {self.chunk_size!r}")
-        if self.fairness is not None and self.categories is not None:
-            raise ValueError("categories= and fairness= are mutually "
-                             "exclusive")
-        for name in ("categories", "fairness", "valid_mask"):
-            if getattr(self, name) is not None:
-                _not_ported(f"{name}=", "Section 4.3 and masks")
+        if self.fairness is not None:
+            if self.categories is not None:
+                raise ValueError("categories= and fairness= are mutually "
+                                 "exclusive")
+            _fairness_attrs(self.fairness)  # validate shape and dtype
         if self.mesh is not None:
             _not_ported("mesh=", "Mesh route")
         if self.kplus_moments > 1:
@@ -168,6 +169,11 @@ class AnticlusterResult:
     route: str = "flat"
 
     @property
+    def n_valid(self):
+        """Non-padding rows (per group for stacked input)."""
+        return np.asarray(self.cluster_sizes.cpu()).sum(axis=-1)
+
+    @property
     def balanced(self) -> bool:
         """Constraint (2): all sizes in {floor(n/k), ceil(n/k)}."""
         sizes = np.asarray(self.cluster_sizes.cpu())
@@ -183,16 +189,94 @@ class AnticlusterEngine:
         _not_ported("AnticlusterEngine", "Sessions and updates")
 
 
+def _host(a) -> np.ndarray:
+    """``a`` (array, sequence or tensor on any device) as a numpy array."""
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def _fairness_attrs(fairness) -> list:
+    """``AnticlusterSpec.fairness`` as a list of integer attribute arrays,
+    one per protected attribute, validated as in the JAX front door.
+
+    Accepted forms: a dict (attribute name -> codes, in insertion order), a
+    list or tuple of arrays, one 1-D array or sequence, or a 2-D ``(n, A)``
+    array whose last axis is the attribute axis.  (For stacked (G, M, D)
+    input pass a list or dict of (G, M) arrays.)
+    """
+    if isinstance(fairness, dict):
+        items = list(fairness.values())
+    elif isinstance(fairness, (list, tuple)):
+        items = list(fairness)
+        if items and np.ndim(_host(items[0])) == 0:
+            items = [fairness]  # one attribute given as a plain sequence
+    else:
+        arr = _host(fairness)
+        items = ([arr[..., a] for a in range(arr.shape[-1])]
+                 if arr.ndim == 2 else [arr])
+    if not items:
+        raise ValueError("fairness= needs at least one attribute")
+    attrs = []
+    for a, item in enumerate(items):
+        arr = _host(item)
+        if not np.issubdtype(arr.dtype, np.integer):
+            raise ValueError(
+                f"fairness attribute {a} must be integer-coded, got dtype "
+                f"{arr.dtype} (encode the levels as 0..C-1)")
+        if arr.size and int(arr.min()) < 0:
+            raise ValueError(f"fairness attribute {a} has negative codes")
+        if attrs and arr.shape != attrs[0].shape:
+            raise ValueError(
+                f"fairness attributes disagree on shape: {arr.shape} vs "
+                f"{attrs[0].shape}")
+        attrs.append(arr)
+    return attrs
+
+
+def _resolve_constraints(spec: AnticlusterSpec):
+    """``(categories, n_categories, fair_codes, n_fair_codes)`` as the cores
+    take them (int64 tensors on the CPU, or None), from ``spec.categories``
+    or ``spec.fairness``.
+
+    One attribute (or plain ``categories=``) resolves to constraint (5)
+    exactly: ``fair_codes`` stays None.  Several resolve to the joint
+    mixed-radix cell as the rearrangement's category and per-attribute
+    offset codes into one shared ``sum(C_a)``-wide quota axis.
+    """
+    if spec.fairness is None:
+        if spec.categories is None:
+            return None, spec.n_categories, None, 0
+        cats = _host(spec.categories).astype(np.int64)
+        n_categories = spec.n_categories
+        if n_categories <= 0:
+            n_categories = int(cats.max()) + 1
+        return torch.from_numpy(cats), n_categories, None, 0
+    attrs = [a.astype(np.int64) for a in _fairness_attrs(spec.fairness)]
+    sizes = [int(a.max()) + 1 if a.size else 1 for a in attrs]
+    if len(attrs) == 1:
+        return torch.from_numpy(attrs[0]), sizes[0], None, 0
+    joint = np.zeros(attrs[0].shape, np.int64)
+    for a, s in zip(attrs, sizes):
+        joint = joint * s + a
+    offs = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    codes = np.stack([a + o for a, o in zip(attrs, offs)], axis=-1)
+    return (torch.from_numpy(joint), int(np.prod(sizes)),
+            torch.from_numpy(codes), int(sum(sizes)))
+
+
 def _resolve_spec(spec, overrides: dict) -> AnticlusterSpec:
     if spec is None:
         return AnticlusterSpec(**overrides)
     return spec.evolve(**overrides)
 
 
-def _route(spec: AnticlusterSpec, shape: tuple[int, ...]):
+def _route(spec: AnticlusterSpec, shape: tuple[int, ...],
+           has_categories: bool, has_valid_mask: bool):
     """Static dispatch: ``(mode, plan, solver, chunk)`` with ``mode`` in
     ``"stacked"`` | ``"stream"`` | ``"flat"`` and ``solver`` the registry
-    name after the at-scale upgrade."""
+    name after the at-scale upgrade, which categories keep off (the quota
+    mask cannot be factored, so the plain auction stays the stratified
+    default).  The JAX signature: ``has_valid_mask`` decides only between
+    the hierarchical and mesh routes, which the spec does not admit yet."""
     if len(shape) not in (2, 3):
         raise ValueError(f"x must be (n, d) or (G, M, D), got {shape}")
     plan = spec.resolve_plan()
@@ -209,25 +293,34 @@ def _route(spec: AnticlusterSpec, shape: tuple[int, ...]):
         return "stacked", plan, spec.solver, None
     chunk = spec.resolve_chunk(shape[0], spec.k)
     solver = spec.solver
-    if spec.chunk_size == "auto" and solver == "auction" and chunk is not None:
+    if spec.chunk_size == "auto" and solver == "auction" \
+            and chunk is not None and not has_categories:
         # at scale the matrix-free factored auction is the default engine
         solver = "auction_fused"
     return ("stream" if chunk is not None else "flat"), plan, solver, chunk
 
 
 def _call_core(x, spec: AnticlusterSpec, mode: str, solver: str, chunk,
+               cats, n_categories: int, vm, codes=None, n_codes: int = 0,
                return_state: bool = False):
-    """Run one cold solve on the route's core.  The state's ``"prices"`` is
-    the per-level tuple (a 1-tuple here), as in the JAX front door."""
-    kw = dict(variant=spec.variant, solver=solver,
+    """Run one cold solve on the route's core.  ``cats`` / ``codes`` /
+    ``vm`` are the constraints from :func:`_resolve_constraints` and the
+    valid mask, on ``x``'s device.  The state's ``"prices"`` is the
+    per-level tuple (a 1-tuple here), as in the JAX front door."""
+    kw = dict(variant=spec.variant, categories=cats,
+              n_categories=n_categories, fair_codes=codes,
+              n_fair_codes=n_codes, solver=solver,
               auction_config=spec.auction_config,
               return_state=return_state, device=x.device)
     if mode == "stacked":
-        out = aba_core(x, spec.k, **kw)
+        out = aba_core(x, spec.k, vm, **kw)
     elif mode == "stream":
-        out = aba_stream(x, spec.k, chunk, **kw)
+        out = aba_stream(x, spec.k, chunk, valid_mask=vm, **kw)
     else:
-        out = aba_core(x[None], spec.k, **kw)
+        kw.update(categories=None if cats is None else cats[None],
+                  fair_codes=None if codes is None else codes[None])
+        out = aba_core(x[None], spec.k, None if vm is None else vm[None],
+                       **kw)
     if not return_state:
         return out[0] if mode == "flat" else out
     labels, st = out
@@ -236,17 +329,20 @@ def _call_core(x, spec: AnticlusterSpec, mode: str, solver: str, chunk,
     return labels, {"prices": (st["prices"],), "mu": st["mu"]}
 
 
-def _result_stats(x, labels, k: int, diversity: bool = True):
-    """Per-group (sizes, diversity sd, diversity range)."""
+def _result_stats(x, labels, k: int, valid_mask=None,
+                  diversity: bool = True):
+    """Per-group (sizes, diversity sd, diversity range); padding rows of
+    ``valid_mask`` go to a dump segment, out of every statistic."""
     squeeze = x.dim() == 2
     if squeeze:
         x, labels = x[None], labels[None]
+        valid_mask = None if valid_mask is None else valid_mask[None]
     G, M, D = x.shape
-    seg = (labels.long() + k * torch.arange(G, device=x.device)[:, None])
-    seg = seg.reshape(-1)
-    sizes = cluster_sizes(seg, G * k).view(G, k)
+    seg = segment_ids(labels, k, valid_mask)
+    sizes = cluster_sizes(seg, G * k + 1)[:G * k].view(G, k)
     if diversity:
-        div = diversity_per_cluster(x.reshape(-1, D), seg, G * k).view(G, k)
+        div = diversity_per_cluster(x.reshape(-1, D), seg,
+                                    G * k + 1)[:G * k].view(G, k)
         sd = div.std(dim=1, correction=0)
         rng = div.amax(dim=1) - div.amin(dim=1)
     else:
@@ -256,12 +352,19 @@ def _result_stats(x, labels, k: int, diversity: bool = True):
     return sizes, sd, rng
 
 
-def _certificate(x, labels, prices: tuple, mode: str, k: int):
+def _certificate(x, labels, prices: tuple, mode: str, k: int, vm=None):
     """(dual_bound, gap) from the carried prices, re-centred per group."""
     last = prices[-1]
     last = last - last.amax(dim=-1, keepdim=True)
     return dual_certificate(x, labels,
-                            last if mode == "stacked" else last.reshape(-1), k)
+                            last if mode == "stacked" else last.reshape(-1),
+                            k, valid_mask=vm)
+
+
+def _on(a, dev, dtype) -> torch.Tensor:
+    """``a`` (array or tensor) as a tensor of ``dtype`` on ``dev``."""
+    a = a if isinstance(a, torch.Tensor) else torch.as_tensor(np.asarray(a))
+    return a.to(device=dev, dtype=dtype)
 
 
 def anticluster(x, spec: AnticlusterSpec | None = None, device=None,
@@ -276,15 +379,21 @@ def anticluster(x, spec: AnticlusterSpec | None = None, device=None,
     """
     spec = _resolve_spec(spec, overrides)
     dev = resolve_device(device)
-    x = (x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x)))
-    x = x.to(device=dev, dtype=spec.dtype)
-    mode, plan, solver, chunk = _route(spec, tuple(x.shape))
-    out = _call_core(x, spec, mode, solver, chunk, return_state=spec.stats)
+    x = _on(x, dev, spec.dtype)
+    cats, n_categories, codes, n_codes = _resolve_constraints(spec)
+    cats, codes = (None if t is None else t.to(dev) for t in (cats, codes))
+    vm = (None if spec.valid_mask is None
+          else _on(spec.valid_mask, dev, torch.bool))
+    mode, plan, solver, chunk = _route(spec, tuple(x.shape),
+                                       cats is not None, vm is not None)
+    out = _call_core(x, spec, mode, solver, chunk, cats, n_categories, vm,
+                     codes, n_codes, return_state=spec.stats)
     labels, st = out if spec.stats else (out, None)
     xf = x.to(DTYPE)
-    sizes, sd, rng = _result_stats(xf, labels, spec.k, diversity=spec.stats)
+    sizes, sd, rng = _result_stats(xf, labels, spec.k, vm,
+                                   diversity=spec.stats)
     bound, gap = (None, None) if st is None else _certificate(
-        xf, labels, st["prices"], mode, spec.k)
+        xf, labels, st["prices"], mode, spec.k, vm)
     return AnticlusterResult(
         labels=labels, cluster_sizes=sizes, diversity_sd=sd,
         diversity_range=rng, k=spec.k, plan=plan, solver=solver,

@@ -47,8 +47,18 @@ def diversity_stats(x: torch.Tensor, labels: torch.Tensor, k: int):
     return div.std(correction=0), div.amax() - div.amin()
 
 
+def segment_ids(labels: torch.Tensor, k: int, valid_mask=None) -> torch.Tensor:
+    """(G, M) labels -> flat segment ids ``label + k * group``; padding rows
+    of ``valid_mask`` go to the dump segment ``G * k``."""
+    G = labels.shape[0]
+    seg = labels.long() + k * torch.arange(G, device=labels.device)[:, None]
+    if valid_mask is not None:
+        seg = torch.where(valid_mask, seg, G * k)
+    return seg.reshape(-1)
+
+
 def dual_certificate(x: torch.Tensor, labels: torch.Tensor,
-                     prices: torch.Tensor, k: int):
+                     prices: torch.Tensor, k: int, *, valid_mask=None):
     """LP-dual optimality-gap certificate from the auction's prices.
 
     Returns ``(dual_bound, gap)``: for the realized cluster sizes ``n_c``
@@ -57,18 +67,21 @@ def dual_certificate(x: torch.Tensor, labels: torch.Tensor,
     (||x_i - mu_c||^2 - p_c)`` for any prices ``p``, so
     ``gap = (dual_bound - ofv) / ofv >= 0``.  Takes flat ``(n, d)`` rows with
     ``(k,)`` prices or a stacked ``(G, M, D)`` / ``(G, k)`` pair (then
-    returns (G,) tensors).  Rows go through in chunks of
-    ``_CERT_BLOCK // k``, so the live distance block stays O(chunk * k).
+    returns (G,) tensors).  ``valid_mask`` (the labels' shape, bool) sends
+    padding rows to a dump segment, out of the sizes, centroids, ofv and
+    slack.  Rows go through in chunks of ``_CERT_BLOCK // k``, so the live
+    distance block stays O(chunk * k).
     """
     squeeze = x.dim() == 2
     if squeeze:
         x, labels, prices = x[None], labels[None], prices[None]
+        valid_mask = None if valid_mask is None else valid_mask[None]
     G, M, D = x.shape
-    seg = (labels.long() + k * torch.arange(G, device=x.device)[:, None])
-    seg = seg.reshape(-1)
-    sizes = torch.bincount(seg, minlength=G * k).view(G, k).to(x.dtype)
-    sums = x.new_zeros((G * k, D)).index_add_(0, seg, x.reshape(-1, D))
-    mu = sums.view(G, k, D) / sizes.clamp(min=1.0)[..., None]
+    seg = segment_ids(labels, k, valid_mask)
+    sizes = torch.bincount(seg, minlength=G * k + 1)[:G * k].view(G, k)
+    sizes = sizes.to(x.dtype)
+    sums = x.new_zeros((G * k + 1, D)).index_add_(0, seg, x.reshape(-1, D))
+    mu = sums[:G * k].view(G, k, D) / sizes.clamp(min=1.0)[..., None]
     mu_sq = (mu * mu).sum(dim=-1)
     chunk = max(1, min(M, _CERT_BLOCK // max(k, 1)))
     ofv = x.new_zeros((G,))
@@ -78,8 +91,13 @@ def dual_certificate(x: torch.Tensor, labels: torch.Tensor,
         d2 = ((xc * xc).sum(dim=-1)[..., None]
               - 2.0 * torch.einsum("gcd,gkd->gck", xc, mu)
               + mu_sq[:, None, :])
-        ofv += d2.gather(2, lc[..., None])[..., 0].sum(dim=1)
-        slack += (d2 - prices[:, None, :]).amax(dim=-1).sum(dim=1)
+        v = d2.gather(2, lc[..., None])[..., 0]
+        sl = (d2 - prices[:, None, :]).amax(dim=-1)
+        if valid_mask is not None:
+            wc = valid_mask[:, s:s + chunk]
+            v, sl = torch.where(wc, v, 0.0), torch.where(wc, sl, 0.0)
+        ofv += v.sum(dim=1)
+        slack += sl.sum(dim=1)
     bound = (sizes * prices).sum(dim=-1) + slack
     gap = (bound - ofv) / ofv.clamp(min=1e-12)
     if squeeze:

@@ -14,8 +14,9 @@ raises); a CPU tensor runs the plain version, the port's Python round loop
 Launches are counted in ``_build.launches["auction_phase"]`` and
 ``["auction_phase_dense"]``; the rounds and bids both kernels ran are
 summed on the card and read by :func:`totals`.  :func:`auction_phase_timed`
-runs the factored kernel's timed instantiation, which also records the SM
-clock cycles of every round of group 0 (measurement only).
+and :func:`auction_phase_dense_timed` run the kernels' timed
+instantiations, which also record the SM clock cycles of every round of
+group 0 (measurement only).
 """
 
 from __future__ import annotations
@@ -63,14 +64,7 @@ def auction_phase_timed(x, c, is_real, prices, eps, max_rounds: int,
     tensors only: there is no plain version of a clock.
     """
     _check_shapes(x, c, is_real, prices, eps, skip, seed_top2)
-    if not x.is_cuda:
-        raise ValueError("auction_phase_timed times the CUDA kernel; it "
-                         "takes CUDA tensors")
-    if not 0 <= trace_rounds < 2**31 or not -1 <= threshold < 2**31:
-        raise ValueError("auction_phase_timed: trace_rounds >= 0 and "
-                         "threshold >= -1 must fit int32")
-    trace = torch.full((trace_rounds, 6), -1, dtype=torch.int64,
-                       device=x.device)
+    trace = _trace(x, trace_rounds, threshold)
     assign, p_out = _launch(x, c, is_real, prices, eps, max_rounds,
                             fixed_rounds, skip, seed_top2,
                             timed=(trace.data_ptr(), trace_rounds, threshold))
@@ -91,21 +85,35 @@ def auction_phase_dense(cost, prices, eps, max_rounds: int,
     if not cost.is_cuda:
         return auction_phase_dense_ref(cost, prices, eps, max_rounds,
                                        fixed_rounds, skip, seed_top2)
-    G, n, _ = cost.shape
-    seed, stream = _operands("auction_phase_dense", G, max_rounds,
-                             fixed_rounds, skip, seed_top2, cost=cost,
-                             prices=prices, eps=eps)
-    assign, p_out, rounds, counters = _outputs(G, n, cost.device)
-    # the per-row state where it does not fit in shared memory (the kernel
-    # decides), 10 words a row
-    scratch = torch.empty(G * 10 * n, dtype=torch.float32, device=cost.device)
-    _build.launch("auction_phase_dense", cost.data_ptr(), prices.data_ptr(),
-                  eps.data_ptr(), _ptr(skip), _ptr(seed.get("v1")),
-                  _ptr(seed.get("j1")), _ptr(seed.get("v2")),
-                  assign.data_ptr(), p_out.data_ptr(), rounds.data_ptr(),
-                  counters.data_ptr(), scratch.data_ptr(), G, n, max_rounds,
-                  fixed_rounds, stream)
-    return assign, p_out
+    return _launch_dense(cost, prices, eps, max_rounds, fixed_rounds, skip,
+                         seed_top2)
+
+
+def auction_phase_dense_timed(cost, prices, eps, max_rounds: int,
+                              fixed_rounds: int = 0, skip=None,
+                              seed_top2=None, *, trace_rounds: int,
+                              threshold: int = -1):
+    """:func:`auction_phase_dense` through the dense kernel's timed
+    instantiation, for measurement only: ``trace`` and ``threshold`` as in
+    :func:`auction_phase_timed`.  CUDA tensors only."""
+    _check_dense_shapes(cost, prices, eps, skip, seed_top2)
+    trace = _trace(cost, trace_rounds, threshold)
+    assign, p_out = _launch_dense(
+        cost, prices, eps, max_rounds, fixed_rounds, skip, seed_top2,
+        timed=(trace.data_ptr(), trace_rounds, threshold))
+    return assign, p_out, trace
+
+
+def _trace(t, trace_rounds: int, threshold: int) -> torch.Tensor:
+    """The timed instantiations' (trace_rounds, 6) int64 trace, all -1."""
+    if not t.is_cuda:
+        raise ValueError("the timed phase kernels time the CUDA kernel; "
+                         "they take CUDA tensors")
+    if not 0 <= trace_rounds < 2**31 or not -1 <= threshold < 2**31:
+        raise ValueError("the timed phase kernels: trace_rounds >= 0 and "
+                         "threshold >= -1 must fit int32")
+    return torch.full((trace_rounds, 6), -1, dtype=torch.int64,
+                      device=t.device)
 
 
 def _ptr(t):
@@ -158,6 +166,26 @@ def _launch(x, c, is_real, prices, eps, max_rounds, fixed_rounds, skip,
                   rounds.data_ptr(), counters.data_ptr(), scratch.data_ptr(),
                   G, n, d, max_rounds, fixed_rounds, *timed, stream,
                   symbol="auction_phase_timed_f32" if timed else None)
+    return assign, p_out
+
+
+def _launch_dense(cost, prices, eps, max_rounds, fixed_rounds, skip,
+                  seed_top2, timed=()):
+    G, n, _ = cost.shape
+    seed, stream = _operands("auction_phase_dense", G, max_rounds,
+                             fixed_rounds, skip, seed_top2, cost=cost,
+                             prices=prices, eps=eps)
+    assign, p_out, rounds, counters = _outputs(G, n, cost.device)
+    # the per-row state where it does not fit in shared memory (the kernel
+    # decides), 10 words a row
+    scratch = torch.empty(G * 10 * n, dtype=torch.float32, device=cost.device)
+    _build.launch("auction_phase_dense", cost.data_ptr(), prices.data_ptr(),
+                  eps.data_ptr(), _ptr(skip), _ptr(seed.get("v1")),
+                  _ptr(seed.get("j1")), _ptr(seed.get("v2")),
+                  assign.data_ptr(), p_out.data_ptr(), rounds.data_ptr(),
+                  counters.data_ptr(), scratch.data_ptr(), G, n, max_rounds,
+                  fixed_rounds, *timed, stream,
+                  symbol="auction_phase_dense_timed_f32" if timed else None)
     return assign, p_out
 
 

@@ -33,3 +33,20 @@ extern "C" int auction_phase_dense_f32(
       assign, prices_out, rounds_g, counters, scratch, G, n, 0, max_rounds,
       fixed_rounds, nullptr, 0, -1, stream);
 }
+
+// The same phase with group 0's rounds timed, for measurement only: trace,
+// trace_cap and threshold as auction_phase_timed_f32 takes them
+// (auction_phase.cu).
+extern "C" int auction_phase_dense_timed_f32(
+    const float* cost, const float* prices, const float* eps,
+    const uint8_t* skip, const float* seed_v1, const int64_t* seed_j1,
+    const float* seed_v2, int64_t* assign, float* prices_out, int64_t* rounds_g,
+    int64_t* counters, float* scratch, int G, int n, int max_rounds,
+    int fixed_rounds, int64_t* trace, int trace_cap, int threshold,
+    void* stream) {
+  return phase::launch<true, true>(
+      cost, nullptr, nullptr, prices, eps, skip, seed_v1, seed_j1, seed_v2,
+      assign, prices_out, rounds_g, counters, scratch, G, n, 0, max_rounds,
+      fixed_rounds, reinterpret_cast<long long*>(trace), trace_cap, threshold,
+      stream);
+}

@@ -173,7 +173,8 @@ def test_synthetic_copy_matches_jax():
     ((3, 64, 8), {}),
 ])
 def test_route_matches_jax(shape, kw):
-    mode, plan, solver, chunk = _route(AnticlusterSpec(k=256, **kw), shape)
+    mode, plan, solver, chunk = _route(AnticlusterSpec(k=256, **kw), shape,
+                                       False, False)
     j_mode, j_plan, j_solver, j_chunk = jax_route(JaxSpec(k=256, **kw), shape,
                                                   False, False)
     assert (mode, plan, solver, chunk) == (j_mode, j_plan, j_solver, j_chunk)
@@ -215,11 +216,12 @@ def _out_of_slice(kw, title):
 
 
 @pytest.mark.parametrize("kw,title", [
-    _out_of_slice({"categories": np.zeros(64, np.int32)},
-                  "Section 4.3 and masks"),
-    _out_of_slice({"fairness": np.zeros(64, np.int32)},
-                  "Section 4.3 and masks"),
-    _out_of_slice({"valid_mask": np.ones(64, bool)}, "Section 4.3 and masks"),
+    _out_of_slice({"categories": np.zeros(64, np.int32), "k": 1024},
+                  "Hierarchical route and k-plus"),
+    _out_of_slice({"valid_mask": np.ones(64, bool), "plan": (2, 2)},
+                  "Hierarchical route and k-plus"),
+    _out_of_slice({"fairness": np.zeros(64, np.int32), "mesh": object()},
+                  "Mesh route"),
     _out_of_slice({"mesh": object()}, "Mesh route"),
     _out_of_slice({"kplus_moments": 2}, "Hierarchical route and k-plus"),
     _out_of_slice({"telemetry": True}, "Consumers"),
@@ -242,18 +244,17 @@ def test_out_of_slice_fields_raise(kw, title):
 def test_out_of_slice_core_arguments_and_engine_raise():
     x = _data(64, 4)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        aba_core(x[None], 4, np.ones((1, 64), bool), device=CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        aba_stream(x, 4, 32, categories=np.zeros(64), device=CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         AnticlusterEngine(AnticlusterSpec(k=4))
     titles = _queue1_titles()
     for call, title in (
             (lambda: aba_core(x[None], 4, telemetry=True, device=CPU),
              "Remaining solvers"),
-            (lambda: aba_stream(x, 4, 32, valid_mask=np.ones(64, bool),
-                                device=CPU), "Section 4.3 and masks"),
+            (lambda: aba_stream(x, 4, 32, telemetry=True, device=CPU),
+             "Remaining solvers"),
             (lambda: AnticlusterEngine(AnticlusterSpec(k=4)),
+             "Sessions and updates"),
+            (lambda: AnticlusterEngine(AnticlusterSpec(
+                k=4, categories=np.zeros(64, np.int32))),
              "Sessions and updates")):
         assert any(t.startswith(title) for t in titles), title
         with pytest.raises(NotImplementedError,

@@ -12,7 +12,8 @@ import pytest
 import torch
 
 from repro_torch.anticluster import anticluster
-from repro_torch.core.aba import aba_core
+from repro_torch.core import assignment as asg
+from repro_torch.core.aba import _MASK_COST, aba_core, aba_stream
 from repro_torch.core.objective import balance_ok
 import repro_torch.kernels as K
 from repro_torch.kernels import _build, ops, ref
@@ -531,6 +532,7 @@ def _check_dense_kernel(monkeypatch, cost, kw):
     for key in ("bids", "single_bidder_rounds"):
         assert t1[key] - t0[key] == b1[key] - b0[key], key
     assert t1["bids"] > t0["bids"]
+    return got
 
 
 @pytest.mark.cuda
@@ -661,3 +663,151 @@ def test_cuda_cdist_gather_off_tile_edges(cuda, m, nc, d, idx_dtype):
     xf, cf = torch.randn_like(x), torch.randn_like(c)
     assert torch.equal(cuda_cdist_gather(xf, idx, cf),
                        cuda_cdist(cuda_gather_rows(xf, idx), cf))
+
+
+# ---------------------------------------------------------------------------
+# Section 4.3: the dense phase kernel on masked costs, the constrained routes
+# ---------------------------------------------------------------------------
+
+def _masked_cost(G, n, closed, seed, device):
+    """A (G, n, n) cost as ``_assign_batch`` builds it under the quota mask:
+    Gaussian values times 5, a ``closed`` share of the cells at
+    ``_MASK_COST`` (a whole row too: a row with no open cluster), and the
+    last group's last rows dummies (zero, never masked)."""
+    gen = torch.Generator().manual_seed(seed)
+    cost = torch.randn((G, n, n), generator=gen) * 5
+    cost = torch.where(torch.rand((G, n, n), generator=gen) < closed,
+                       _MASK_COST, cost)
+    cost[0, 0] = _MASK_COST
+    cost[-1, n - n // 8:] = 0.0
+    return cost.to(device)
+
+
+def _masked_schedule(cost):
+    """The solver's eps schedule of a masked cost: its span includes the
+    mask (reference fault R6), so eps runs from ~1.25e8 to ~1e9 / (4n)."""
+    finite = torch.where(cost <= asg._NEG / 2, 0.0, cost)
+    span = (finite.amax(dim=(1, 2)) - finite.amin(dim=(1, 2))).clamp(min=1e-6)
+    return asg._eps_schedule(span, cost.shape[1], asg.AuctionConfig())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,n", [(1, 16), (3, 48), (1, 256), (2, 256),
+                                 (1, 512)])
+@pytest.mark.parametrize("closed", [0.05, 0.6])
+def test_cuda_auction_phase_dense_masked_costs(cuda, monkeypatch, G, n,
+                                               closed):
+    """Every phase of the masked LAP's own schedule (values near -1e9, eps
+    1e6 to 1e8, prices near 1e8 where ties are everywhere), the prices
+    carried from phase to phase, then a warm re-solve with skip and seed:
+    the dense phase kernel bitwise the Python loop, with the same rounds,
+    bids and single-bidder rounds."""
+    cost = _masked_cost(G, n, closed, G * n + int(closed * 100), cuda)
+    sched = _masked_schedule(cost)
+    assert float(sched[0].min()) > 1e8
+    prices = torch.zeros((G, n), device=cuda)
+    for eps in sched:
+        _, prices = _check_dense_kernel(
+            monkeypatch, cost, dict(prices=prices, eps=eps,
+                                    max_rounds=50 * n + 1000))
+    assert float(prices.abs().max()) > 1e6
+    skip = torch.zeros((G,), dtype=torch.bool, device=cuda)
+    skip[0] = G > 1
+    warm = dict(prices=prices, eps=sched[-1], max_rounds=50 * n + 1000,
+                skip=skip, seed_top2=ref.dense_top2(cost)(prices))
+    _check_dense_kernel(monkeypatch, cost, warm)
+
+
+def _constrained_run(x, dev, **kw):
+    """anticluster on the card: (result, launches by kernel, plain rounds)."""
+    before = dict(_build.launches)
+    r0 = ref.rounds_executed
+    res = anticluster(x, device=dev, **kw)
+    used = {name: _build.launches[name] - before[name] for name in before}
+    return res, used, ref.rounds_executed - r0
+
+
+def _constraint_kwargs(case, shape):
+    """The constraint of ``case`` for labels of ``shape``, from a seed."""
+    rng = np.random.default_rng(shape[-1])
+    cls = rng.integers(0, 3, size=shape).astype(np.int32)
+    if case == "categories":
+        return {"categories": cls}
+    if case == "fairness":
+        return {"fairness": {"cls": cls,
+                             "sex": rng.integers(0, 2, size=shape),
+                             "age": rng.integers(0, 13, size=shape)}}
+    n = shape[-1]
+    return {"valid_mask": np.broadcast_to(np.arange(n) < n - n // 10,
+                                          shape).copy()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["categories", "fairness", "valid_mask"])
+@pytest.mark.parametrize("route", ["flat", "stream", "stacked"])
+def test_cuda_constrained_routes_equal_forced_plain_path(cuda, case, route):
+    """Every constrained route with the dense solver runs each phase as one
+    auction_phase_dense launch (four a LAP) and no round of the Python
+    loop, the stream route's chunks through gather_rows, and its labels
+    are bitwise those of the same call with every phase in the loop
+    (``ops.forced_path("ref")``)."""
+    n, k, G = 1024, 32, 3
+    rng = np.random.default_rng(3)
+    shape = (G, n) if route == "stacked" else (n,)
+    x = torch.from_numpy(rng.normal(size=shape + (6,)).astype(np.float32))
+    x = x.to(cuda)
+    kw = dict(k=k, **_constraint_kwargs(case, shape))
+    if route == "stream":
+        kw["chunk_size"] = 256
+    res, used, plain = _constrained_run(x, cuda, **kw)
+    assert res.route == route and res.solver == "auction" and plain == 0
+    assert used["auction_phase_dense"] == 4 * (n // k - 1)
+    assert used["gather_rows"] == (5 if route == "stream" else 0)
+    with ops.forced_path("ref"):
+        ref_res, ref_used, ref_plain = _constrained_run(x, cuda, **kw)
+    assert not any(ref_used.values()) and ref_plain > 0
+    assert torch.equal(res.labels, ref_res.labels)
+    assert res.balanced
+
+
+@pytest.mark.cuda
+def test_cuda_categorical_stream_covering_chunk_equals_dense(cuda):
+    """On the card too the categorical stream core with chunk_size >= n
+    gives the flat core's labels bit for bit (the chunk's rows come through
+    gather_rows, the dense core's through a gather of its own)."""
+    n, k = 4096, 64
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.normal(size=(n, 8)).astype(np.float32)).to(cuda)
+    cats = torch.from_numpy(rng.integers(0, 3, size=n)).to(cuda)
+    dense = aba_core(x[None], k, categories=cats[None], n_categories=3,
+                     device=cuda)[0]
+    n0 = _build.launches["gather_rows"]
+    stream = aba_stream(x, k, n, categories=cats, n_categories=3,
+                        device=cuda)
+    assert _build.launches["gather_rows"] > n0
+    assert torch.equal(stream, dense)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("threshold", [-1, 0, 32])
+def test_cuda_auction_phase_dense_timed(cuda, threshold):
+    """The dense kernel's timed instantiation (measurement only) gives the
+    phase's result bitwise, on a masked cost, and traces every round of
+    group 0: bidders summing to the bids, the path set by ``threshold``
+    (-1: the kernel's rule)."""
+    cost = _masked_cost(1, 256, 0.05, 7, cuda)
+    kw = dict(prices=torch.zeros((1, 256), device=cuda),
+              eps=_masked_schedule(cost)[0], max_rounds=50 * 256 + 1000)
+    want = phase_kernel.auction_phase_dense(cost, **kw)
+    t0 = phase_kernel.totals()
+    *got, trace = _counted("auction_phase_dense",
+                           phase_kernel.auction_phase_dense_timed, cost, **kw,
+                           trace_rounds=kw["max_rounds"], threshold=threshold)
+    t1 = phase_kernel.totals()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    trace = trace[trace[:, 0] >= 0].cpu()
+    assert len(trace) == t1["rounds"] - t0["rounds"]
+    assert int(trace[:, 0].sum()) == t1["bids"] - t0["bids"]
+    assert bool((trace[:, 1] > 0).all()) and bool((trace[:, 3:] >= 0).all())
+    if threshold >= 0:
+        assert torch.equal(trace[:, 2] == 1, trace[:, 0] <= threshold)
