@@ -19,16 +19,18 @@ git-ignored ``build/``), then runs these phases, one or more lines each:
    single-bidder rounds; then the SM clock cycles of every round of the
    first 16 LAPs by bidder count, from the kernel's timed instantiation,
    under its own crossover and with every round sent to each of its two
-   paths), ``auction_phase_dense`` (every phase of 65 LAPs of the main
-   data on the default flat route, a G = 3 warm stack with skip/seed,
-   ``fixed_rounds``, a biting ``max_rounds``, integer costs, n = 1, 512
-   and 8192, all bitwise against the every-round Python loop over
-   ``top2``; then every phase of every masked LAP of phase 7's call (b),
-   whose quota mask puts -1e9 in the cost, and a warm G = 3 stack of them,
-   likewise; one masked LAP timed beside an unmasked one, and the cycles
-   of their rounds by bidder count through the dense kernel's timed
-   instantiation, under its crossover and forced to each path), then the
-   kernel entry point's
+   paths), ``auction_phase_dense`` (one launch a LAP, all its phases: the
+   65 launches of the first 65 LAPs of the main data on the default flat
+   route, a G = 3 warm stack with skips and seed, ``fixed_rounds``, a
+   biting ``max_rounds``, integer costs, n = 1, 100, 250, 512 and 8192
+   (every cost row staged, some, none), all bitwise against the
+   every-round Python loop over ``top2``, phase after phase; then every
+   masked LAP of phase 7's call (b), whose quota mask puts -1e9 in the
+   cost, and a warm G = 3 stack of them, likewise; one masked LAP timed
+   beside an unmasked one, and the cycles of their rounds by bidder count
+   and by step through the dense kernel's timed instantiation, under its
+   crossover, forced to each path and by where the cost row lives; the
+   latency floor of the timed LAP), then the kernel entry point's
    ``cdist``, ``cdist_gather``, ``bid_top2_gather`` and ``ssm_scan`` at the
    shapes phase 5 gives them (``ssm_scan`` also with its expf count and
    their special-function floor at the data sheet's clock and at the SM
@@ -38,7 +40,9 @@ git-ignored ``build/``), then runs these phases, one or more lines each:
    ``"stream"`` route with the ``"auction_fused"`` solver.  First the
    process's first call of that path, then a second, identical one (the
    main call) with the kernels' launch counters zeroed just before it and
-   read just after, then a profile of the first few batches of one chunk;
+   read just after, then a profile of the first few batches of one chunk,
+   then a window of 20 LAPs in the middle of a third call profiled (no
+   copy between host and card and no wait on the card in a LAP);
 4. the same path at n = 16 384 against the plain kernels, and the default
    spec's flat route at n = 16 384 against the forced plain path (the
    Python loop over ``top2``): labels bitwise equal, both times; likewise
@@ -51,9 +55,12 @@ git-ignored ``build/``), then runs these phases, one or more lines each:
    indices, and ``ssm_scan`` at one falcon-mamba-7b layer's width;
 6. the default route: ``anticluster(x, k=256)`` with the default spec on
    phase 3's rows (the ``"flat"`` route, the dense ``"auction"`` solver,
-   every phase one ``auction_phase_dense`` launch), a first call and the
+   every LAP one ``auction_phase_dense`` launch), a first call and the
    main call with the counters zeroed just before it and read just after,
-   logged beside phase 3's stream route; then a stacked (4, 16384, 22)
+   logged beside phase 3's stream route; a window of 20 LAPs in the middle
+   of a third call profiled (launches, copies and waits a LAP, none
+   between host and card or on the card; the device's idle share) and a fourth call profiled whole (the dense
+   kernel's device time over the call); then a stacked (4, 16384, 22)
    input through the same solver;
 7. the constrained routes on phase 3's rows at k = 256, each a first call
    (its LAPs counted, and those holding the quota mask) and a main call
@@ -62,8 +69,10 @@ git-ignored ``build/``), then runs these phases, one or more lines each:
    class, sex and age, (c) ``categories`` with ``chunk_size="auto"``
    (``"stream"``, the solver kept ``"auction"``), (d) the rows padded to
    262 144 under a ``valid_mask``, (e) a stacked (4, 16384, 22) input with
-   categories; exact balance, constraint (5) for one attribute, (b)'s
-   largest quota excess logged;
+   categories; one dense launch a LAP, exact balance, constraint (5) for
+   one attribute, (b)'s largest quota excess logged; a third call each
+   with a window of LAPs profiled (launches and copies a LAP, none
+   between host and card, and no wait on the card);
 
 then one JSON line describing every kernel, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises, exits non-zero and
@@ -130,6 +139,7 @@ BOOST_SM_MHZ = 1980
 PROFILE_BATCHES = 4  # batches of the profiled run (the first has no LAP)
 CHECK_LAPS = 65  # LAPs of the main data held against the Python loop
 TIMED_LAPS = 16  # LAPs of the main data whose rounds are timed
+WINDOW_LAPS = 20  # LAPs of a profiled window in the middle of a call
 # bidder counts of a round, as PERF.md tabulates them
 BUCKETS = (("1", 1, 1), ("2-4", 2, 4), ("5-32", 5, 32), (">32", 33, 1 << 30))
 
@@ -415,7 +425,7 @@ def check_and_measure_gather(dev) -> dict:
 class PhaseRecorder:
     """Within the block every call of the dispatcher ``ops.<name>``
     (``auction_phase``: the factored solver's phases; ``auction_phase_dense``:
-    the dense solver's) runs as usual and is recorded: its arguments by
+    the dense solver's LAPs) runs as usual and is recorded: its arguments by
     name, outputs and the kernel's rounds, bids and single-bidder rounds (a
     sync per phase: checks only)."""
 
@@ -632,13 +642,15 @@ def dense_inputs(gen, G, n, integer, dev):
 
 def check_auction_phase_dense(dev) -> list:
     """The dense phase kernel against the Python loop over ``ref.top2``,
-    bitwise, with equal rounds, bids and single-bidder rounds: every phase
-    of the first CHECK_LAPS LAPs of the main data on the default spec's flat
-    route (the cost as ``_assign_batch`` builds it; the last LAP with 16
-    dummy rows), then a G = 3 stack of three of those LAPs warm (skip,
-    seed), with fixed_rounds and with a max_rounds cap that bites, integer
-    costs (ties), n = 1, n = 512 (max_k) and n = 8192 (the per-row state
-    in device memory).  Returns the main data's phases."""
+    bitwise, phase after phase, with equal rounds, bids and single-bidder
+    rounds: the launch of each of the first CHECK_LAPS LAPs of the main
+    data on the default spec's flat route (all four phases; the cost as
+    ``_assign_batch`` builds it; the last LAP with 16 dummy rows), then a
+    G = 3 stack of three of those LAPs warm (skips, seed), with
+    fixed_rounds and with a max_rounds cap that bites, integer costs
+    (ties), n = 100 and 250 (staged by the threads), n = 1, n = 512
+    (max_k) and n = 8192 (the per-row state in device memory).  Returns
+    the main data's launches."""
     n, d, _ = PRESETS["diabetes"]
     k = 256
     rows = (CHECK_LAPS + 1) * k - 16
@@ -647,23 +659,26 @@ def check_auction_phase_dense(dev) -> list:
         res = anticluster(x, k=k, device=dev)
     check(res.route == "flat" and res.solver == "auction",
           f"route {res.route} solver {res.solver}")
-    check(len(rec.calls) == 4 * CHECK_LAPS, f"{len(rec.calls)} phases")
+    check(len(rec.calls) == CHECK_LAPS
+          and all(c["kw"]["eps"].shape == (4, 1) for c in rec.calls),
+          f"{len(rec.calls)} launches, not one a LAP of four phases")
     laps = rec.calls
     last = CHECK_LAPS - 1
-    lap_cost = laps[4 * last]["kw"]["cost"]
+    lap_cost = laps[last]["kw"]["cost"]
     dummy_rows = int((lap_cost[0].abs().sum(1) == 0).sum())
     check(dummy_rows == 16, f"the last LAP has {dummy_rows} zero cost rows")
     loop = ref.auction_phase_dense_ref
     what = "auction_phase_dense"
     check_phase_calls(laps, "main data", loop, what)
-    log(f"auction_phase_dense: {len(laps)} phases of the first {CHECK_LAPS} "
-        f"LAPs of the main data on the flat route (n={k}, the cost of "
-        f"_assign_batch, the last LAP with {dummy_rows} dummy rows): "
-        f"assignments and prices bitwise equal to the every-round Python "
-        f"loop over top2; rounds, bids and single-bidder rounds equal")
+    log(f"auction_phase_dense: {len(laps)} launches, all 4 phases of each "
+        f"of the first {CHECK_LAPS} LAPs of the main data on the flat route "
+        f"(n={k}, the cost of _assign_batch, the last LAP with {dummy_rows} "
+        f"dummy rows): assignments and prices bitwise equal to the "
+        f"every-round Python loop over top2, phase after phase; rounds, bids "
+        f"and single-bidder rounds equal")
 
-    costs = torch.cat([laps[4 * i]["kw"]["cost"] for i in (0, 1, last)])
-    warm = torch.cat([laps[4 * i + 3]["out"][1] for i in (0, 1, last)])
+    costs = torch.cat([laps[i]["kw"]["cost"] for i in (0, 1, last)])
+    warm = torch.cat([laps[i]["out"][1] for i in (0, 1, last)])
     gen = torch.Generator().manual_seed(9)
     cases = {
         "G=3 warm, skip, seed": (costs, asg.AuctionConfig(), warm),
@@ -689,6 +704,13 @@ def check_auction_phase_dense(dev) -> list:
                   and rec.calls[0]["kw"]["seed_top2"] is not None,
                   f"{name}: the warm stack skipped no phase")
         checked += check_phase_calls(rec.calls, name, loop, what)
+    # the residencies: every cost row staged (n = 100, off the float4 grid:
+    # by the threads), 222 of 250 (by the threads); n = 512 above: 104
+    for nn in (100, 250):
+        cost = dense_inputs(gen, 2, nn, False, dev)
+        with PhaseRecorder("auction_phase_dense") as rec:
+            asg.auction_solve(cost, device=dev)
+        checked += check_phase_calls(rec.calls, f"G=2 n={nn}", loop, what)
     # n = 1 (the solver never launches it: a direct call) and n = 8192,
     # the per-row state in device memory: to the end and cut by a cap
     direct = [("n=1", dense_inputs(gen, 2, 1, False, dev), 1000)]
@@ -699,26 +721,31 @@ def check_auction_phase_dense(dev) -> list:
         G, nn = cost.shape[:2]
         with PhaseRecorder("auction_phase_dense") as rec:
             ops.auction_phase_dense(cost, torch.zeros((G, nn), device=dev),
-                                    torch.full((G,), 2.0, device=dev), cap)
+                                    torch.full((1, G), 2.0, device=dev), cap)
         checked += check_phase_calls(rec.calls, f"{name} max_rounds={cap}",
                                      loop, what)
         if name == "n=8192":
             big_rounds.append(rec.calls[0]["rounds"])
     del big
-    log(f"auction_phase_dense: {checked} more phases bitwise equal with "
+    log(f"auction_phase_dense: {checked} more launches bitwise equal with "
         f"equal rounds, bids and single-bidder rounds: {', '.join(cases)}, "
-        f"n=1, n=8192 (state in device memory; {big_rounds[0]} rounds to "
-        f"the end, cut at {big_rounds[1]})")
+        f"n=100, n=250, n=1, n=8192 (state in device memory; {big_rounds[0]} "
+        f"rounds to the end, cut at {big_rounds[1]})")
     return laps
 
 
 def measure_auction_phase_dense(dev, laps) -> dict:
-    """One LAP of the main data on the flat route (its four dense phases)
-    by the kernel and by the Python loop over top2 as the parent ran it
-    (predicate every _CHECK_EVERY rounds); the bound from the bytes of the
-    cost rows the LAP's counted bids read, or its subtractions."""
-    lap = laps[4:8]  # the second LAP
+    """One LAP of the main data on the flat route (its four dense phases,
+    one launch) by the kernel and by the Python loop over top2 as the
+    parent ran it (predicate every _CHECK_EVERY rounds); the bound from
+    each input byte read once (the cost once a launch) and each output
+    byte written once, or from the subtractions of the LAP's counted
+    bids, the larger; beside it a latency floor: the LAP's rounds, each
+    as short as the shortest round of this LAP's own trace from the timed
+    instantiation, at the boost clock."""
+    lap = laps[1:2]  # the second LAP
     n = lap[0]["kw"]["cost"].shape[1]
+    P = lap[0]["kw"]["eps"].shape[0]
 
     def kernel():
         for call in lap:
@@ -733,23 +760,37 @@ def measure_auction_phase_dense(dev, laps) -> dict:
     plain = time_ms(loop, reps=3, warmup=1)
     bids = sum(c["bids"] for c in lap)
     rounds = sum(c["rounds"] for c in lap)
-    # a bid reads its row of n costs; per phase prices and eps in,
-    # assignment (int64) and prices out
-    n_bytes = 4 * bids * n + 4 * (4 * (n + 1) + 12 * n)
+    # the cost, prices and the (P, 1) schedule in; assignment (int64) and
+    # prices out
+    n_bytes = 4 * (n * n + n + P) + 12 * n
     b, by = bound_ms(n_bytes, bids * n)
-    log(f"auction_phase_dense one LAP (4 phases, {rounds} rounds, {bids} "
-        f"bids): kernel {ms:.4f} ms (device {dms} ms), Python loop over top2 "
-        f"{plain:.2f} ms, bound {b:.6f} ms ({by})")
+    *out, trace = phase_kernel.auction_phase_dense_timed(
+        **lap[0]["kw"], trace_rounds=rounds)
+    check(torch.equal(out[0], lap[0]["out"][0])
+          and torch.equal(out[1], lap[0]["out"][1]),
+          "auction_phase_dense_timed differs on the timed LAP")
+    cycles = trace[trace[:, 0] >= 0, 1].cpu()
+    check(len(cycles) == rounds, f"the timed LAP traced {len(cycles)} of "
+          f"its {rounds} rounds")
+    shortest = int(cycles.min())
+    floor = rounds * shortest / (BOOST_SM_MHZ * 1e3)
+    log(f"auction_phase_dense one LAP ({P} phases in one launch, {rounds} "
+        f"rounds, {bids} bids): kernel {ms:.4f} ms (device {dms} ms), "
+        f"Python loop over top2 {plain:.2f} ms, bound {b:.6f} ms ({by}); "
+        f"latency floor {rounds} rounds x {shortest} cycles (the LAP's "
+        f"shortest round; median {float(cycles.median()):.0f}) at "
+        f"{BOOST_SM_MHZ} MHz = {floor:.4f} ms")
     return {"name": "auction_phase_dense", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/auction_phase_dense.cu",
             "replaces": "src/repro/core/assignment.py:115 (the lax.while_loop "
                         "of _auction_phase over _top2_batched, :106; no "
                         "pallas_call)",
-            "shape": f"one LAP: 4 phases, G=1 n={n}, {rounds} rounds, "
-                     f"{bids} bids",
+            "shape": f"one LAP: {P} phases in one launch, G=1 n={n}, "
+                     f"{rounds} rounds, {bids} bids",
             "max_abs_err": 0.0, "ms": ms, "device_ms": dms,
             "plain_ms": plain, "bound_ms": b, "bound_by": by,
-            "library_ms": None}
+            "library_ms": None, "lap_rounds": rounds,
+            "latency_floor_ms": floor, "shortest_round_cycles": shortest}
 
 
 # ---------------------------------------------------------------------------
@@ -805,9 +846,9 @@ def quota_excess(labels, codes, k: int) -> int:
 
 
 class MaskedLaps:
-    """Within the block every dense LAP is counted (its four phases share
-    one cost tensor), and those whose cost holds the quota mask's
-    ``_MASK_COST``: a read from the card a LAP, so checks only."""
+    """Within the block every dense LAP (one dispatch) is counted, and those
+    whose cost holds the quota mask's ``_MASK_COST``: a read from the card
+    a LAP, so checks only."""
 
     def __enter__(self):
         self.inner, self.last = ops.auction_phase_dense, None
@@ -845,10 +886,10 @@ def check_masked_dense(dev, n: int) -> dict:
         res = anticluster(x, k=k, device=dev, fairness=attributes(n))
     calls = rec.calls
     check(res.route == "flat" and res.solver == "auction"
-          and len(calls) == 4 * (-(-n // k) - 1),
+          and len(calls) == -(-n // k) - 1,
           f"call (b): route {res.route} solver {res.solver}, "
-          f"{len(calls)} phases")
-    laps = [calls[i:i + 4] for i in range(0, len(calls), 4)]
+          f"{len(calls)} launches")
+    laps = [[call] for call in calls]  # one launch a LAP
     is_masked = [bool((lap[0]["kw"]["cost"] == _MASK_COST).any())
                  for lap in laps]
     masked = [lap for lap, m in zip(laps, is_masked) if m]
@@ -859,7 +900,7 @@ def check_masked_dense(dev, n: int) -> dict:
     what = "auction_phase_dense"
     for i, lap in enumerate(masked):
         check_phase_calls(lap, f"masked LAP {i}", loop, what)
-    eps = [float(lap[p]["kw"]["eps"][0]) for lap in masked for p in (0, 3)]
+    eps = [float(lap[0]["kw"]["eps"][p, 0]) for lap in masked for p in (0, 3)]
     stats = {key: sum(c[key] for lap in masked for c in lap)
              for key in ("rounds", "bids", "single_bidder_rounds")}
     cells = [int((lap[0]["kw"]["cost"] == _MASK_COST).sum())
@@ -867,28 +908,28 @@ def check_masked_dense(dev, n: int) -> dict:
     log(f"auction_phase_dense on the {len(masked)} masked LAPs of call (b) "
         f"(of {len(is_masked)}; {sum(cells)} masked cells, at most "
         f"{max(cells)} in one LAP; eps from {max(eps[0::2]):.4e} down to "
-        f"{min(eps[1::2]):.4e}): all {4 * len(masked)} phases bitwise equal "
-        f"to the every-round Python loop over top2; rounds, bids and "
-        f"single-bidder rounds equal: {stats}")
+        f"{min(eps[1::2]):.4e}): all {4 * len(masked)} phases ({len(masked)} "
+        f"launches) bitwise equal to the every-round Python loop over top2; "
+        f"rounds, bids and single-bidder rounds equal: {stats}")
 
     pick = [masked[i] for i in sorted({0, len(masked) // 2,
                                        len(masked) - 1})]
     while len(pick) < 3:
         pick.append(pick[-1])
     costs = torch.cat([lap[0]["kw"]["cost"] for lap in pick])
-    warm = torch.cat([lap[3]["out"][1] for lap in pick])
+    warm = torch.cat([lap[0]["out"][1] for lap in pick])
     checked = 0
     with PhaseRecorder("auction_phase_dense") as rec:
         asg.auction_solve(costs, prices=warm, device=dev)
-        skip = torch.tensor([True, False, False], device=dev)
+        skip = torch.tensor([[True, False, False]], device=dev)
         ops.auction_phase_dense(costs, warm, torch.cat(
-            [lap[3]["kw"]["eps"] for lap in pick]), 50 * k + 1000,
+            [lap[0]["kw"]["eps"][3:] for lap in pick], dim=1), 50 * k + 1000,
             skip=skip, seed_top2=ref.dense_top2(costs)(warm))
     checked += check_phase_calls(rec.calls, "G=3 masked warm stack", loop,
                                  what)
-    log(f"auction_phase_dense: {checked} phases of a G=3 stack of masked "
-        f"LAPs, warm (the solver's adaptive re-entry, then one phase with "
-        f"skip and seed), bitwise equal with equal counts")
+    log(f"auction_phase_dense: {checked} launches on a G=3 stack of masked "
+        f"LAPs, warm (the solver's adaptive re-entry over four phases, then "
+        f"one phase with skip and seed), bitwise equal with equal counts")
 
     def time_lap(lap):
         def kernel():
@@ -903,7 +944,8 @@ def check_masked_dense(dev, n: int) -> dict:
                   for key in ("rounds", "bids", "single_bidder_rounds")}
     counts_plain = {key: sum(c[key] for c in plain_lap)
                     for key in ("rounds", "bids", "single_bidder_rounds")}
-    log(f"one masked LAP of call (b) (4 phases, {counts_one}): kernel "
+    log(f"one masked LAP of call (b) (4 phases, one launch, {counts_one}): "
+        f"kernel "
         f"{ms:.4f} ms (device {dms} ms); an unmasked LAP of the same call "
         f"({counts_plain}): {plain_ms:.4f} ms (device {plain_dms} ms)")
     timed = phase_kernel.auction_phase_dense_timed
@@ -926,13 +968,15 @@ def check_masked_dense(dev, n: int) -> dict:
 
 
 def time_rounds(calls, timed, what: str) -> dict:
-    """Every recorded phase of ``calls`` through ``timed``, a phase kernel's
+    """Every recorded launch of ``calls`` through ``timed``, a phase kernel's
     timed instantiation, which stamps the SM clock around each round:
     under the kernel's own crossover ("rule"), with every round on the CTA
     path (threshold 0, "cta") and with every round of up to 32 bidders on
-    the one-warp path ("warp").  Each launch is checked bitwise against the
-    recorded phase.  Logs the cycles a round by bidder bucket and the
-    crossover; returns them."""
+    the one-warp path ("warp").  Each launch is checked bitwise against
+    the recorded one.  Logs the cycles a round by bidder bucket and the
+    crossover, and where the kernel stages cost rows in shared memory (the
+    dense one) the lone rounds on a staged row and on a row read from
+    device memory, by the trace's last column; returns them."""
     runs = {}
     for name, threshold in (("rule", -1), ("cta", 0), ("warp", 32)):
         traces = []
@@ -992,12 +1036,29 @@ def time_rounds(calls, timed, what: str) -> dict:
     log("  median cycles by bidders, warp path / CTA path: " + ", ".join(
         f"{b}: {v['warp']:.0f} / {v['cta']:.0f}"
         for b, v in list(per_count.items())[:12]))
+    by_row = {}
+    if rule.shape[1] > 6 and rule[:, 6].any():  # where the row came from
+        lone = rule[:, 0] == 1
+        by_row = {"lone staged": stats(rule[lone & (rule[:, 6] == 1)]),
+                  "lone unstaged": stats(rule[lone & (rule[:, 6] == 0)]),
+                  ">32 share staged": float(
+                      rule[rule[:, 0] > 32, 6].sum()
+                      / max(1, rule[rule[:, 0] > 32, 0].sum()))}
+        log("  by where the cost row lives (count / median [top-2s / post / "
+            "update]): " + "; ".join(
+                f"{k}: {v['count']} / {v.get('median', 0):.0f} "
+                f"[{v.get('reduce', 0):.0f} / {v.get('post', 0):.0f} / "
+                f"{v.get('update', 0):.0f}]" for k, v in by_row.items()
+                if isinstance(v, dict))
+            + f"; bidders of > 32-bidder rounds on staged rows "
+              f"{by_row['>32 share staged']:.3f}")
     log(f"  crossover: the warp path is faster up to {measured} bidders "
         f"(measured); the kernel's rule ran rounds of up to "
         f"{chosen['warp_path_up_to']} bidders in one warp and of "
         f"{chosen['cta_path_from']} or more on the CTA path")
     return {"buckets": table, "by_bidders": per_count,
             "crossover_measured": measured, "crossover_rule": chosen,
+            "by_row": by_row,
             "cycles_sum": {k: int(r[:, 1].sum()) for k, r in runs.items()}}
 
 
@@ -1128,11 +1189,13 @@ def main_path(dev, n: int, card: str) -> dict:
         log(f"all kernel launches per round on the main call, from the "
             f"profile's {split['launches_per_lap']:.1f} per LAP: "
             f"{split['launches_per_lap'] * laps / rounds:.4f}")
+    window = lap_window(x, k, dev, "auction_fused", "factored", laps,
+                        "stream route", chunk_size="auto")
     return {"n": n, "main_s": main_s, "first_s": first_s,
             "main_us_per_round": main_s / rounds * 1e6,
             "port_launches_per_round": launched / rounds,
             "launches": used, "ofv": ofv, "ofv_random": ofv_rand, "gap": gap,
-            "labels_sha256": digest, "profile": split}
+            "labels_sha256": digest, "profile": split, "window": window}
 
 
 # ---------------------------------------------------------------------------
@@ -1144,9 +1207,13 @@ STACK_SHAPE = (4, 16384, 22)  # the stacked route's check: G, M, D
 
 def default_route(dev, n: int, card: str, stream: dict) -> dict:
     """``anticluster(x, k=256)`` with the default spec on phase 3's rows:
-    the flat route, the dense ``"auction"`` solver, every phase one
-    ``auction_phase_dense`` launch.  A first call, then the main call with
-    the counters zeroed just before it and read just after; then a stacked
+    the flat route, the dense ``"auction"`` solver, every LAP (its four
+    phases) one ``auction_phase_dense`` launch.  A first call, then the
+    main call with the counters zeroed just before it and read just after;
+    then a window of WINDOW_LAPS LAPs in the middle of a third call under
+    the profiler (launches, copies and waits a LAP: no copy between host
+    and card, no wait on the card; the idle share) and a fourth profiled whole
+    (the dense kernel's device time over the call); then a stacked
     (G, M, D) input through the same solver."""
     d, k = PRESETS["diabetes"][1], 256
     x = torch.from_numpy(make("mixture", n, d, seed=0)).to(dev)
@@ -1155,10 +1222,10 @@ def default_route(dev, n: int, card: str, stream: dict) -> dict:
     check(res.route == "flat" and res.solver == "auction",
           f"route {res.route} solver {res.solver}, expected flat / auction")
     laps = -(-n // k) - 1
-    check(used["auction_phase_dense"] == 4 * laps
+    check(used["auction_phase_dense"] == laps
           and used["plain_rounds"] == 0 and used["auction_phase"] == 0,
-          f"expected {4 * laps} auction_phase_dense launches and no round "
-          f"of the Python loop for {laps} LAPs: {used}")
+          f"expected {laps} auction_phase_dense launches (one a LAP) and no "
+          f"round of the Python loop for {laps} LAPs: {used}")
     check(torch.equal(first.labels, res.labels)
           and first_used["rounds"] == used["rounds"],
           "the second call gave other labels or rounds than the first")
@@ -1191,13 +1258,21 @@ def default_route(dev, n: int, card: str, stream: dict) -> dict:
         f"{stream['main_us_per_round']:.3f} us per round, ofv "
         f"{stream['ofv']:.6e}, gap {stream['gap']:.6e}, labels sha256 "
         f"{stream['labels_sha256'][:16]} (another solver: other labels)")
+    window = lap_window(x, k, dev, "auction", "solve", laps, "default route")
+    whole = call_kernel_ms(x, k, dev, "auction_phase_kernel")
+    log(f"  the whole call profiled: auction_phase_dense "
+        f"{whole['kernel_ms']:.3f} "
+        f"ms of device time in {whole['kernel_launches']} launches "
+        f"({whole['kernel_ms'] / laps:.4f} ms a LAP), every kernel and copy "
+        f"{whole['device_ms']:.3f} ms, against the main call's "
+        f"{main_s * 1e3:.1f} ms wall")
     del x
     xs = torch.from_numpy(make("mixture", int(np.prod(STACK_SHAPE[:2])),
                                STACK_SHAPE[2], seed=2)).view(STACK_SHAPE)
     stacked, stacked_s, stacked_used = user_call(xs.to(dev), k, dev)
     G, M, _ = STACK_SHAPE
     check(stacked.route == "stacked" and stacked.solver == "auction"
-          and stacked_used["auction_phase_dense"] == 4 * (-(-M // k) - 1)
+          and stacked_used["auction_phase_dense"] == -(-M // k) - 1
           and stacked_used["plain_rounds"] == 0,
           f"stacked route {stacked.route}/{stacked.solver}: {stacked_used}")
     for g in range(G):
@@ -1211,9 +1286,215 @@ def default_route(dev, n: int, card: str, stream: dict) -> dict:
             "main_us_per_round": main_s / rounds * 1e6,
             "port_launches_per_round": launched / rounds,
             "launches": used, "ofv": ofv, "gap": gap,
-            "labels_sha256": digest,
+            "labels_sha256": digest, "window": window, "call_profile": whole,
             "stacked": {"shape": STACK_SHAPE, "seconds": stacked_s,
                         "launches": stacked_used}}
+
+
+# the profiler's host-side names of a copy and of a wait on the card
+# (torch.cuda.synchronize is cudaDeviceSynchronize, which the window's own
+# ends make: not counted), and its device-side names of the copies between
+# host and card: a read back (DtoH) or an upload (HtoD), pageable or pinned
+HOST_READS = ("cudaMemcpy", "cudaStreamSynchronize", "cudaEventSynchronize")
+HOST_COPIES = ("Memcpy DtoH", "Memcpy HtoD")
+
+
+class LapWindow:
+    """Within the block every LAP that solver ``name`` solves (its registry
+    entry's ``field``: ``"solve"`` for the dense solve, ``"factored"`` for
+    the matrix-free one) is counted, and the profiler records LAPs
+    ``first`` .. ``first + count - 1`` only: the card is synchronized just
+    before the first and just after the last, and the window's wall time
+    is the host clock between the two."""
+
+    def __init__(self, name: str, field: str, first: int, count: int):
+        self.name, self.field = name, field
+        self.first, self.count = first, count
+        self.laps = 0
+        self.wall_ms = None
+
+    def __enter__(self):
+        from torch.profiler import ProfilerActivity, profile
+        self.prof = profile(activities=[ProfilerActivity.CPU,
+                                        ProfilerActivity.CUDA])
+        self.entry = asg._REGISTRY[self.name]
+        inner = getattr(self.entry, self.field)
+
+        def counted(*args, **kwargs):
+            if self.laps == self.first:
+                torch.cuda.synchronize()
+                self.prof.start()
+                self.t0 = time.perf_counter()
+            out = inner(*args, **kwargs)
+            self.laps += 1
+            if self.laps == self.first + self.count:
+                torch.cuda.synchronize()
+                self.wall_ms = (time.perf_counter() - self.t0) * 1e3
+                self.prof.stop()
+            return out
+
+        asg._REGISTRY[self.name] = self.entry._replace(
+            **{self.field: counted})
+        return self
+
+    def __exit__(self, *exc):
+        asg._REGISTRY[self.name] = self.entry
+
+    def split(self, kernel: str) -> dict:
+        """The window's wall time, the device time of ``kernel`` and of all
+        kernels and copies, the idle share, and per LAP the device
+        launches, the host's copy and wait calls by name and the device's
+        copies by direction.  Fails where the profiler recorded no device
+        time or no ``kernel`` launch."""
+        check(self.wall_ms is not None, f"the window of LAPs {self.first}.."
+              f"{self.first + self.count - 1} was not reached "
+              f"({self.laps} LAPs)")
+        events = self.prof.key_averages()
+        device = [e for e in events if _is_kernel(e)]
+        all_us = sum(_self_device_us(e) for e in device)
+        kern_us = sum(_self_device_us(e) for e in device if kernel in e.key)
+        check(all_us > 0 and kern_us > 0, f"the window of LAPs {self.first}"
+              f"..{self.first + self.count - 1}: the profiler recorded no "
+              f"device time of {kernel}")
+        reads = {e.key: e.count / self.count for e in events
+                 if not _is_kernel(e) and e.key.startswith(HOST_READS)}
+        copies = {e.key: e.count / self.count for e in device
+                  if e.key.startswith("Memcpy")}
+        return {"laps": [self.first, self.first + self.count - 1],
+                "wall_ms": self.wall_ms, "device_ms": all_us / 1e3,
+                "kernel_ms": kern_us / 1e3, "kernel": kernel,
+                "idle_share": 1.0 - all_us / 1e3 / self.wall_ms,
+                "device_launches_per_lap":
+                    sum(e.count for e in device) / self.count,
+                "kernel_launches_per_lap":
+                    sum(e.count for e in device if kernel in e.key)
+                    / self.count,
+                "host_reads_per_lap": reads,
+                "syncs_per_lap": sum(reads.values()),
+                "device_copies_per_lap": copies,
+                "host_copies_per_lap": sum(
+                    v for key, v in copies.items()
+                    if key.startswith(HOST_COPIES))}
+
+
+def call_kernel_ms(x, k, dev, kernel: str, **kw) -> dict:
+    """One whole call under the profiler: the device time of ``kernel`` and
+    of every kernel and copy, summed over the call (the wall time is the
+    profiler's, not a measurement)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        anticluster(x, k=k, device=dev, **kw)
+        torch.cuda.synchronize()
+    device = [e for e in prof.key_averages() if _is_kernel(e)]
+    return {"kernel_ms": sum(_self_device_us(e) for e in device
+                             if kernel in e.key) / 1e3,
+            "kernel_launches": sum(e.count for e in device
+                                   if kernel in e.key),
+            "device_ms": sum(_self_device_us(e) for e in device) / 1e3}
+
+
+def lap_window(x, k, dev, solver, field, laps, what, **kw) -> dict:
+    """One call with a window of WINDOW_LAPS LAPs (fewer on a short call)
+    in its middle under the profiler (:class:`LapWindow`); logs and returns
+    the window's split, and fails if the profiler saw no phase kernel, or
+    if a LAP read back from the card, uploaded to it or waited for it: a
+    device copy between host and card (``Memcpy DtoH`` / ``HtoD``), a
+    synchronous ``cudaMemcpy``, or a stream or event synchronize.  Copies
+    from device to device (``Memcpy DtoD``, each a ``cudaMemcpyAsync`` of
+    the host) wait for nothing and are logged."""
+    count = min(WINDOW_LAPS, laps // 2)
+    with LapWindow(solver, field, laps // 2 - count // 2, count) as window:
+        anticluster(x, k=k, device=dev, **kw)
+    split = window.split("auction_phase_kernel")
+    waits = {key: v for key, v in split["host_reads_per_lap"].items()
+             if key != "cudaMemcpyAsync"}
+    check(not split["host_copies_per_lap"] and not waits,
+          f"{what}: a LAP reads back from the card, uploads to it or waits "
+          f"for it: {split}")
+    log(f"  {what}: LAPs {split['laps'][0]}..{split['laps'][1]} profiled: "
+        f"{split['kernel_launches_per_lap']:.2f} phase kernel launches and "
+        f"{split['device_launches_per_lap']:.2f} device launches a LAP, "
+        f"host copy and wait calls a LAP {split['host_reads_per_lap']}, "
+        f"device copies a LAP {split['device_copies_per_lap']} (none "
+        f"between host and card), idle share {split['idle_share']:.3f} "
+        f"(wall {split['wall_ms']:.2f} ms, device {split['device_ms']:.2f} "
+        f"ms, phase kernel {split['kernel_ms']:.2f} ms)")
+    return split
+
+
+def label_digests(dev, n: int) -> dict:
+    """``--labels``: the labels' sha256 (first 16 hex digits) of phases 3
+    and 6 and of phase 7's calls (a)-(e), each called once as a user calls
+    it, nothing else checked; a copy of this script in an older checkout
+    of the port gives that commit's digests, so two commits compare in one
+    call."""
+    d, k = PRESETS["diabetes"][1], 256
+    x = torch.from_numpy(make("mixture", n, d, seed=0)).to(dev)
+    attrs = attributes(n)
+    pad = 1 << (n - 1).bit_length()
+    G, M, D = STACK_SHAPE
+    xs = torch.from_numpy(make("mixture", G * M, D, seed=2)).view(
+        STACK_SHAPE).to(dev)
+    cs = np.stack([attributes(M, ATTRIBUTE_SEED + g)["class"]
+                   for g in range(G)])
+    calls = {
+        "3 stream": (x, {"chunk_size": "auto"}),
+        "6 flat": (x, {}),
+        "7a": (x, {"categories": attrs["class"]}),
+        "7b": (x, {"fairness": attrs}),
+        "7c": (x, {"categories": attrs["class"], "chunk_size": "auto"}),
+        "7d": (torch.cat([x, x.new_zeros((pad - n, d))]),
+               {"valid_mask": torch.arange(pad, device=dev) < n}),
+        "7e": (xs, {"categories": cs}),
+    }
+    out = {}
+    for name, (xx, kw) in calls.items():
+        res = anticluster(xx, k=k, device=dev, **kw)
+        out[name] = hashlib.sha256(
+            res.labels.cpu().numpy().tobytes()).hexdigest()[:16]
+    return out
+
+
+def profile_routes(dev, n: int, card: str) -> dict:
+    """``--profile-routes``: the default and stream calls on the main data,
+    each a first call, a main call timed by the host clock, a profiled
+    window of WINDOW_LAPS LAPs in the middle of a third call, and a fourth
+    call profiled whole for its phase kernel's summed device time; then
+    the rounds of the first TIMED_LAPS LAPs of the default route through
+    the dense kernel's timed instantiation.  It calls only ``anticluster``,
+    the solver registry and the dispatchers, so a copy of this script in
+    an older checkout of the port (one with the dense phase kernel) times
+    that commit the same way, for comparisons in one call."""
+    d, k = PRESETS["diabetes"][1], 256
+    x = torch.from_numpy(make("mixture", n, d, seed=0)).to(dev)
+    laps = -(-n // k) - 1
+    first = laps // 2 - WINDOW_LAPS // 2
+    out = {"card": card, "root": ROOT}
+    for route, solver, field, kernel, kw in (
+            ("flat", "auction", "solve", "auction_phase_kernel", {}),
+            ("stream", "auction_fused", "factored", "auction_phase_kernel",
+             {"chunk_size": "auto"})):
+        _, first_s, _ = user_call(x, k, dev, **kw)
+        res, main_s, used = user_call(x, k, dev, **kw)
+        with LapWindow(solver, field, first, WINDOW_LAPS) as window:
+            anticluster(x, k=k, device=dev, **kw)
+        whole = call_kernel_ms(x, k, dev, kernel, **kw)
+        digest = hashlib.sha256(res.labels.cpu().numpy().tobytes()).hexdigest()
+        out[route] = {"main_s": main_s, "first_s": first_s,
+                      "rounds": used["rounds"], "bids": used["bids"],
+                      "launches": {name: used[name] for name in
+                                   _build.launches if used[name]},
+                      "labels_sha256": digest[:16],
+                      "window": window.split(kernel), "call": whole}
+        log(f"profile-routes {route} on {card}: {json.dumps(out[route])}")
+    with PhaseRecorder("auction_phase_dense") as rec:
+        anticluster(x[:(TIMED_LAPS + 1) * k], k=k, device=dev)
+    out["rounds_timed"] = time_rounds(
+        rec.calls, phase_kernel.auction_phase_dense_timed,
+        f"the first {TIMED_LAPS} LAPs of the default route")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1221,11 +1502,14 @@ def default_route(dev, n: int, card: str, stream: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 def constrained_call(x, k, dev, expect, **kw):
-    """One constrained call as a user makes it, twice: the first with its
-    dense LAPs counted (and those holding the quota mask), the second the
-    main call with the counters zeroed just before it and read just after.
-    Checks the route and solver, four auction_phase_dense launches a LAP,
-    no round of the Python loop and equal labels and rounds in both."""
+    """One constrained call as a user makes it, three times: the first with
+    its dense LAPs counted (and those holding the quota mask), the second
+    the main call with the counters zeroed just before it and read just
+    after, the third with a window of LAPs in its middle profiled (the
+    launches, copies and waits a LAP).  Checks the route and solver, one
+    auction_phase_dense launch a LAP, no round of the Python loop, no LAP
+    copying between host and card or waiting for the card, and equal
+    labels and rounds in both."""
     with MaskedLaps() as lap_count:
         first, first_s, first_used = user_call(x, k, dev, **kw)
     res, main_s, used = user_call(x, k, dev, **kw)
@@ -1233,11 +1517,13 @@ def constrained_call(x, k, dev, expect, **kw):
     check(res.route == route and res.solver == solver,
           f"route {res.route} solver {res.solver}, expected {route} / "
           f"{solver}")
-    check(used["auction_phase_dense"] == 4 * laps and lap_count.laps == laps
+    check(used["auction_phase_dense"] == laps and lap_count.laps == laps
           and used["plain_rounds"] == 0 and used["auction_phase"] == 0
           and used["bid_top2"] == 0,
-          f"expected {4 * laps} auction_phase_dense launches for {laps} "
+          f"expected {laps} auction_phase_dense launches for {laps} "
           f"LAPs and no other solver kernel: {used}, {lap_count.laps} LAPs")
+    window = lap_window(x, k, dev, "auction", "solve", laps,
+                        f"{route} {list(kw)}", **kw)
     check(torch.equal(first.labels, res.labels)
           and first_used["rounds"] == used["rounds"],
           "the second call gave other labels or rounds than the first")
@@ -1245,7 +1531,7 @@ def constrained_call(x, k, dev, expect, **kw):
     check(bool(torch.isfinite(res.gap).all()) and float(res.gap.min()) >= 0,
           f"gap {res.gap}")
     return {"main_s": main_s, "first_s": first_s, "launches": used,
-            "masked_laps": lap_count.masked, "laps": laps,
+            "masked_laps": lap_count.masked, "laps": laps, "window": window,
             "route": res.route, "solver": res.solver, "gap": gap,
             "labels_sha256": hashlib.sha256(
                 res.labels.cpu().numpy().tobytes()).hexdigest()}, res
@@ -1399,7 +1685,7 @@ def flat_against_plain(x, k, dev) -> dict:
     use ``index_add_``, which adds in no fixed order on the card.)"""
     res, kernel_s, used = user_call(x, k, dev)
     check(res.route == "flat" and res.solver == "auction"
-          and used["auction_phase_dense"] == 4 * (-(-x.shape[0] // k) - 1)
+          and used["auction_phase_dense"] == -(-x.shape[0] // k) - 1
           and used["plain_rounds"] == 0,
           f"flat route {res.route}/{res.solver} launches {used}")
     with ops.forced_path("ref"):
@@ -1436,7 +1722,7 @@ def constrained_against_plain(x, k, dev) -> dict:
     for name, (xx, kw) in calls.items():
         res, kernel_s, used = user_call(xx, k, dev, **kw)
         check(res.route == "flat" and res.solver == "auction"
-              and used["auction_phase_dense"] == 4 * (-(-n // k) - 1)
+              and used["auction_phase_dense"] == -(-n // k) - 1
               and used["plain_rounds"] == 0,
               f"({name}) route {res.route}/{res.solver} launches {used}")
         with ops.forced_path("ref"):
@@ -1775,6 +2061,13 @@ def main():
     ap.add_argument("--n", type=int, default=PRESETS["diabetes"][0],
                     help="rows of the main-path run, cut for development "
                          "runs only (default: diabetes, 253680)")
+    ap.add_argument("--profile-routes", action="store_true",
+                    help="profile only the default and stream calls and "
+                         "the dense kernel's rounds, print one JSON line "
+                         "and exit")
+    ap.add_argument("--labels", action="store_true",
+                    help="print only the labels' digests of phases 3, 6 "
+                         "and 7 as one JSON line and exit")
     ap.add_argument("--bid-top2-bits", action="store_true",
                     help="print only bid_top2's digests at phase 2's "
                          "shapes and exit")
@@ -1789,6 +2082,14 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
+    if args.profile_routes:
+        _build.build_all()
+        log(json.dumps({"profile_routes": profile_routes(dev, args.n, smi)}))
+        return
+    if args.labels:
+        _build.build_all()
+        log(json.dumps({"root": ROOT, "labels": label_digests(dev, args.n)}))
+        return
     phase("phase 1: environment")
     log(smi)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device "

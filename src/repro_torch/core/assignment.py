@@ -2,31 +2,35 @@
 
 Counterpart of ``repro/core/assignment.py``: the batched forward auction
 with epsilon scaling, its dense form (``auction_solve``, the top-2 of an
-explicit ``(B, n, n)`` cost stack, whose every epsilon phase is one launch
-of the ``auction_phase_dense`` kernel on the card) and its matrix-free form
-(``auction_solve_factored`` on ``cost = -2 x.c^T + ||c||^2``, whose every
-epsilon phase is one launch of the ``auction_phase`` kernel on the card),
-and the solver registry holding ``"auction"`` and ``"auction_fused"``.  All
-solvers MAXIMIZE total cost.
+explicit ``(B, n, n)`` cost stack, whose whole epsilon schedule is one
+launch of the ``auction_phase_dense`` kernel on the card) and its
+matrix-free form (``auction_solve_factored`` on ``cost = -2 x.c^T +
+||c||^2``, whose every epsilon phase is one launch of the ``auction_phase``
+kernel on the card), and the solver registry holding ``"auction"`` and
+``"auction_fused"``.  All solvers MAXIMIZE total cost.
 
 Differences from the JAX engine, none of which changes a result:
 
-* On the card every epsilon phase of either solver is one kernel launch:
-  ``auction_phase_dense`` for the dense solver (the flat and stacked
-  routes), ``auction_phase`` for the factored one (the stream route).  The
-  plain phase loop, a Python loop (``kernels.ref.auction_rounds``), runs
-  both on the CPU and under ``ops.forced_path("ref")``, and is the kernels'
-  correctness contract.  Its predicate ("some row is still
-  unassigned") is a device-to-host read, so it is tested only every
-  ``kernels.ref._CHECK_EVERY`` rounds.  A converged state is a
-  fixed point of the round (no unassigned row, no bid, no update), so the
-  extra rounds change nothing, and the ``max_rounds`` cap is still honoured
-  exactly.  The phase kernel tests it every round, as JAX does.
-* The epsilon schedule is computed per instance on the host from the span,
-  so an instance's schedule, and with it its whole solve, does not depend
-  on how many instances share the stack: a stacked solve equals the same
-  instances solved one by one, bit for bit.  (The JAX factored path misses
-  this by one ulp of the span; see ROADMAP fault R1.)
+* On the card a LAP of the dense solver (the flat and stacked routes) is
+  one ``auction_phase_dense`` launch, all its epsilon phases in it; every
+  epsilon phase of the factored one (the stream route) is one
+  ``auction_phase`` launch.  The plain phase loop, a Python loop
+  (``kernels.ref.auction_rounds``), runs both on the CPU and under
+  ``ops.forced_path("ref")``, and is the kernels' correctness contract.
+  Its predicate ("some row is still unassigned") is a device-to-host
+  read, so it is tested only every ``kernels.ref._CHECK_EVERY`` rounds.
+  A converged state is a fixed point of the round (no unassigned row, no
+  bid, no update), so the extra rounds change nothing, and the
+  ``max_rounds`` cap is still honoured exactly.  The phase kernel tests it
+  every round, as JAX does.
+* The epsilon schedule is ``float32(float64(span) * f_p)`` per instance,
+  with factors ``f_p`` of n and the config alone (the reference's
+  ``hi * ratio**p`` within one float32 ulp), formed on the device with no
+  read to the host.  An instance's schedule, and with it its whole solve,
+  does not depend on how many instances share the stack: a stacked solve
+  equals the same instances solved one by one, bit for bit.  (The JAX
+  factored path misses this by one ulp of the span; see ROADMAP fault
+  R1.)
 * Indices are int64 inside; the public solvers return int32 assignments.
 * ``greedy``, ``scipy`` and solver telemetry are not ported yet (ROADMAP
   Queue 1: Remaining solvers).
@@ -61,7 +65,7 @@ class AuctionConfig(NamedTuple):
     ``n * eps`` of the optimum.  ``fixed_rounds > 0`` runs exactly that many
     rounds per phase and never tests the predicate.  ``adaptive_reentry``
     picks where a warm-started solve re-enters the schedule (see
-    :func:`_run_phases`).
+    :func:`_schedule`).
     """
 
     n_phases: int = 4
@@ -72,33 +76,44 @@ class AuctionConfig(NamedTuple):
     adaptive_reentry: bool = True
 
 
+@functools.lru_cache(maxsize=None)
+def _eps_factors(n: int, n_phases: int, eps_start_div: float,
+                 eps_end_mul: float, device: torch.device) -> torch.Tensor:
+    """(n_phases,) float64 ``f_p`` of the schedule ``eps[p] = span * f_p``:
+    ``r**p / eps_start_div`` with ``r = (eps_start_div / (eps_end_mul *
+    n)) ** (1 / (n_phases - 1))``, or ``1 / (eps_end_mul * n)`` for one
+    phase.  They depend on no span, so they are formed on the host once per
+    (n, config, device) and kept on the device."""
+    if n_phases > 1:
+        r = (eps_start_div / (eps_end_mul * n)) ** (1.0 / (n_phases - 1))
+        f = [r ** p / eps_start_div for p in range(n_phases)]
+    else:
+        f = [1.0 / (eps_end_mul * n)]
+    return torch.tensor(f, dtype=torch.float64, device=device)
+
+
 def _eps_schedule(span: torch.Tensor, n: int, config: AuctionConfig):
     """(B,) span -> (n_phases, B) geometric epsilon schedule.
 
-    Computed per instance in double precision on the host, so that no
-    instance's schedule depends on the others in the stack.
+    ``float32(float64(span) * f_p)`` per instance: the products are IEEE
+    multiplications by scalars, so no instance's schedule depends on the
+    others in the stack, the CPU and the card give the same bits, and the
+    schedule is formed on the device with no read to the host.
     """
-    n_phases = max(int(config.n_phases), 1)
-    sched = []
-    for s in span.tolist():
-        hi = s / config.eps_start_div
-        lo = s / (config.eps_end_mul * n)
-        if n_phases > 1:
-            ratio = (lo / hi) ** (1.0 / (n_phases - 1))
-            sched.append([hi * ratio ** p for p in range(n_phases)])
-        else:
-            sched.append([lo])
-    return torch.tensor(sched, dtype=DTYPE).T.contiguous().to(span.device)
+    f = _eps_factors(n, max(int(config.n_phases), 1),
+                     float(config.eps_start_div), float(config.eps_end_mul),
+                     span.device)
+    return (span.double()[None, :] * f[:, None]).to(DTYPE)
 
 
-def _run_phases(phase_fn, top2_fn, eps_sched, n: int, config: AuctionConfig,
-                prices0=None):
-    """Run the eps-scaling schedule; returns (assignment, final prices).
+def _schedule(top2_fn, eps_sched, n: int, config: AuctionConfig,
+              prices0=None):
+    """The phases' starting state: ``(prices, skip, seed_top2)``.
 
-    ``phase_fn(prices, eps, max_rounds, fixed_rounds, skip, seed_top2)`` runs
-    one phase (``ops.auction_phase_dense`` on the cost, or
-    ``ops.auction_phase`` on the factored rows); ``top2_fn`` is the warm
-    start's probe, plain PyTorch ops.
+    ``skip`` ((n_phases, B) bool, or None for a cold solve) marks the
+    phases an instance sits out; ``seed_top2`` is the first phase's first
+    reduction, or None.  ``top2_fn`` is the warm start's probe, plain
+    PyTorch ops.
 
     ``prices0`` ((B, n)) warm-starts the solve.  An instance whose incoming
     prices are all zero runs the full ramp, exactly as ``prices0=None``.  An
@@ -107,18 +122,12 @@ def _run_phases(phase_fn, top2_fn, eps_sched, n: int, config: AuctionConfig,
     stands to lose on a contested object, and the instance sits out every
     phase (but the last) whose eps exceeds that gap over ``_REENTRY_SLACK``.
     The probe's reduction becomes the first phase's first round.  The last
-    phase always runs, so the ``n * eps_lo`` bound holds either way.
+    phase always runs, so the ``n * eps_lo`` bound holds either way.  All
+    of it is device work: nothing is read back to the host.
     """
     B = eps_sched.shape[1]
-    n_phases = eps_sched.shape[0]
-    max_rounds = config.max_rounds or (50 * n + 1000)
     if prices0 is None:
-        prices = eps_sched.new_zeros((B, n))
-        for p in range(n_phases):
-            assign, prices = phase_fn(prices, eps_sched[p], max_rounds,
-                                      config.fixed_rounds)
-        return _repair_permutation(assign), prices
-
+        return eps_sched.new_zeros((B, n)), None, None
     prices = prices0.to(DTYPE)
     is_warm = (prices != 0.0).any(dim=1)
     probe = None
@@ -133,13 +142,13 @@ def _run_phases(phase_fn, top2_fn, eps_sched, n: int, config: AuctionConfig,
     else:
         # legacy fixed shortcut: warm instances skip all but the last phase
         reentry = torch.full((B,), -math.inf, device=prices.device)
-    for p in range(n_phases):
-        last = p == n_phases - 1
-        skip = None if last else is_warm & (eps_sched[p] > reentry)
-        assign, prices = phase_fn(
-            prices, eps_sched[p], max_rounds, config.fixed_rounds,
-            skip=skip, seed_top2=probe if p == 0 else None)
-    return _repair_permutation(assign), prices
+    skip = is_warm[None, :] & (eps_sched > reentry[None, :])
+    skip[-1] = False
+    return prices, skip, probe
+
+
+def _max_rounds(n: int, config: AuctionConfig) -> int:
+    return config.max_rounds or (50 * n + 1000)
 
 
 def _repair_permutation(assign: torch.Tensor) -> torch.Tensor:
@@ -161,11 +170,15 @@ def _solve_dense(cost, config: AuctionConfig, prices=None):
     cost = cost.contiguous()
     finite = torch.where(cost <= _NEG / 2, 0.0, cost)
     span = (finite.amax(dim=(1, 2)) - finite.amin(dim=(1, 2))).clamp(min=1e-6)
-    # every phase is one dispatch: the dense phase kernel on the card, the
-    # Python loop on the CPU
-    phase_fn = functools.partial(ops.auction_phase_dense, cost)
-    return _run_phases(phase_fn, dense_top2(cost),
-                       _eps_schedule(span, n, config), n, config, prices)
+    eps_sched = _eps_schedule(span, n, config)
+    prices, skip, seed = _schedule(dense_top2(cost), eps_sched, n, config,
+                                   prices)
+    # the whole schedule is one dispatch: one dense phase kernel launch on
+    # the card, the Python loop over the phases on the CPU
+    assign, prices = ops.auction_phase_dense(
+        cost, prices, eps_sched, _max_rounds(n, config), config.fixed_rounds,
+        skip=skip, seed_top2=seed)
+    return _repair_permutation(assign), prices
 
 
 def _solve_factored(x, c, is_real, config: AuctionConfig, prices=None):
@@ -195,11 +208,17 @@ def _solve_factored(x, c, is_real, config: AuctionConfig, prices=None):
         hi = torch.where(any_dummy, hi.clamp(min=0.0), hi)
         lo = torch.where(any_dummy, lo.clamp(max=0.0), lo)
     span = (hi - lo).clamp(min=1e-6)
+    eps_sched = _eps_schedule(span, n, config)
+    prices, skip, seed = _schedule(factored_top2(x, c, is_real, bid_top2),
+                                   eps_sched, n, config, prices)
     # every phase is one dispatch: the phase kernel on the card, the Python
     # loop on the CPU
-    phase_fn = functools.partial(ops.auction_phase, x, c, is_real)
-    return _run_phases(phase_fn, factored_top2(x, c, is_real, bid_top2),
-                       _eps_schedule(span, n, config), n, config, prices)
+    for p in range(eps_sched.shape[0]):
+        assign, prices = ops.auction_phase(
+            x, c, is_real, prices, eps_sched[p], _max_rounds(n, config),
+            config.fixed_rounds, skip=None if skip is None else skip[p],
+            seed_top2=seed if p == 0 else None)
+    return _repair_permutation(assign), prices
 
 
 def auction_solve(cost, config: AuctionConfig = AuctionConfig(), *,

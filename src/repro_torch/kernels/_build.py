@@ -46,7 +46,7 @@ _SYMBOLS = {
     "auction_phase": ("auction_phase_f32",
                       (_P,) * 14 + (_I, _I, _I, _I, _I, _P)),
     "auction_phase_dense": ("auction_phase_dense_f32",
-                            (_P,) * 12 + (_I, _I, _I, _I, _P)),
+                            (_P,) * 12 + (_I,) * 5 + (_P,)),
 }
 # further C functions of a source's library: symbol -> argument types.  The
 # span's pair counts as a launch of "bid_top2"; the phase kernels' timed
@@ -55,8 +55,8 @@ _SYMBOLS = {
 _MORE_SYMBOLS = {
     "bid_top2_span_f32": _SYMBOLS["bid_top2"][1],
     "auction_phase_timed_f32": (_P,) * 14 + (_I,) * 5 + (_P, _I, _I, _P),
-    "auction_phase_dense_timed_f32": (_P,) * 12 + (_I,) * 4 + (_P, _I, _I,
-                                                                _P),
+    "auction_phase_dense_timed_f32": (_P,) * 12 + (_I,) * 5 + (_P, _I, _I,
+                                                               _P),
 }
 
 # kernel name -> launches since the count was last zeroed; every wrapper

@@ -2,17 +2,18 @@
 (factored values) and ``csrc/auction_phase_dense.cu`` (an explicit cost
 stack), both instantiations of ``csrc/auction_phase.cuh``.
 
-Each launch runs one whole epsilon phase of the auction on the card, one
-CTA per group: the counterpart of the JAX ``lax.while_loop`` in
+Each launch runs whole epsilon phases of the auction on the card, one CTA
+per group: the counterpart of the JAX ``lax.while_loop`` in
 ``repro/core/assignment.py``'s ``_auction_phase``, over the factored
 reduction (:func:`auction_phase`, the ``"auction_fused"`` solver of the
-stream route) or over ``_top2_batched`` of a dense cost
-(:func:`auction_phase_dense`, the ``"auction"`` solver of the default flat
-route and the stacked route).  A CUDA tensor launches the kernel (or
-raises); a CPU tensor runs the plain version, the port's Python round loop
-``repro_torch.kernels.ref.auction_rounds`` over the same reduction.
-Launches are counted in ``_build.launches["auction_phase"]`` and
-``["auction_phase_dense"]``; the rounds and bids both kernels ran are
+stream route; one phase a launch) or over ``_top2_batched`` of a dense
+cost (:func:`auction_phase_dense`, the ``"auction"`` solver of the default
+flat route and the stacked route; a LAP's P phases a launch, its cost
+staged on chip once).  A CUDA tensor launches the kernel (or raises); a CPU
+tensor runs the plain version, the port's Python round loop
+``repro_torch.kernels.ref.auction_rounds`` over the same reduction, phase
+after phase.  Launches are counted in ``_build.launches["auction_phase"]``
+and ``["auction_phase_dense"]``; the rounds and bids both kernels ran are
 summed on the card and read by :func:`totals`.  :func:`auction_phase_timed`
 and :func:`auction_phase_dense_timed` run the kernels' timed
 instantiations, which also record the SM clock cycles of every round of
@@ -55,10 +56,12 @@ def auction_phase_timed(x, c, is_real, prices, eps, max_rounds: int,
     """:func:`auction_phase` through the kernel's timed instantiation, for
     measurement only (``chip_smoke.py``; the solver never calls it).
 
-    Also returns ``trace`` (trace_rounds, 6) int64: row r holds (bidders,
-    SM clock cycles, 1 if the round ran in the one-warp path else 0, and the
-    cycles of its three steps: the top-2s, posting the bids, the update) of
-    group 0's round r, or -1 past the phase's rounds.
+    Also returns ``trace`` (trace_rounds, 7) int64: row r holds (bidders,
+    SM clock cycles, 1 if the round ran in the one-warp path else 0, the
+    cycles of its three steps: the top-2s, posting the bids, the update,
+    and the bidders whose values came from cost rows staged in shared
+    memory, 0 for the factored kernel) of group 0's round r, counted over
+    the launch's phases, or -1 past its rounds.
     ``threshold`` >= 0 sets the most bidders a round may have to take the
     one-warp path (up to 32); -1 keeps the kernel's own crossover.  CUDA
     tensors only: there is no plain version of a clock.
@@ -73,13 +76,19 @@ def auction_phase_timed(x, c, is_real, prices, eps, max_rounds: int,
 
 def auction_phase_dense(cost, prices, eps, max_rounds: int,
                         fixed_rounds: int = 0, skip=None, seed_top2=None):
-    """One epsilon phase of the dense-cost auction on each group of a stack.
+    """The P epsilon phases of the dense-cost auction on each group of a
+    stack, phase after phase, in one launch.
 
     cost (G, n, n) float32, finite (dummy rows zeroed by the caller);
-    prices, eps, ``skip`` and ``seed_top2`` as :func:`auction_phase`.
-    Returns ``(assign (G, n) int64 with -1 for an unassigned row, prices
-    (G, n))``, bitwise those of ``ref.auction_rounds`` over ``ref.top2`` of
-    ``cost - p``.
+    prices (G, n) float32, the first phase's; eps (P, G) float32, the
+    schedule; ``skip`` (P, G) bool or None (in phase p the rows of the
+    groups ``skip[p]`` marks start on the identity); ``seed_top2`` (v1, j1,
+    v2), each (G, n), the first phase's first reduction, or None.  Every
+    phase starts with every row unassigned and the prices of the phase
+    before; ``max_rounds`` and ``fixed_rounds`` hold in each.  Returns the
+    last phase's ``(assign (G, n) int64 with -1 for an unassigned row,
+    prices (G, n))``, bitwise those of ``ref.auction_rounds`` over
+    ``ref.top2`` of ``cost - p``, phase after phase.
     """
     _check_dense_shapes(cost, prices, eps, skip, seed_top2)
     if not cost.is_cuda:
@@ -95,7 +104,8 @@ def auction_phase_dense_timed(cost, prices, eps, max_rounds: int,
                               threshold: int = -1):
     """:func:`auction_phase_dense` through the dense kernel's timed
     instantiation, for measurement only: ``trace`` and ``threshold`` as in
-    :func:`auction_phase_timed`.  CUDA tensors only."""
+    :func:`auction_phase_timed`, the trace's rows running on over the
+    launch's phases.  CUDA tensors only."""
     _check_dense_shapes(cost, prices, eps, skip, seed_top2)
     trace = _trace(cost, trace_rounds, threshold)
     assign, p_out = _launch_dense(
@@ -105,14 +115,14 @@ def auction_phase_dense_timed(cost, prices, eps, max_rounds: int,
 
 
 def _trace(t, trace_rounds: int, threshold: int) -> torch.Tensor:
-    """The timed instantiations' (trace_rounds, 6) int64 trace, all -1."""
+    """The timed instantiations' (trace_rounds, 7) int64 trace, all -1."""
     if not t.is_cuda:
         raise ValueError("the timed phase kernels time the CUDA kernel; "
                          "they take CUDA tensors")
     if not 0 <= trace_rounds < 2**31 or not -1 <= threshold < 2**31:
         raise ValueError("the timed phase kernels: trace_rounds >= 0 and "
                          "threshold >= -1 must fit int32")
-    return torch.full((trace_rounds, 6), -1, dtype=torch.int64,
+    return torch.full((trace_rounds, 7), -1, dtype=torch.int64,
                       device=t.device)
 
 
@@ -136,15 +146,16 @@ def _operands(kernel, G, max_rounds, fixed_rounds, skip, seed_top2,
     return seed, stream
 
 
-def _outputs(G, n, dev):
-    """(assign, prices, per-group rounds, the device's counters)."""
+def _outputs(G, n, dev, P=1):
+    """(assign, prices, per-phase and group rounds, the device's
+    counters)."""
     counters = _totals.get(dev.index)
     if counters is None:
         counters = _totals[dev.index] = torch.zeros(4, dtype=torch.int64,
                                                     device=dev)
     return (torch.empty((G, n), dtype=torch.int64, device=dev),
             torch.empty((G, n), dtype=torch.float32, device=dev),
-            torch.empty((G,), dtype=torch.int64, device=dev), counters)
+            torch.empty((P, G), dtype=torch.int64, device=dev), counters)
 
 
 def _launch(x, c, is_real, prices, eps, max_rounds, fixed_rounds, skip,
@@ -172,10 +183,11 @@ def _launch(x, c, is_real, prices, eps, max_rounds, fixed_rounds, skip,
 def _launch_dense(cost, prices, eps, max_rounds, fixed_rounds, skip,
                   seed_top2, timed=()):
     G, n, _ = cost.shape
+    P = eps.shape[0]
     seed, stream = _operands("auction_phase_dense", G, max_rounds,
                              fixed_rounds, skip, seed_top2, cost=cost,
                              prices=prices, eps=eps)
-    assign, p_out, rounds, counters = _outputs(G, n, cost.device)
+    assign, p_out, rounds, counters = _outputs(G, n, cost.device, P)
     # the per-row state where it does not fit in shared memory (the kernel
     # decides), 10 words a row
     scratch = torch.empty(G * 10 * n, dtype=torch.float32, device=cost.device)
@@ -183,8 +195,8 @@ def _launch_dense(cost, prices, eps, max_rounds, fixed_rounds, skip,
                   eps.data_ptr(), _ptr(skip), _ptr(seed.get("v1")),
                   _ptr(seed.get("j1")), _ptr(seed.get("v2")),
                   assign.data_ptr(), p_out.data_ptr(), rounds.data_ptr(),
-                  counters.data_ptr(), scratch.data_ptr(), G, n, max_rounds,
-                  fixed_rounds, *timed, stream,
+                  counters.data_ptr(), scratch.data_ptr(), G, n, P,
+                  max_rounds, fixed_rounds, *timed, stream,
                   symbol="auction_phase_dense_timed_f32" if timed else None)
     return assign, p_out
 
@@ -211,16 +223,22 @@ def _check_dense_shapes(cost, prices, eps, skip, seed_top2):
     if n < 1:
         raise ValueError(f"auction_phase_dense: empty problem "
                          f"{tuple(cost.shape)}")
-    _check_state("auction_phase_dense", G, n, prices, eps, skip, seed_top2)
+    if eps.dim() != 2 or not 1 <= eps.shape[0] < 2**31:
+        raise ValueError(f"auction_phase_dense: eps is the (P, G) schedule "
+                         f"of P >= 1 phases, got {tuple(eps.shape)}")
+    _check_state("auction_phase_dense", G, n, prices, eps, skip, seed_top2,
+                 phases=(eps.shape[0],))
 
 
-def _check_state(kernel, G, n, prices, eps, skip, seed_top2, **more):
-    """The per-group operands both kernels take: prices, eps, ``skip`` and
+def _check_state(kernel, G, n, prices, eps, skip, seed_top2, phases=(),
+                 **more):
+    """The per-group operands both kernels take: prices, eps and ``skip``
+    (one per group, or per phase and group with ``phases`` = (P,)),
     ``seed_top2`` (and ``more``: name -> (tensor, shape, dtype))."""
     want = {"prices": (prices, (G, n), torch.float32),
-            "eps": (eps, (G,), torch.float32),
+            "eps": (eps, (*phases, G), torch.float32),
             **more,
-            "skip": (skip, (G,), torch.bool)}
+            "skip": (skip, (*phases, G), torch.bool)}
     if seed_top2 is not None:
         if len(seed_top2) != 3:
             raise ValueError(f"{kernel}: seed_top2 is (v1, j1, v2)")
@@ -238,9 +256,9 @@ def _check_state(kernel, G, n, prices, eps, skip, seed_top2, **more):
 def totals() -> dict:
     """Rounds, bids and rounds with a single bidder that the kernels ran since
     :func:`reset_totals`, summed over devices (a read from the card).  A
-    launch on a stack adds its longest group's rounds, as the Python loop
-    over the stack counts them, and every group's bids and single-bidder
-    rounds."""
+    launch on a stack adds, for each of its phases, its longest group's
+    rounds, as the Python loop over the stack counts them, and every
+    group's bids and single-bidder rounds."""
     out = {"rounds": 0, "bids": 0, "single_bidder_rounds": 0}
     for t in _totals.values():
         r, b, _, s = t.tolist()

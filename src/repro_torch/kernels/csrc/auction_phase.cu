@@ -31,14 +31,14 @@ extern "C" int auction_phase_f32(const float* x, const float* c,
                                  void* stream) {
   return phase::launch<false, false>(
       x, c, is_real, prices, eps, skip, seed_v1, seed_j1, seed_v2, assign,
-      prices_out, rounds_g, counters, scratch, G, n, d, max_rounds,
+      prices_out, rounds_g, counters, scratch, G, n, d, 1, max_rounds,
       fixed_rounds, nullptr, 0, -1, stream);
 }
 
 // The same phase, with group 0's rounds timed for measurement: trace
-// (trace_cap, 6) int64 receives (bidders, clock64 cycles, 1 if the round ran
+// (trace_cap, 7) int64 receives (bidders, clock64 cycles, 1 if the round ran
 // in the one-warp path else 0, the cycles of its top-2s, of posting its
-// bids, of its update) of round r in row r, for r < trace_cap; threshold >= 0
+// bids, of its update, 0) of round r in row r, for r < trace_cap; threshold >= 0
 // sets the most bidders a round may have to run in the warp path (up to 32),
 // -1 keeps the kernel's rule.
 extern "C" int auction_phase_timed_f32(
@@ -50,7 +50,7 @@ extern "C" int auction_phase_timed_f32(
     int trace_cap, int threshold, void* stream) {
   return phase::launch<true, false>(
       x, c, is_real, prices, eps, skip, seed_v1, seed_j1, seed_v2, assign,
-      prices_out, rounds_g, counters, scratch, G, n, d, max_rounds,
+      prices_out, rounds_g, counters, scratch, G, n, d, 1, max_rounds,
       fixed_rounds, reinterpret_cast<long long*>(trace), trace_cap, threshold,
       stream);
 }

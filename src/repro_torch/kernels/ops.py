@@ -8,14 +8,14 @@ run the whole path against the plain versions, the counterpart of JAX's
 ``force=``.
 
 ``bid_top2_span`` is the factored auction's two span bids (x at zero
-prices, -x at the given ones) in one launch.  Each epsilon phase of the
-auction is one dispatch: ``auction_phase`` for the factored values (the
-``"auction_fused"`` solver, which the stream route runs) and
-``auction_phase_dense`` for an explicit cost stack (the ``"auction"``
-solver, which the default flat route and the stacked route run).  On the
-card each launches its phase kernel; on the plain path each runs the
-Python round loop ``ref.auction_rounds``, over ``bid_top2_ref`` or over
-``ref.top2`` of ``cost - p``.
+prices, -x at the given ones) in one launch.  ``auction_phase`` runs one
+epsilon phase of the factored values (the ``"auction_fused"`` solver, which
+the stream route runs), ``auction_phase_dense`` every phase of a LAP's
+schedule on an explicit cost stack (the ``"auction"`` solver, which the
+default flat route and the stacked route run).  On the card each is one
+launch of its phase kernel; on the plain path each runs the Python round
+loop ``ref.auction_rounds``, over ``bid_top2_ref`` or over ``ref.top2`` of
+``cost - p``, phase after phase.
 
 ``cdist`` and ``bid_top2`` take the reference's ``idx=``: the rows are
 ``x[clip(idx, 0, n - 1)]``, read by the fused gather kernels for
@@ -146,9 +146,10 @@ def auction_phase(x: torch.Tensor, c: torch.Tensor, is_real, prices, eps,
 
 def auction_phase_dense(cost: torch.Tensor, prices, eps, max_rounds: int,
                         fixed_rounds: int = 0, *, skip=None, seed_top2=None):
-    """One epsilon phase of the dense-cost auction on a (G, n, n) cost stack
-    (see ``kernels.auction_phase.auction_phase_dense``); returns (assign,
-    prices)."""
+    """The P epsilon phases of a (P, G) schedule ``eps`` (``skip`` (P, G) or
+    None) of the dense-cost auction on a (G, n, n) cost stack, phase after
+    phase (see ``kernels.auction_phase.auction_phase_dense``); returns the
+    last phase's (assign, prices)."""
     if resolve_path(cost) == "ref":
         return auction_phase_dense_ref(cost, prices, eps, max_rounds,
                                        fixed_rounds, skip, seed_top2)

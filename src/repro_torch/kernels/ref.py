@@ -9,9 +9,10 @@ clips its indices to ``[0, n - 1]``, as the TPU kernels do.
 
 The plain versions of the two phase kernels are the auction's Python
 round loop :func:`auction_rounds`: over :func:`factored_top2` for
-``auction_phase`` (the ``"auction_fused"`` solver, the stream route) and
-over :func:`top2` of ``cost - p`` for ``auction_phase_dense`` (the
-``"auction"`` solver, the flat and stacked routes).  The solvers run them
+``auction_phase`` (the ``"auction_fused"`` solver, the stream route; one
+phase a call) and over :func:`top2` of ``cost - p`` for
+``auction_phase_dense`` (the ``"auction"`` solver, the flat and stacked
+routes; every phase of a LAP's schedule a call).  The solvers run them
 on CPU tensors and under ``ops.forced_path("ref")``; on the card they
 launch the kernels.
 """
@@ -261,6 +262,16 @@ def dense_top2(cost):
 def auction_phase_dense_ref(cost, prices, eps, max_rounds: int,
                             fixed_rounds: int = 0, skip=None, seed_top2=None):
     """The plain version of the ``auction_phase_dense`` kernel: the Python
-    round loop over the dense reduction (see ``kernels.auction_phase``)."""
-    return auction_rounds(dense_top2(cost), prices, eps, max_rounds,
-                          fixed_rounds, skip, seed_top2)
+    round loop over the dense reduction (see ``kernels.auction_phase``),
+    once for each of the P phases of the (P, G) schedule ``eps``.  Each
+    phase starts with every row unassigned (but in the groups ``skip[p]``
+    marks) and with the prices of the phase before; ``seed_top2`` is the
+    first phase's first reduction.  Returns the last phase's
+    ``(assign, prices)``."""
+    top2_fn = dense_top2(cost)
+    for p in range(eps.shape[0]):
+        assign, prices = auction_rounds(
+            top2_fn, prices, eps[p], max_rounds, fixed_rounds,
+            None if skip is None else skip[p],
+            seed_top2 if p == 0 else None)
+    return assign, prices

@@ -214,3 +214,112 @@ def test_factored_solve_unchanged_by_the_paired_span(monkeypatch, seed):
     want = auction_solve_factored(x, c, is_real=ir, return_prices=True,
                                   device=CPU)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _host_schedule(span: np.ndarray, n: int, config: AuctionConfig):
+    """The schedule as the port formed it on the host before it moved to
+    the device: ``hi * ratio**p`` in double per span, then float32."""
+    n_phases = max(int(config.n_phases), 1)
+    out = []
+    for s in span.tolist():
+        hi = s / config.eps_start_div
+        lo = s / (config.eps_end_mul * n)
+        if n_phases > 1:
+            ratio = (lo / hi) ** (1.0 / (n_phases - 1))
+            out.append([hi * ratio ** p for p in range(n_phases)])
+        else:
+            out.append([lo])
+    return np.asarray(out, dtype=np.float32).T
+
+
+@pytest.mark.parametrize("n_phases", [1, 4])
+@pytest.mark.parametrize("n", [2, 16, 100, 256, 512, 8192])
+def test_eps_schedule_equals_the_host_formula(n, n_phases):
+    """``float32(float64(span) * f_p)`` on the device against the host
+    formula ``hi * ratio**p`` on 10**5 seeded spans from 1e-6 to 1e10 at
+    each n and phase count: the two differ only in the double rounding of
+    the ratio, so by one float32 ulp at most, and on these 3 * 10**6 values
+    by none."""
+    from repro_torch.core.assignment import _eps_schedule
+    rng = np.random.default_rng(n * 10 + n_phases)
+    span = np.exp(rng.uniform(np.log(1e-6), np.log(1e10), 100_000))
+    span = span.astype(np.float32)
+    cfg = AuctionConfig(n_phases=n_phases)
+    got = _eps_schedule(torch.from_numpy(span), n, cfg).numpy()
+    want = _host_schedule(span, n, cfg)
+    assert got.shape == want.shape == (n_phases, span.size)
+    ulps = np.abs(got.view(np.int32).astype(np.int64)
+                  - want.view(np.int32).astype(np.int64))
+    assert ulps.max() <= 1
+    assert int((ulps > 0).sum()) == 0
+
+
+class _NoHostRead:
+    """Within the block any read of a tensor's values to the host raises,
+    and so does any upload (a tensor made from host data, or moved to a
+    device), and the phase dispatchers are stubbed (a launch on the card,
+    a Python loop here): what is left is the LAP's own code around its
+    phases."""
+
+    def __init__(self, monkeypatch):
+        def refuse(name):
+            def read(*args, **kwargs):
+                raise AssertionError(f"host read or upload inside a LAP: "
+                                     f"{name}")
+            return read
+        for name in ("tolist", "item", "cpu", "numpy", "__bool__",
+                     "__int__", "__float__", "cuda"):
+            monkeypatch.setattr(torch.Tensor, name, refuse(name))
+        for name in ("tensor", "as_tensor", "from_numpy"):
+            monkeypatch.setattr(torch, name, refuse(f"torch.{name}"))
+        to = torch.Tensor.to
+
+        def to_dtype(t, *args, **kwargs):  # a cast, never a move
+            if "device" in kwargs or any(
+                    isinstance(a, (str, torch.device, torch.Tensor))
+                    for a in args):
+                raise AssertionError(f"upload inside a LAP: to{args}")
+            return to(t, *args, **kwargs)
+
+        monkeypatch.setattr(torch.Tensor, "to", to_dtype)
+        self.dense = self.factored = 0
+
+        def dense(cost, prices, eps, *args, **kwargs):
+            self.dense += 1
+            return torch.zeros_like(prices, dtype=torch.int64), prices
+
+        def factored(x, c, is_real, prices, eps, *args, **kwargs):
+            self.factored += 1
+            return torch.zeros_like(prices, dtype=torch.int64), prices
+
+        monkeypatch.setattr(ops, "auction_phase_dense", dense)
+        monkeypatch.setattr(ops, "auction_phase", factored)
+
+
+@pytest.mark.parametrize("warm", [False, True])
+def test_a_lap_reads_nothing_back_to_the_host(monkeypatch, warm):
+    """``_solve_dense`` and ``_solve_factored``, cold and warm (the probe,
+    the re-entry and the skips): the span, the eps schedule and the
+    permutation repair are device work with no ``tolist``, ``item``,
+    ``cpu`` or truth value of a tensor, so on the card nothing waits for
+    the host inside a LAP; nor is anything uploaded (the schedule's
+    factors are kept on the device from the first LAP of a shape on).  One
+    dense dispatch a LAP, four factored."""
+    from repro_torch.core.assignment import _solve_dense, _solve_factored
+    rng = np.random.default_rng(12)
+    G, n, d = 3, 16, 5
+    cost = torch.from_numpy(rng.normal(size=(G, n, n)).astype(np.float32))
+    x = torch.from_numpy(rng.normal(size=(G, n, d)).astype(np.float32))
+    c = torch.from_numpy(rng.normal(size=(G, n, d)).astype(np.float32))
+    real = torch.from_numpy(np.arange(n) < n - 3).expand(G, n).contiguous()
+    prices = (torch.from_numpy(rng.normal(size=(G, n)).astype(np.float32))
+              if warm else None)
+    _solve_dense(cost, AuctionConfig(), prices)  # the shape's first LAP
+    spy = _NoHostRead(monkeypatch)
+    a, p = _solve_dense(cost, AuctionConfig(), prices)
+    a2, p2 = _solve_factored(x, c, real, AuctionConfig(), prices)
+    assert (spy.dense, spy.factored) == (1, 4)
+    monkeypatch.undo()
+    for out in (a, a2):
+        assert out.shape == (G, n) and out.dtype == torch.int64
+    assert p.shape == p2.shape == (G, n)

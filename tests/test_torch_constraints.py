@@ -451,7 +451,8 @@ def test_categorical_quality_against_the_exact_oracle():
 # ---------------------------------------------------------------------------
 
 def _masked_phases(monkeypatch):
-    """Every dense phase of a categorical solve, recorded: (cost, eps)."""
+    """Every dense LAP of a categorical solve, recorded: (cost, its (P, G)
+    eps schedule)."""
     calls = []
     inner = ops.auction_phase_dense
 
@@ -468,20 +469,22 @@ def _masked_phases(monkeypatch):
 
 
 def test_masked_eps_schedule_equals_the_reference_span_formula(monkeypatch):
-    """The port's schedule (per instance, in double on the host, P3) equals
-    the reference's float32 span formula on the same masked cost within
-    one ulp.  The mask's -1e9 enters the span, so a masked LAP's eps runs
+    """The port's schedule (per instance, float32(float64(span) * f_p) on
+    the device, P3), one (P, G) schedule a LAP's dispatch, equals the
+    reference's float32 span formula on the same masked cost within one
+    ulp.  The mask's -1e9 enters the span, so a masked LAP's eps runs
     from ~1.25e8 down to ~1e9 / (4 k): reference fault R6, kept."""
     calls = _masked_phases(monkeypatch)
     n_phases = JaxConfig().n_phases
     masked = 0
-    for lap in range(0, len(calls), n_phases):
+    for lap in range(len(calls)):
         cost = jnp.asarray(calls[lap][0].numpy())
         finite = jnp.where(cost <= JAX_NEG / 2, 0.0, cost)
         span = jnp.maximum(finite.max(axis=(1, 2))
                            - finite.min(axis=(1, 2)), 1e-6)
         want = np.asarray(jax_eps_schedule(span, cost.shape[1], JaxConfig()))
-        got = np.stack([calls[lap + p][1].numpy() for p in range(n_phases)])
+        got = calls[lap][1].numpy()
+        assert got.shape == (n_phases, cost.shape[0])
         ulps = np.abs(got.view(np.int32).astype(np.int64)
                       - want.view(np.int32).astype(np.int64))
         assert ulps.max() <= 1, (lap, got, want)
@@ -503,7 +506,8 @@ def test_masked_lap_takes_no_masked_cell_when_it_can(monkeypatch):
     from repro_torch.core.assignment import auction_solve
     calls = _masked_phases(monkeypatch)
     checked = 0
-    for cost, _ in calls[::JaxConfig().n_phases]:
+    # one dispatch a LAP; a copy, as the solves below record more
+    for cost, _ in list(calls):
         c = cost[0].numpy().astype(np.float64)
         if not (c == aba._MASK_COST).any():
             continue

@@ -488,9 +488,12 @@ def test_cuda_auction_phase_checks_operands(cuda):
 
 def _dense_cases(G, n, integer, device):
     """A (G, n, n) cost stack as ``_assign_batch`` builds it (the last
-    group's last rows are dummies: zeroed), and the runs to compare: cold;
-    warm prices with ``skip`` on group 0 and the seed reduction;
-    ``fixed_rounds``; a ``max_rounds`` cap that stops the phase early."""
+    group's last rows are dummies: zeroed), and the launches to compare,
+    each a (P, G) eps schedule: four phases cold; four warm, with the
+    first three phases skipped in group 0 and the second in group 1, and
+    the seed reduction; four with ``fixed_rounds``; one warm with
+    ``fixed_rounds`` and the seed; four with a ``max_rounds`` cap that
+    stops every phase early; one phase cold."""
     gen = torch.Generator().manual_seed(G * n + integer)
     if integer:
         cost = torch.randint(-3, 4, (G, n, n), generator=gen).float()
@@ -498,11 +501,13 @@ def _dense_cases(G, n, integer, device):
         cost = torch.randn((G, n, n), generator=gen) * 5
     cost[-1, n - n // 4:] = 0.0
     warm = torch.rand((G, n), generator=gen) * 3
-    eps = torch.rand((G,), generator=gen) * 0.5 + 0.05
+    eps = (torch.rand((G,), generator=gen) * 0.5 + 0.05) * torch.tensor(
+        [8.0, 4.0, 2.0, 1.0])[:, None]
     cost, warm, eps = (t.to(device) for t in (cost, warm, eps))
     zero = torch.zeros_like(warm)
-    skip = torch.zeros((G,), dtype=torch.bool, device=device)
-    skip[0] = G > 1
+    skip = torch.zeros((4, G), dtype=torch.bool, device=device)
+    skip[:3, 0] = G > 1
+    skip[1, 1 % G] = G > 1
     seed = ref.dense_top2(cost)(warm)
     big = 50 * n + 1000
     return cost, [
@@ -510,22 +515,24 @@ def _dense_cases(G, n, integer, device):
         dict(prices=warm, eps=eps, max_rounds=big, skip=skip,
              seed_top2=seed),
         dict(prices=zero, eps=eps, max_rounds=big, fixed_rounds=7),
-        dict(prices=warm, eps=eps, max_rounds=big, fixed_rounds=5,
+        dict(prices=warm, eps=eps[3:], max_rounds=big, fixed_rounds=5,
              seed_top2=seed),
-        dict(prices=zero, eps=eps, max_rounds=3)]
+        dict(prices=zero, eps=eps, max_rounds=3),
+        dict(prices=zero, eps=eps[:1], max_rounds=big)]
 
 
 def _check_dense_kernel(monkeypatch, cost, kw):
-    """One launch of the dense phase kernel against the Python round loop
-    over ``ref.top2`` of ``cost - p``, its predicate tested every round:
-    assignments and prices bitwise, the same rounds, bids and single-bidder
-    rounds."""
+    """One launch of the dense phase kernel (all the phases of ``kw``'s
+    schedule) against the Python round loop over ``ref.top2`` of
+    ``cost - p``, phase after phase, its predicate tested every round:
+    assignments and prices bitwise, the same rounds, bids and
+    single-bidder rounds."""
     monkeypatch.setattr(ref, "_CHECK_EVERY", 1)
     t0, r0, b0 = phase_kernel.totals(), ref.rounds_executed, ref.bid_totals()
     got = _counted("auction_phase_dense", phase_kernel.auction_phase_dense,
                    cost, **kw)
     t1 = phase_kernel.totals()
-    want = ref.auction_rounds(ref.dense_top2(cost), **kw)
+    want = ref.auction_phase_dense_ref(cost, **kw)
     b1 = ref.bid_totals()
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert t1["rounds"] - t0["rounds"] == ref.rounds_executed - r0
@@ -536,16 +543,19 @@ def _check_dense_kernel(monkeypatch, cost, kw):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("G,n", [(1, 1), (1, 5), (1, 8), (3, 48), (1, 256),
-                                 (4, 256), (2, 130), (1, 512)])
+@pytest.mark.parametrize("G,n", [(1, 1), (1, 5), (1, 8), (3, 48), (1, 100),
+                                 (1, 250), (1, 256), (4, 256), (2, 130),
+                                 (1, 512)])
 @pytest.mark.parametrize("integer", [False, True])
 def test_cuda_auction_phase_dense_equals_python_loop(cuda, monkeypatch, G, n,
                                                      integer):
-    """The dense phase kernel against the Python loop, bitwise, on cold,
-    warm (skip, seed), fixed-round and capped phases; n = 1, n off the
-    float4 grid (5, 130: one column a lane), the warp path's and the CTA
-    path's sizes, G up to 4, dummy rows; integer costs make value and bid
-    ties common."""
+    """The dense phase kernel against the Python loop, bitwise, on launches
+    of four phases (cold; warm with skips and the seed; fixed rounds; a
+    cap) and of one; n = 1, n off the float4 grid (5, 100, 130, 250: one
+    column a lane, the rows staged by the threads), every cost row staged
+    in shared memory (n <= 130), all but some (250: 222 of them; 256: 217;
+    512: 104), the warp path's and the CTA path's sizes, G up to 4, dummy
+    rows; integer costs make value and bid ties common."""
     cost, runs = _dense_cases(G, n, integer, cuda)
     for kw in runs:
         _check_dense_kernel(monkeypatch, cost, kw)
@@ -560,11 +570,12 @@ def test_cuda_auction_phase_dense_equals_python_loop(cuda, monkeypatch, G, n,
 def test_cuda_auction_phase_dense_state_in_device_memory(cuda, monkeypatch,
                                                          max_rounds):
     """n = 8192 (a 256 MB cost): the per-row state does not fit in shared
-    memory and lives in device memory; one phase to its end, one cut."""
+    memory and lives in device memory, 7 cost rows are staged; one phase to
+    its end, one cut."""
     gen = torch.Generator().manual_seed(8193)
     cost = (torch.randn((1, 8192, 8192), generator=gen) * 5).to(cuda)
     kw = dict(prices=torch.zeros((1, 8192), device=cuda),
-              eps=torch.full((1,), 2.0, device=cuda), max_rounds=max_rounds)
+              eps=torch.full((1, 1), 2.0, device=cuda), max_rounds=max_rounds)
     _check_dense_kernel(monkeypatch, cost, kw)
 
 
@@ -581,6 +592,8 @@ def test_cuda_auction_phase_dense_checks_operands(cuda):
     with pytest.raises(ValueError):
         phase_kernel.auction_phase_dense(
             cost, **{**kw, "prices": kw["prices"].cpu()})
+    with pytest.raises(ValueError):  # a schedule is (P, G)
+        phase_kernel.auction_phase_dense(cost, **{**kw, "eps": kw["eps"][0]})
 
 
 def _route_run(x, dev, **kw):
@@ -594,19 +607,19 @@ def _route_run(x, dev, **kw):
 
 @pytest.mark.cuda
 def test_cuda_flat_and_stacked_routes_launch_the_dense_kernel(cuda):
-    """The default spec's flat route and the stacked route run every phase
-    as one auction_phase_dense launch (four a LAP) and no round of the
-    Python loop; both balanced."""
+    """The default spec's flat route and the stacked route run every LAP,
+    all four of its phases, as one auction_phase_dense launch and no round
+    of the Python loop; both balanced."""
     rng = np.random.default_rng(1)
     x = torch.from_numpy(rng.normal(size=(2048, 22)).astype(np.float32))
     res, dense, plain = _route_run(x.to(cuda), cuda, k=64)
     assert (res.route, res.solver) == ("flat", "auction")
-    assert dense == 4 * (2048 // 64 - 1) and plain == 0
+    assert dense == 2048 // 64 - 1 and plain == 0
     assert balance_ok(res.labels.cpu(), 64)
     xs = torch.from_numpy(rng.normal(size=(3, 500, 7)).astype(np.float32))
     res, dense, plain = _route_run(xs.to(cuda), cuda, k=32)
     assert (res.route, res.solver) == ("stacked", "auction")
-    assert dense == 4 * (-(-500 // 32) - 1) and plain == 0
+    assert dense == -(-500 // 32) - 1 and plain == 0
     for g in range(3):
         assert balance_ok(res.labels[g].cpu(), 32)
 
@@ -697,23 +710,29 @@ def _masked_schedule(cost):
 @pytest.mark.parametrize("closed", [0.05, 0.6])
 def test_cuda_auction_phase_dense_masked_costs(cuda, monkeypatch, G, n,
                                                closed):
-    """Every phase of the masked LAP's own schedule (values near -1e9, eps
-    1e6 to 1e8, prices near 1e8 where ties are everywhere), the prices
-    carried from phase to phase, then a warm re-solve with skip and seed:
-    the dense phase kernel bitwise the Python loop, with the same rounds,
-    bids and single-bidder rounds."""
+    """The masked LAP's own four-phase schedule (values near -1e9, eps 1e6
+    to 1e8, prices near 1e8 where ties are everywhere) in one launch, then
+    each phase alone from the prices of the one before, then a warm
+    re-solve of the whole schedule with skips and seed: the dense phase
+    kernel bitwise the Python loop, with the same rounds, bids and
+    single-bidder rounds."""
     cost = _masked_cost(G, n, closed, G * n + int(closed * 100), cuda)
     sched = _masked_schedule(cost)
     assert float(sched[0].min()) > 1e8
-    prices = torch.zeros((G, n), device=cuda)
-    for eps in sched:
+    zero = torch.zeros((G, n), device=cuda)
+    _, whole = _check_dense_kernel(
+        monkeypatch, cost, dict(prices=zero, eps=sched,
+                                max_rounds=50 * n + 1000))
+    prices = zero
+    for p in range(sched.shape[0]):
         _, prices = _check_dense_kernel(
-            monkeypatch, cost, dict(prices=prices, eps=eps,
+            monkeypatch, cost, dict(prices=prices, eps=sched[p:p + 1],
                                     max_rounds=50 * n + 1000))
+    assert torch.equal(prices, whole)
     assert float(prices.abs().max()) > 1e6
-    skip = torch.zeros((G,), dtype=torch.bool, device=cuda)
-    skip[0] = G > 1
-    warm = dict(prices=prices, eps=sched[-1], max_rounds=50 * n + 1000,
+    skip = torch.zeros_like(sched, dtype=torch.bool)
+    skip[:-1, 0] = G > 1
+    warm = dict(prices=prices, eps=sched, max_rounds=50 * n + 1000,
                 skip=skip, seed_top2=ref.dense_top2(cost)(prices))
     _check_dense_kernel(monkeypatch, cost, warm)
 
@@ -746,9 +765,9 @@ def _constraint_kwargs(case, shape):
 @pytest.mark.parametrize("case", ["categories", "fairness", "valid_mask"])
 @pytest.mark.parametrize("route", ["flat", "stream", "stacked"])
 def test_cuda_constrained_routes_equal_forced_plain_path(cuda, case, route):
-    """Every constrained route with the dense solver runs each phase as one
-    auction_phase_dense launch (four a LAP) and no round of the Python
-    loop, the stream route's chunks through gather_rows, and its labels
+    """Every constrained route with the dense solver runs each LAP as one
+    auction_phase_dense launch and no round of the Python loop, the
+    stream route's chunks through gather_rows, and its labels
     are bitwise those of the same call with every phase in the loop
     (``ops.forced_path("ref")``)."""
     n, k, G = 1024, 32, 3
@@ -761,7 +780,7 @@ def test_cuda_constrained_routes_equal_forced_plain_path(cuda, case, route):
         kw["chunk_size"] = 256
     res, used, plain = _constrained_run(x, cuda, **kw)
     assert res.route == route and res.solver == "auction" and plain == 0
-    assert used["auction_phase_dense"] == 4 * (n // k - 1)
+    assert used["auction_phase_dense"] == n // k - 1
     assert used["gather_rows"] == (5 if route == "stream" else 0)
     with ops.forced_path("ref"):
         ref_res, ref_used, ref_plain = _constrained_run(x, cuda, **kw)
@@ -792,22 +811,27 @@ def test_cuda_categorical_stream_covering_chunk_equals_dense(cuda):
 @pytest.mark.parametrize("threshold", [-1, 0, 32])
 def test_cuda_auction_phase_dense_timed(cuda, threshold):
     """The dense kernel's timed instantiation (measurement only) gives the
-    phase's result bitwise, on a masked cost, and traces every round of
-    group 0: bidders summing to the bids, the path set by ``threshold``
-    (-1: the kernel's rule)."""
+    launch's result bitwise, on a masked cost's four phases, and traces
+    every round of group 0 over them: bidders summing to the bids, the path
+    set by ``threshold`` (-1: the kernel's rule), the bidders on staged
+    rows (at n = 256 the kernel stages 217 of the 256 rows)."""
     cost = _masked_cost(1, 256, 0.05, 7, cuda)
     kw = dict(prices=torch.zeros((1, 256), device=cuda),
-              eps=_masked_schedule(cost)[0], max_rounds=50 * 256 + 1000)
+              eps=_masked_schedule(cost), max_rounds=50 * 256 + 1000)
     want = phase_kernel.auction_phase_dense(cost, **kw)
     t0 = phase_kernel.totals()
     *got, trace = _counted("auction_phase_dense",
                            phase_kernel.auction_phase_dense_timed, cost, **kw,
-                           trace_rounds=kw["max_rounds"], threshold=threshold)
+                           trace_rounds=4 * kw["max_rounds"],
+                           threshold=threshold)
     t1 = phase_kernel.totals()
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     trace = trace[trace[:, 0] >= 0].cpu()
+    assert trace.shape[1] == 7
     assert len(trace) == t1["rounds"] - t0["rounds"]
     assert int(trace[:, 0].sum()) == t1["bids"] - t0["bids"]
     assert bool((trace[:, 1] > 0).all()) and bool((trace[:, 3:] >= 0).all())
+    assert bool((trace[:, 6] <= trace[:, 0]).all())
+    assert 0 < int(trace[:, 6].sum()) < int(trace[:, 0].sum())
     if threshold >= 0:
         assert torch.equal(trace[:, 2] == 1, trace[:, 0] <= threshold)

@@ -2,13 +2,15 @@
 on the CPU.
 
 The dense solver (``"auction"``, the default flat route and the stacked
-route) runs every epsilon phase through ``ops.auction_phase_dense``: the
-kernel ``kernels/csrc/auction_phase_dense.cu`` on the card, the Python
-round loop ``kernels.ref.auction_rounds`` over ``ref.top2`` of
-``cost - p`` on CPU tensors.  These tests pin the plain route of the
+route) runs a LAP's whole epsilon schedule through one
+``ops.auction_phase_dense`` call: one launch of the kernel
+``kernels/csrc/auction_phase_dense.cu`` on the card, the Python round loop
+``kernels.ref.auction_rounds`` over ``ref.top2`` of ``cost - p``, phase
+after phase, on CPU tensors.  These tests pin the plain route of the
 wrapper and the dispatcher, the wrapper's checks, that the solver reaches
-the dispatcher for every phase, and the plain loop against the JAX dense
-engine (quality on floats, the same bids on integers).  The kernel itself
+the dispatcher once a LAP with its whole schedule, and the plain loop
+against the JAX dense engine (quality on floats, the same bids on
+integers).  The kernel itself
 is held against the Python loop on the card (``tests/test_torch_cuda.py``
 and ``chip_smoke.py``).
 """
@@ -43,33 +45,43 @@ def _cost(seed, G, n, integer=False, dummies=True):
 
 
 def _phase_inputs(G=3, n=12, integer=False):
+    """A cost stack, warm prices and a two-phase (2, G) eps schedule."""
     cost = torch.from_numpy(_cost(11 + G + n, G, n, integer))
     rng = np.random.default_rng(5)
     warm = torch.from_numpy(rng.normal(size=(G, n)).astype(np.float32))
-    eps = torch.full((G,), 0.3 if integer else 0.05)
+    eps = torch.tensor([[0.6], [0.3]] if integer else [[0.2], [0.05]]
+                       ).expand(2, G).contiguous()
     return cost, warm, eps
 
 
 @pytest.mark.parametrize("integer", [False, True])
 @pytest.mark.parametrize("kw", [
-    {}, {"fixed_rounds": 9}, {"skip": torch.tensor([True, False, False])},
-    {"seed": True}, {"seed": True, "skip": torch.tensor([False, True, False]),
-                     "fixed_rounds": 4}, {"max_rounds": 2}],
+    {}, {"fixed_rounds": 9},
+    {"skip": torch.tensor([[True, False, False], [False, False, False]])},
+    {"seed": True},
+    {"seed": True, "skip": torch.tensor([[False, True, False],
+                                         [False, True, False]]),
+     "fixed_rounds": 4}, {"max_rounds": 2}],
     ids=["cold", "fixed_rounds", "skip", "seed", "seed_skip_fixed",
          "max_rounds"])
 def test_cpu_route_is_the_python_loop_over_top2(integer, kw):
     """On CPU tensors the wrapper and the dispatcher run the Python round
-    loop over ``ref.top2`` of ``cost - p``, bitwise, launch nothing, and
-    count the loop's rounds and bids."""
+    loop over ``ref.top2`` of ``cost - p`` once a phase of the (P, G)
+    schedule, each from the prices of the one before (the seed and the
+    skips of each phase as given), bitwise, launch nothing, and count the
+    loop's rounds and bids."""
     cost, warm, eps = _phase_inputs(integer=integer)
     kw = dict(kw)
     max_rounds = kw.pop("max_rounds", 500)
     if kw.pop("seed", False):
         kw["seed_top2"] = ref.top2(cost - warm[:, None, :])
-    want = ref.auction_rounds(lambda p: ref.top2(cost - p[:, None, :]),
-                              warm, eps, max_rounds,
-                              kw.get("fixed_rounds", 0), kw.get("skip"),
-                              kw.get("seed_top2"))
+    want = (None, warm)
+    for p in range(eps.shape[0]):
+        want = ref.auction_rounds(
+            lambda q: ref.top2(cost - q[:, None, :]), want[1], eps[p],
+            max_rounds, kw.get("fixed_rounds", 0),
+            None if "skip" not in kw else kw["skip"][p],
+            kw.get("seed_top2") if p == 0 else None)
     launches = dict(_build.launches)
     r0, b0 = ref.rounds_executed, ref.bid_totals()
     got = phase_kernel.auction_phase_dense(cost, warm, eps, max_rounds, **kw)
@@ -89,8 +101,9 @@ def test_cpu_route_is_the_python_loop_over_top2(integer, kw):
 
 @pytest.mark.parametrize("bad", ["cost_square", "cost_dim", "cost_dtype",
                                  "empty", "prices_shape", "prices_dtype",
-                                 "eps_shape", "skip_dtype", "seed_len",
-                                 "seed_shape", "seed_j1_dtype"])
+                                 "eps_shape", "eps_one_phase_1d",
+                                 "eps_no_phase", "skip_dtype", "skip_shape",
+                                 "seed_len", "seed_shape", "seed_j1_dtype"])
 def test_wrapper_checks_shapes_and_dtypes(bad):
     cost, warm, eps = _phase_inputs()
     kw = dict(cost=cost, prices=warm, eps=eps, max_rounds=50)
@@ -108,9 +121,15 @@ def test_wrapper_checks_shapes_and_dtypes(bad):
     elif bad == "prices_dtype":
         kw["prices"] = warm.double()
     elif bad == "eps_shape":
-        kw["eps"] = eps[:2]
+        kw["eps"] = eps[:, :2]
+    elif bad == "eps_one_phase_1d":  # one phase is a (1, G) schedule
+        kw["eps"] = eps[0]
+    elif bad == "eps_no_phase":
+        kw["eps"] = eps[:0]
     elif bad == "skip_dtype":
-        kw["skip"] = torch.zeros(3, dtype=torch.int64)
+        kw["skip"] = torch.zeros((2, 3), dtype=torch.int64)
+    elif bad == "skip_shape":  # a skip flag a phase and group
+        kw["skip"] = torch.zeros(3, dtype=torch.bool)
     elif bad == "seed_len":
         kw["seed_top2"] = seed[:2]
     elif bad == "seed_shape":
@@ -129,16 +148,18 @@ class _Spy:
         inner = ops.auction_phase_dense
 
         def spy(cost, prices, eps, max_rounds, fixed_rounds=0, **kw):
-            self.calls.append({"G": cost.shape[0], **kw})
+            self.calls.append({"G": cost.shape[0], "eps": eps, **kw})
             return inner(cost, prices, eps, max_rounds, fixed_rounds, **kw)
         monkeypatch.setattr(ops, "auction_phase_dense", spy)
 
 
 @pytest.mark.parametrize("B", [1, 3])
 def test_solve_dense_runs_every_phase_through_the_dispatcher(monkeypatch, B):
-    """A cold LAP is four phases, each one ``ops.auction_phase_dense`` call
-    on the whole stack; a warm LAP too (the probe is plain ops), with the
-    probe as the first phase's seed.  The Python loop runs nowhere else."""
+    """A cold LAP is one ``ops.auction_phase_dense`` call on the whole
+    stack carrying its (4, B) eps schedule, whose plain route runs the
+    Python loop four times, once a phase; a warm LAP too (the probe is
+    plain ops), with the (4, B) skips and the probe as the first phase's
+    seed.  The Python loop runs nowhere else."""
     cost = torch.from_numpy(_cost(30 + B, B, 10))
     spy = _Spy(monkeypatch)
     calls_loop = []
@@ -149,13 +170,20 @@ def test_solve_dense_runs_every_phase_through_the_dispatcher(monkeypatch, B):
         return inner_loop(*a, **k)
     monkeypatch.setattr(ref, "auction_rounds", loop_spy)
     a, p = asg.auction_solve(cost, return_prices=True, device=CPU)
-    assert len(spy.calls) == asg.AuctionConfig().n_phases == 4
-    assert all(c["G"] == B for c in spy.calls)
-    assert len(calls_loop) == 4  # the plain route of each of those calls
+    assert len(spy.calls) == 1
+    assert spy.calls[0]["G"] == B
+    assert tuple(spy.calls[0]["eps"].shape) == (
+        asg.AuctionConfig().n_phases, B) == (4, B)
+    assert spy.calls[0]["skip"] is None
+    assert spy.calls[0]["seed_top2"] is None
+    assert len(calls_loop) == 4  # the plain route: one loop a phase
     a2, _ = asg.auction_solve(cost, prices=p + 0.5, return_prices=True,
                               device=CPU)
-    assert len(spy.calls) == 8
-    assert spy.calls[4]["seed_top2"] is not None
+    assert len(spy.calls) == 2 and len(calls_loop) == 8
+    warm = spy.calls[1]
+    assert warm["seed_top2"] is not None
+    assert tuple(warm["skip"].shape) == (4, B) and warm["skip"].dtype == \
+        torch.bool and not bool(warm["skip"][-1].any())
     for out in (a, a2):
         assert sorted(out[-1].tolist()) == list(range(10))
 
@@ -187,7 +215,7 @@ def test_dense_solve_and_jax_near_optimal(monkeypatch, B):
     cost = _cost(50 + B, B, 20)
     spy = _Spy(monkeypatch)
     port = asg.auction_solve(torch.from_numpy(cost), device=CPU).numpy()
-    assert len(spy.calls) == 4
+    assert len(spy.calls) == 1
     jax_ = np.asarray(jax_auction_solve(jnp.asarray(cost)))
     for b in range(B):
         _check_near_optimal(cost[b].astype(np.float64), port[b])
@@ -212,7 +240,7 @@ def test_plain_bid_counts_equal_jax_unassigned_rows(monkeypatch, G):
     monkeypatch.setattr(ref, "_CHECK_EVERY", 1)
     b0, r0 = ref.bid_totals(), ref.rounds_executed
     assign, prices = ops.auction_phase_dense(
-        *(torch.from_numpy(a) for a in (cost, p0, eps)), max_rounds)
+        *(torch.from_numpy(a) for a in (cost, p0, eps[None])), max_rounds)
     rounds = ref.rounds_executed - r0
     b1 = ref.bid_totals()
     assert 1 < rounds < max_rounds and bool((assign >= 0).all())
