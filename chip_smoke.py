@@ -12,8 +12,11 @@ git-ignored ``build/``), then runs these phases, one or more lines each:
    and the least time the card could take (``bound_ms``): the solve's
    ``bid_top2`` (the digests of its bits at the checked shapes; timed as
    the main path launches it, the span's pair in one launch, and as one
-   call, also with c staged by the threads; the pair bitwise against two
-   calls on the main data and on a LAP with dummy rows), ``gather_rows`` and ``auction_phase`` (every phase of 65
+   call, also with c staged by the threads; one call and the pair against
+   their plain versions at every checked shape, exact on integers; the
+   pair's slot 0 bitwise one call and both slots within tolerance of the
+   plain pair on the main data and on a LAP with dummy rows),
+   ``gather_rows`` and ``auction_phase`` (every phase of 65
    LAPs of the main data and a set of edge cases against the Python round
    loop over ``bid_top2``, bitwise, with the same rounds, bids and
    single-bidder rounds; then the SM clock cycles of every round of the
@@ -30,7 +33,14 @@ git-ignored ``build/``), then runs these phases, one or more lines each:
    beside an unmasked one, and the cycles of their rounds by bidder count
    and by step through the dense kernel's timed instantiation, under its
    crossover, forced to each path and by where the cost row lives; the
-   latency floor of the timed LAP), then the kernel entry point's
+   latency floor of the timed LAP); at phase 8's shapes, the dense kernel
+   on the G = 64, n = 64 stack of call (a)'s first level-2 LAP and on call
+   (c)'s first level-2 batch (G = 256, n = 512), the factored kernel on
+   call (b)'s first G = 64 LAP, bitwise against the loop, the span's pair
+   on (b)'s first LAP at G = 1 and at G = 64 against the plain pair, and
+   the dense rounds by bidder count on 16 LAPs at n = 64 and at n = 512;
+   then the
+   kernel entry point's
    ``cdist``, ``cdist_gather``, ``bid_top2_gather`` and ``ssm_scan`` at the
    shapes phase 5 gives them (``ssm_scan`` also with its expf count and
    their special-function floor at the data sheet's clock and at the SM
@@ -47,7 +57,10 @@ git-ignored ``build/``), then runs these phases, one or more lines each:
    spec's flat route at n = 16 384 against the forced plain path (the
    Python loop over ``top2``): labels bitwise equal, both times; likewise
    phase 7's calls (a), (b) and (d) at that n, and the categorical stream
-   core with ``chunk_size >= n`` against the flat core;
+   core with ``chunk_size >= n`` against the flat core; the hierarchical
+   route ``plan=(8, 16)``, dense and with ``chunk_size=4096``, against the
+   forced plain path (labels bitwise), and ``batched=False`` against the
+   stacked levels (labels equal, or the first LAP that differs and why);
 5. the kernel entry point ``repro_torch.kernels`` at full size, driven
    once with the launch counters zeroed just before and read just after:
    ``cdist`` of the diabetes rows against k = 256 centroids,
@@ -73,6 +86,20 @@ git-ignored ``build/``), then runs these phases, one or more lines each:
    one attribute, (b)'s largest quota excess logged; a third call each
    with a window of LAPs profiled (launches and copies a LAP, none
    between host and card, and no wait on the card);
+8. the hierarchical route (paper Section 4.4) on the Table-10 rows of
+   ``benchmarks/table10_scale.py`` (n = 2^20, d = 32, low rank), each a
+   first call (its LAPs counted by level) and a main call with the
+   counters zeroed just before it and read just after: (a) k = 4096
+   (plan (64, 64), dense), (b) the same with ``chunk_size="auto"`` (level 1
+   streamed, ``"auction_fused"``), (d) (a) with ``categories=``, (c)
+   k = 131072 (plan (256, 512); one call if the phase has passed
+   HIER_PHASE_BUDGET_S); the LAPs of each level and the kernels' launches a
+   LAP, exact balance, constraint (5) for (d), the objective above random,
+   a finite gap >= 0, the labels' sha256; (a) and (b) with 20 LAPs of each
+   level profiled (device launches a LAP at G = 1 and G = 64) and a call
+   profiled whole (each kernel's device time, the idle share); then (e)
+   ``kplus_moments=2`` on phase 3's rows at k = 256, its moment-2 spread
+   below the same call's without k-plus;
 
 then one JSON line describing every kernel, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises, exits non-zero and
@@ -89,10 +116,12 @@ digests: equal digests are equal bits.
 from __future__ import annotations
 
 import argparse
+import functools
 import hashlib
 import importlib
 import inspect
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -107,7 +136,10 @@ import torch  # noqa: E402
 
 from repro_torch.anticluster import anticluster  # noqa: E402
 from repro_torch.core import assignment as asg  # noqa: E402
-from repro_torch.core.aba import _MASK_COST, aba_core, aba_stream  # noqa: E402
+from repro_torch.core.aba import (_MASK_COST, _centrality,  # noqa: E402
+                                  aba_core, aba_stream)
+from repro_torch.core.hierarchical import _regroup  # noqa: E402
+from repro_torch.core.kplus import kplus_augment, moment_spread  # noqa: E402
 from repro_torch.core.objective import (balance_ok,  # noqa: E402
                                         objective_centroid)
 from repro_torch.data.synthetic import PRESETS, make  # noqa: E402
@@ -245,37 +277,38 @@ def bid_inputs(gen, G, m, k, d, integer, dev):
             torch.randn((G, k), generator=gen).to(dev))
 
 
-# The shapes phase 2 holds bid_top2 to its plain version at (G, m, k, d):
-# the auction's, d on the 16-byte grid, a stack, uneven tiles, k past one
-# pass, k and d past what stays in shared memory.
+# The shapes phase 2 holds bid_top2 and the span's pair to their plain
+# versions at (G, m, k, d): the auction's, d on the 16-byte grid, a stack,
+# uneven tiles, k past one pass, k and d past what stays in shared memory,
+# and the hierarchical route's level-2 span (G = 64 LAPs of n = 64).
 BID_TOP2_SHAPES = [(1, 256, 256, 22), (1, 256, 256, 32), (4, 256, 256, 32),
-                   (1, 37, 37, 5), (1, 256, 513, 22), (1, 64, 513, 200)]
+                   (1, 37, 37, 5), (1, 256, 513, 22), (1, 64, 513, 200),
+                   (64, 64, 64, 32)]
 
 
 def check_bid_top2(dev) -> float:
-    """Exact on integers, tolerance on floats; returns the float max error
-    at the main shape."""
+    """One call and the span's pair (bid_top2_span) against their plain
+    versions at each shape: exact on integers, to :func:`top2_err`'s
+    tolerance on floats.  Returns one call's float max error at the main
+    shape."""
     gen = torch.Generator().manual_seed(0)
     main_err = None
     for G, m, k, d in BID_TOP2_SHAPES:
+        at = f"G={G} m={m} k={k} d={d}"
         x, c, p = bid_inputs(gen, G, m, k, d, True, dev)
-        got, want = cuda_bid_top2(x, c, p), bid_top2_ref(x, c, p)
-        torch.cuda.synchronize()
-        for g, w, what in zip(got, want, ("v1", "j1", "v2")):
-            check(torch.equal(g, w), f"bid_top2 {what} differs on integers "
-                                     f"at G={G} m={m} k={k} d={d}")
+        equal(cuda_bid_top2(x, c, p), bid_top2_ref(x, c, p),
+              f"bid_top2 on integers at {at}")
+        for got, want in zip(bid_top2_module.bid_top2_span(x, c),
+                             ref.bid_top2_span_ref(x, c)):
+            equal(got, want, f"the span pair on integers at {at}")
         x, c, p = bid_inputs(gen, G, m, k, d, False, dev)
-        (v1, j1, v2), (w1, wj, w2) = cuda_bid_top2(x, c, p), bid_top2_ref(x, c, p)
-        scale = w1.abs().max().item()
-        err = max((v1 - w1).abs().max().item(), (v2 - w2).abs().max().item())
-        tol = (1e-4 * scale + 1e-5 * torch.maximum(w1.abs(), w2.abs())).max()
-        check(err <= tol.item(), f"bid_top2 float error {err} at "
-                                 f"G={G} m={m} k={k} d={d}")
-        clear = (w1 - w2) > 1e-4 * scale
-        check(torch.equal(j1[clear], wj[clear]),
-              f"bid_top2 argmax differs at G={G} m={m} k={k} d={d}")
-        log(f"bid_top2 G={G} m={m} k={k} d={d}: integers exact, floats "
-            f"max_abs_err={err:.3e} (tol {tol.item():.3e}), argmax equal "
+        err = top2_err(cuda_bid_top2(x, c, p), bid_top2_ref(x, c, p),
+                       f"bid_top2 at {at}")
+        span_err = max(top2_err(got, want, f"the span pair at {at}")
+                       for got, want in zip(bid_top2_module.bid_top2_span(x, c),
+                                            ref.bid_top2_span_ref(x, c)))
+        log(f"bid_top2 and the span pair {at}: integers exact, floats "
+            f"max_abs_err={err:.3e} (pair {span_err:.3e}), argmax equal "
             f"where the top-2 gap > 1e-4*scale")
         if (G, m, k, d) == (1, 256, 256, 22):
             main_err = err
@@ -316,19 +349,18 @@ def measure_bid_top2(dev, single_err) -> dict:
     G, m, k, d = 1, 256, 256, 22
     gen = torch.Generator().manual_seed(1)
     x, c, p = bid_inputs(gen, G, m, k, d, False, dev)
-    cn = (c * c).sum(-1)
+    cn = (c * c).sum(dim=-1)
     pn = 2.0 * cn
 
     def pair():
-        return bid_top2_module.bid_top2_span(x, c, pn)
+        return bid_top2_module.bid_top2_span(x, c)
 
     def plain_pair():
-        return ref.bid_top2_span_ref(x, c, pn)
+        return ref.bid_top2_span_ref(x, c)
 
-    err = max((g - w).abs().max().item()
-              for got, want in zip(pair(), plain_pair())
-              for g, w in ((got[0], want[0]), (got[2], want[2])))
-    xx, bias2 = torch.cat((x, -x)), torch.stack((cn, cn - pn))
+    err = max(top2_err(got, want, "the span pair")
+              for got, want in zip(pair(), plain_pair()))
+    xx, bias2 = torch.cat((x, -x)), torch.stack((cn, -cn))
 
     def library():  # yardstick only: one batched GEMM with the bias, topk(2)
         return torch.topk(torch.baddbmm(bias2, xx, c.mT.expand(2, d, k),
@@ -348,7 +380,7 @@ def measure_bid_top2(dev, single_err) -> dict:
            "library_device_ms": device_ms(library, ""),
            "two_calls_device_ms": device_ms(two_calls, "bid_top2_kernel")}
     row["bound_ms"], row["bound_by"] = bound_ms(
-        4 * (m * d + k * d + k) + 2 * m * (4 + 8 + 4),
+        4 * (m * d + k * d) + 2 * m * (4 + 8 + 4),
         2 * 2 * m * k * d + 2 * k * d)
     # one call, as the entry point makes it, and with c off the grid
     x1, c1, p1 = x[0], c[0], p[0]
@@ -427,10 +459,12 @@ class PhaseRecorder:
     (``auction_phase``: the factored solver's phases; ``auction_phase_dense``:
     the dense solver's LAPs) runs as usual and is recorded: its arguments by
     name, outputs and the kernel's rounds, bids and single-bidder rounds (a
-    sync per phase: checks only)."""
+    sync per phase: checks only).  With ``keep`` only the calls for whose
+    arguments it returns True are recorded; the others run untouched."""
 
-    def __init__(self, name: str = "auction_phase"):
+    def __init__(self, name: str = "auction_phase", keep=None):
         self.name = name
+        self.keep = keep
         self.calls = []
 
     def __enter__(self):
@@ -441,6 +475,8 @@ class PhaseRecorder:
             bound = signature.bind(*args, **kwargs)
             bound.apply_defaults()
             kw = dict(bound.arguments)
+            if self.keep is not None and not self.keep(kw):
+                return self.inner(*args, **kwargs)
             kw["prices"] = kw["prices"].clone()
             t0 = phase_kernel.totals()
             out = self.inner(*args, **kwargs)
@@ -520,7 +556,11 @@ def check_auction_phase(dev) -> list:
     def lap(i, p):
         return laps[4 * i + p]["kw"]
     last = CHECK_LAPS - 1
-    check_span(lap(0, 0), lap(last, 0))
+    dummies = [int((~lap(i, 0)["is_real"]).sum())
+               if lap(i, 0)["is_real"] is not None else 0 for i in (0, last)]
+    check(dummies[0] == 0 and dummies[-1] > 0, f"dummy rows {dummies}")
+    check_span([lap(0, 0), lap(last, 0)],
+               f"the main data (dummy rows {dummies})")
     xs = torch.stack([lap(i, 0)["x"][0] for i in (0, 1, last)])
     cs = torch.stack([lap(i, 0)["c"][0] for i in (0, 1, last)])
     real = torch.ones((3, k), dtype=torch.bool, device=dev)
@@ -568,25 +608,23 @@ def check_auction_phase(dev) -> list:
     return laps
 
 
-def check_span(*phases):
-    """The span's pair in one launch against two separate bid_top2 calls,
-    bitwise (v1, j1, v2 of both), on the LAPs of the given phases."""
+def check_span(phases, what) -> float:
+    """The span's pair in one launch on the LAPs of the given phases: slot
+    0 bitwise one bid_top2 call at zero prices, both slots against the
+    plain pair to :func:`top2_err`'s tolerance.  Returns the max error."""
+    err = 0.0
     for kw in phases:
         x, c = kw["x"], kw["c"]
-        pn = 2.0 * torch.stack([(cg * cg).sum(dim=-1) for cg in c])
-        pair = bid_top2_module.bid_top2_span(x, c, pn)
-        two = (cuda_bid_top2(x, c, torch.zeros_like(pn)),
-               cuda_bid_top2(-x, c, pn))
-        for got, want in zip(pair, two):
-            for g, w in zip(got, want):
-                check(torch.equal(g, w), "the span pair differs from two "
-                      "bid_top2 calls")
-    dummies = [int((~kw["is_real"]).sum()) if kw["is_real"] is not None
-               else 0 for kw in phases]
-    check(dummies[0] == 0 and dummies[-1] > 0, f"dummy rows {dummies}")
-    log(f"bid_top2 span pair (one launch) bitwise equal to two bid_top2 "
-        f"calls on {len(phases)} LAPs of the main data (dummy rows "
-        f"{dummies})")
+        pair = bid_top2_module.bid_top2_span(x, c)
+        equal(pair[0], cuda_bid_top2(x, c, x.new_zeros(c.shape[:2])),
+              f"the span's slot 0 on {what}")
+        for got, want in zip(pair, ref.bid_top2_span_ref(x, c)):
+            err = max(err, top2_err(got, want, f"the span pair on {what}"))
+    shapes = sorted({tuple(kw["x"].shape) for kw in phases})
+    log(f"bid_top2 span pair (one launch) on {len(phases)} LAPs of {what} "
+        f"(x {shapes}): slot 0 bitwise one bid_top2 call, both slots within "
+        f"bid_top2's tolerance of the plain pair (max_abs_err {err:.3e})")
+    return err
 
 
 def measure_auction_phase(dev, laps) -> dict:
@@ -1378,21 +1416,31 @@ class LapWindow:
 
 
 def call_kernel_ms(x, k, dev, kernel: str, **kw) -> dict:
-    """One whole call under the profiler: the device time of ``kernel`` and
-    of every kernel and copy, summed over the call (the wall time is the
-    profiler's, not a measurement)."""
+    """One whole call under the profiler, device activity only: the device
+    time and launches of ``kernel``, of every kernel and copy, and of the
+    ten largest by name, summed over the call (the wall time is the
+    profiler's, not a measurement).  Summed from the profiler's raw
+    events: a call of ~17 000 LAPs records ~850 000 of them, and
+    ``key_averages`` first builds an event tree, which takes minutes at
+    that count (PERF.md)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         anticluster(x, k=k, device=dev, **kw)
         torch.cuda.synchronize()
-    device = [e for e in prof.key_averages() if _is_kernel(e)]
-    return {"kernel_ms": sum(_self_device_us(e) for e in device
-                             if kernel in e.key) / 1e3,
-            "kernel_launches": sum(e.count for e in device
-                                   if kernel in e.key),
-            "device_ms": sum(_self_device_us(e) for e in device) / 1e3}
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            ms, count = by_name.get(e.name(), (0.0, 0))
+            by_name[e.name()] = (ms + e.duration_ns() / 1e6, count + 1)
+    ranked = sorted(by_name.items(), key=lambda t: -t[1][0])
+    mine = [v for key, v in ranked if kernel in key]
+    return {"kernel_ms": sum(ms for ms, _ in mine),
+            "kernel_launches": sum(c for _, c in mine),
+            "device_ms": sum(ms for ms, _ in by_name.values()),
+            "launches": sum(c for _, c in by_name.values()),
+            "kernels": {key[:80]: {"ms": ms, "launches": c}
+                        for key, (ms, c) in ranked[:10]}}
 
 
 def lap_window(x, k, dev, solver, field, laps, what, **kw) -> dict:
@@ -1674,7 +1722,8 @@ def against_plain(dev):
         f"{agree:.4f} of rows; both balanced")
     return {"agree": agree, "rel": abs(o_k - o_p) / o_p,
             "flat": flat_against_plain(x, k, dev),
-            "constrained": constrained_against_plain(x, k, dev)}
+            "constrained": constrained_against_plain(x, k, dev),
+            "hierarchical": hierarchical_against_plain(x, dev)}
 
 
 def flat_against_plain(x, k, dev) -> dict:
@@ -1755,6 +1804,421 @@ def constrained_against_plain(x, k, dev) -> dict:
         f"equal to the flat core's ({used['gather_rows']} gather_rows, "
         f"{used['auction_phase_dense']} auction_phase_dense launches)")
     out["stream_equals_flat"] = True
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the hierarchical route: phase 8, and its parts of phases 2 and 4
+# ---------------------------------------------------------------------------
+
+# The Table-10 regime of benchmarks/table10_scale.py: n = 2^20 rows of
+# d = 32 low-rank features, 128 MB on the card, nothing cut.
+HIER_N, HIER_D = 1 << 20, 32
+HIER_K = 4096          # plan (64, 64): benchmarks/table10_scale.py
+HIER_K_LARGE = 131072  # plan (256, 512): its largest k
+HIER_PHASE_BUDGET_S = 120.0  # past this, call (c) runs once (PERF.md §4)
+
+
+@functools.lru_cache(maxsize=1)
+def hier_rows(dev) -> torch.Tensor:
+    return torch.from_numpy(make("lowrank", HIER_N, HIER_D, seed=0)).to(dev)
+
+
+def first_by_groups(field: str, limits: dict):
+    """A PhaseRecorder ``keep``: the first ``limits[G]`` calls whose
+    argument ``field`` is a stack of G groups."""
+    seen = {}
+
+    def keep(kw):
+        G = kw[field].shape[0]
+        seen[G] = seen.get(G, 0) + 1
+        return seen[G] <= limits.get(G, 0)
+    return keep
+
+
+def timed_loop(calls, what, loop, kernel):
+    """:func:`check_phase_calls`, logged with its wall time."""
+    t0 = time.perf_counter()
+    checked = check_phase_calls(calls, what, loop, kernel)
+    seconds = time.perf_counter() - t0
+    log(f"{kernel}: {checked} launches of {what} bitwise equal to the "
+        f"every-round Python loop ({seconds:.1f} s), with equal rounds, bids "
+        f"and single-bidder rounds: {[c['rounds'] for c in calls]} rounds")
+    return seconds
+
+
+def check_hierarchical_phases(dev) -> dict:
+    """Phase 2 at the hierarchical route's shapes, on phase 8's rows: the
+    dense kernel on the G = 64, n = 64 stack of call (a)'s first level-2 LAP
+    and on call (c)'s first level-2 batch (G = 256, n = 512, 268 MB of
+    cost), the factored kernel on the four phases of call (b)'s first
+    G = 64 LAP, each bitwise against the every-round Python loop; the
+    span's pair on (b)'s first LAP at G = 1 and at G = 64 against the plain
+    pair (:func:`check_span`); then the
+    dense kernel's rounds timed by bidders on the first 16 LAPs of (a)'s
+    level 1 (n = 64) and on 16 G = 1 LAPs at n = 512 (the first 16 groups
+    of (c)'s batch, each solved alone: its assignment and prices equal to
+    its group's in the stack)."""
+    x = hier_rows(dev)
+    dense = "auction_phase_dense"
+    with PhaseRecorder(dense, first_by_groups("cost", {1: TIMED_LAPS, 64: 1})
+                       ) as rec_a:
+        anticluster(x, k=HIER_K, device=dev)
+    with PhaseRecorder("auction_phase", first_by_groups("x", {1: 4, 64: 4})
+                       ) as rec_b:
+        anticluster(x, k=HIER_K, device=dev, chunk_size="auto")
+    with PhaseRecorder(dense, first_by_groups("cost", {256: 1})) as rec_c:
+        anticluster(x, k=HIER_K_LARGE, device=dev)
+    small = [c for c in rec_a.calls if c["kw"]["cost"].shape[0] == 1]
+    stack_a = [c for c in rec_a.calls if c["kw"]["cost"].shape[0] == 64]
+    small_b = [c for c in rec_b.calls if c["kw"]["x"].shape[0] == 1]
+    stack_b = [c for c in rec_b.calls if c["kw"]["x"].shape[0] == 64]
+    check(len(small) == TIMED_LAPS and len(stack_a) == 1
+          and len(small_b) == 4 and len(stack_b) == 4
+          and len(rec_c.calls) == 1,
+          f"recorded {len(small)}, {len(stack_a)}, {len(small_b)}, "
+          f"{len(stack_b)}, {len(rec_c.calls)} launches")
+    span_err = check_span([small_b[0]["kw"], stack_b[0]["kw"]],
+                          "(b)'s first LAP at G=1 and at G=64")
+    loop = ref.auction_phase_dense_ref
+    out = {"a_level2_s": timed_loop(stack_a, "(a)'s first level-2 LAP "
+                                    "(G=64 n=64)", loop, dense),
+           "b_level2_s": timed_loop(stack_b, "(b)'s first level-2 LAP "
+                                    "(G=64 n=64, 4 phases)",
+                                    loop_over_bid_top2, "auction_phase"),
+           "b_span_max_abs_err": span_err,
+           "c_level2_s": timed_loop(rec_c.calls, "(c)'s first level-2 batch "
+                                    "(G=256 n=512)", loop, dense)}
+    stack = rec_c.calls[0]
+    singles = []
+    for g in range(TIMED_LAPS):
+        with PhaseRecorder(dense) as rec:
+            asg.auction_solve(stack["kw"]["cost"][g:g + 1], device=dev)
+        call = rec.calls[0]
+        check(torch.equal(call["out"][0][0], stack["out"][0][g])
+              and torch.equal(call["out"][1][0], stack["out"][1][g]),
+              f"group {g} of (c)'s level-2 batch solved alone differs from "
+              f"the stack")
+        singles.append(call)
+    timed = phase_kernel.auction_phase_dense_timed
+    out["rounds_timed"] = {
+        "n64": time_rounds(small, timed, f"the first {TIMED_LAPS} LAPs of "
+                           f"(a)'s level 1, n=64"),
+        "n512": time_rounds(singles, timed, f"{TIMED_LAPS} LAPs at n=512, "
+                            f"groups 0-{TIMED_LAPS - 1} of (c)'s first "
+                            f"level-2 batch, each solved alone")}
+    return out
+
+
+def hierarchical_against_plain(x, dev) -> dict:
+    """Phase 4 on the hierarchical route: ``plan=(8, 16)`` on phase 4's
+    rows, dense and with ``chunk_size=4096`` (level 1 streamed in four
+    chunks), through the kernels and with every phase in the Python loop
+    (``forced_path("ref")``): labels bitwise equal.  Then ``batched=False``
+    (a G = 1 solve a group) against the stacked levels: labels equal, or
+    the first level-2 LAP that differs and what differs in it (the group's
+    centroid, the stacked cost product, the kernel's output) logged, and
+    either way both balanced with objectives within 1e-3 relative."""
+    plan, k = (8, 16), 128
+    out = {}
+    for name, xx, kw in (("dense", x, {}), ("chunk 4096", x,
+                                            {"chunk_size": 4096})):
+        n = xx.shape[0]
+        laps1, laps2 = n // plan[0] - 1, n // plan[0] // plan[1] - 1
+        res, kernel_s, used = user_call(xx, k, dev, plan=plan, **kw)
+        check(res.route == "hier" and res.plan == plan
+              and res.solver == "auction"
+              and used["auction_phase_dense"] == laps1 + laps2
+              and used["plain_rounds"] == 0
+              and (used["gather_rows"] > 0) == ("chunk_size" in kw),
+              f"hier {name}: {res.route} {res.plan} {res.solver} {used}")
+        with ops.forced_path("ref"):
+            plain, plain_s, inside = user_call(xx, k, dev, plan=plan, **kw)
+        check(not any(inside[kn] for kn in _build.launches)
+              and inside["plain_rounds"] > 0,
+              f"hier {name}: kernels launched under the forced plain path: "
+              f"{inside}")
+        check(torch.equal(res.labels, plain.labels),
+              f"hier {name}: labels differ from the forced plain path's")
+        log(f"hierarchical route n={n} plan={plan} {name}: labels bitwise "
+            f"equal to the forced plain path's; kernels {kernel_s:.3f} s "
+            f"({used['rounds']} rounds, {used['auction_phase_dense']} dense "
+            f"launches: {laps1} at G=1, {laps2} at G={plan[0]}), Python loop "
+            f"{plain_s:.3f} s ({inside['rounds']} rounds)")
+        out[name] = {"kernel_s": kernel_s, "plain_s": plain_s,
+                     "rounds": used["rounds"],
+                     "plain_rounds": inside["rounds"]}
+    n = x.shape[0]
+    laps1, laps2 = n // plan[0] - 1, n // plan[0] // plan[1] - 1
+    dense = "auction_phase_dense"
+    count = iter(range(1 << 30))
+    with PhaseRecorder(dense, first_by_groups("cost", {plan[0]: laps2})
+                       ) as stacked:
+        one = anticluster(x, k=k, device=dev, plan=plan, stats=False)
+    with PhaseRecorder(dense, lambda kw: next(count) >= laps1) as alone:
+        per_group = anticluster(x, k=k, device=dev, plan=plan, stats=False,
+                                batched=False)
+    equal = torch.equal(one.labels, per_group.labels)
+    first = None
+    for g in range(plan[0]):
+        for b in range(laps2):
+            s, a = stacked.calls[b], alone.calls[g * laps2 + b]
+            same_cost = torch.equal(s["kw"]["cost"][g], a["kw"]["cost"][0])
+            same_out = (torch.equal(s["out"][0][g], a["out"][0][0])
+                        and torch.equal(s["out"][1][g], a["out"][1][0]))
+            if first is None and not (same_cost and same_out):
+                first = {"group": g, "batch": b, "cost_equal": same_cost,
+                         "kernel_out_equal": same_out}
+    check(equal == (first is None),
+          f"batched=False: labels equal {equal}, first differing LAP {first}")
+    o_one = float(objective_centroid(x, one.labels, k))
+    o_alone = float(objective_centroid(x, per_group.labels, k))
+    check(balance_ok(one.labels.cpu(), k)
+          and balance_ok(per_group.labels.cpu(), k)
+          and abs(o_one - o_alone) <= 1e-3 * o_one,
+          f"batched=False: objectives {o_alone} vs {o_one}, or unbalanced")
+    # the two candidate causes, on the level-2 stack of the shared level 1
+    glabels = torch.div(one.labels.long(), plan[1], rounding_mode="floor")
+    idx, valid = _regroup(glabels, torch.ones_like(glabels, dtype=torch.bool),
+                          plan[0], -(-n // plan[0]))
+    xg = torch.cat([x, x.new_zeros((1, x.shape[1]))])[idx]
+    mu, _ = _centrality(xg, valid)
+    mu_equal = all(torch.equal(_centrality(xg[g:g + 1], valid[g:g + 1])[0][0],
+                               mu[g]) for g in range(plan[0]))
+    cents = xg[:, :plan[1]]
+    prod = torch.einsum("gid,gjd->gij", xg[:, plan[1]:2 * plan[1]], cents)
+    # (the stack's first rows stand in for a batch and the centroids)
+    einsum_equal = all(torch.equal(torch.einsum(
+        "gid,gjd->gij", xg[g:g + 1, plan[1]:2 * plan[1]], cents[g:g + 1])[0],
+        prod[g]) for g in range(plan[0]))
+    log(f"hierarchical route n={n} plan={plan}: batched=False labels "
+        f"{'equal to' if equal else 'differ from'} batched=True's; first "
+        f"level-2 LAP that differs: {first}; on the level-2 stack, each "
+        f"group's centroid alone equals the stacked one: {mu_equal}, the "
+        f"stacked cost product equals each group's: {einsum_equal}; both "
+        f"balanced, objectives {o_alone:.6e} and {o_one:.6e}")
+    out["batched_false"] = {"labels_equal": equal, "first_diff": first,
+                            "ofv": o_one, "ofv_unbatched": o_alone,
+                            "centroid_equal": mu_equal,
+                            "einsum_equal": einsum_equal}
+    return out
+
+
+class LevelLaps:
+    """Within the block every LAP of the solvers ``"auction"`` and
+    ``"auction_fused"`` (their dense ``solve`` and matrix-free
+    ``factored`` entries) is counted by its stack's G, and so are the
+    port's kernel launches it made (``_build.launches``, read on the host:
+    no sync)."""
+
+    def __enter__(self):
+        self.saved = {name: asg._REGISTRY[name]
+                      for name in ("auction", "auction_fused")}
+        self.laps, self.launches = {}, {}
+
+        def counted(inner):
+            def run(first, *args, **kwargs):
+                before = dict(_build.launches)
+                out = inner(first, *args, **kwargs)
+                G = first.shape[0]
+                self.laps[G] = self.laps.get(G, 0) + 1
+                per = self.launches.setdefault(G, {})
+                for name, v in _build.launches.items():
+                    if v != before[name]:
+                        per[name] = per.get(name, 0) + v - before[name]
+                return out
+            return run
+
+        for name, entry in self.saved.items():
+            asg._REGISTRY[name] = entry._replace(
+                solve=counted(entry.solve),
+                factored=entry.factored and counted(entry.factored))
+        return self
+
+    def __exit__(self, *exc):
+        asg._REGISTRY.update(self.saved)
+
+    def per_lap(self) -> dict:
+        """G -> {"laps": count, kernel: launches a LAP}."""
+        return {G: {"laps": laps, **{name: v / laps for name, v in
+                                     self.launches.get(G, {}).items()}}
+                for G, laps in sorted(self.laps.items())}
+
+
+def hier_call(x, k, dev, expect, windows=False, once=False, **kw):
+    """One call of phase 8 as a user makes it, as ``(run, result)``: a
+    first call with its LAPs
+    counted by level (:class:`LevelLaps`), then the main call with the
+    counters zeroed just before it and read just after; checks the route,
+    plan and solver, the LAPs of each level and the kernels' launches a
+    LAP, equal labels and rounds in both, exact balance, the objective
+    above a seeded random partition and a finite gap >= 0.  With ``once``
+    the first call is the main call.  With ``windows`` a third call
+    profiles WINDOW_LAPS LAPs in the middle of level 1 and of level 2
+    (device launches a LAP at G = 1 and at G = plan[0]: no copy
+    between host and card, no wait) and a fourth is profiled whole."""
+    route, plan, solver = expect
+    with LevelLaps() as levels:
+        first, first_s, first_used = user_call(x, k, dev, **kw)
+    res, main_s, used = ((first, first_s, first_used) if once
+                         else user_call(x, k, dev, **kw))
+    check(res.route == route and res.plan == plan and res.solver == solver,
+          f"route {res.route} plan {res.plan} solver {res.solver}, expected "
+          f"{expect}")
+    n = x.shape[0]
+    laps, m = {}, n
+    for li, k_l in enumerate(plan):
+        groups = math.prod(plan[:li])
+        laps[groups] = -(-m // k_l) - 1
+        m = -(-m // k_l)
+    per_lap = levels.per_lap()
+    want_launches = ({"bid_top2": 1.0, "auction_phase": 4.0}
+                     if solver == "auction_fused"
+                     else {"auction_phase_dense": 1.0})
+    for G, want in laps.items():
+        got = per_lap.get(G, {})
+        check(got.get("laps") == want and all(
+            got.get(name) == v for name, v in want_launches.items()),
+            f"level with G={G}: {got}, expected {want} LAPs and "
+            f"{want_launches} a LAP")
+    check(used["plain_rounds"] == 0 and torch.equal(first.labels, res.labels)
+          and first_used["rounds"] == used["rounds"],
+          f"plain rounds {used['plain_rounds']}, or the second call gave "
+          f"other labels or rounds than the first")
+    q = quality(x, res.labels, k)
+    gap = float(res.gap)
+    check(np.isfinite(gap) and gap >= 0.0, f"gap {gap}")
+    digest = hashlib.sha256(res.labels.cpu().numpy().tobytes()).hexdigest()
+    run = {"route": res.route, "plan": list(res.plan), "solver": res.solver,
+           "main_s": main_s, "first_s": first_s,
+           "launches": {name: used[name] for name in _build.launches
+                        if used[name]},
+           "rounds": used["rounds"], "bids": used["bids"],
+           "single_bidder_rounds": used["single_bidder_rounds"],
+           "per_level": per_lap, "gap": gap, **q, "once": once,
+           "labels_sha256": digest}
+    if windows:
+        field = "factored" if solver == "auction_fused" else "solve"
+        l1, half = laps[1], WINDOW_LAPS // 2
+        with LapWindow(solver, field, l1 // 2 - half, WINDOW_LAPS) as w1, \
+                LapWindow(solver, field, l1 + laps[plan[0]] // 2 - half,
+                          WINDOW_LAPS) as w2:
+            anticluster(x, k=k, device=dev, **kw)
+        run["windows"] = {}
+        for G, w in ((1, w1), (plan[0], w2)):
+            split = w.split("auction_phase_kernel")
+            waits = {key: v for key, v in split["host_reads_per_lap"].items()
+                     if key != "cudaMemcpyAsync"}
+            check(not split["host_copies_per_lap"] and not waits,
+                  f"G={G}: a LAP reads back from the card, uploads to it or "
+                  f"waits for it: {split}")
+            run["windows"][G] = split
+        whole = call_kernel_ms(x, k, dev, "auction_phase_kernel", **kw)
+        whole["idle_share"] = 1.0 - whole["device_ms"] / (main_s * 1e3)
+        run["call_profile"] = whole
+    return run, res
+
+
+def hierarchical_routes(dev, card: str) -> dict:
+    """Phase 8: the hierarchical route on the Table-10 rows (n = 2^20, d =
+    32, low rank) through ``anticluster`` as a user calls it, each call by
+    :func:`hier_call`: (a) k = 4096 with the default spec (plan (64, 64),
+    the dense solver), (b) the same with ``chunk_size="auto"`` (level 1
+    streamed in 8192-row chunks, ``"auction_fused"``), (c) k = 131072
+    (plan (256, 512)), (d) (a) with ``categories=`` the class codes of
+    ATTRIBUTE_COUNTS (constraint (5) exact); (a) and (b) also with their
+    levels' LAPs profiled and profiled whole.  Then (e) ``kplus_moments=2``
+    on phase 3's rows at k = 256 (the flat route, d = 22 -> 44): the
+    moment-2 spread below that of the same call without k-plus."""
+    x = hier_rows(dev)
+    cls = attributes(HIER_N)["class"]
+    t0 = time.perf_counter()
+    out = {}
+
+    def report(name, run, extra=""):
+        per = "; ".join(
+            f"G={G}: {v['laps']} LAPs, " + ", ".join(
+                f"{kn} {c:g}" for kn, c in v.items() if kn != "laps")
+            + " a LAP" for G, v in run["per_level"].items())
+        log(f"({name}) on {card}: route={run['route']} plan={run['plan']} "
+            f"solver={run['solver']} {run['main_s']:.3f} s (first call "
+            f"{run['first_s']:.3f} s); launches {run['launches']} ({per}); "
+            f"rounds {run['rounds']}, bids {run['bids']}, single-bidder "
+            f"rounds {run['single_bidder_rounds']}; sizes "
+            f"{run['sizes'][0]}..{run['sizes'][1]}; ofv {run['ofv']:.6e} > "
+            f"random {run['ofv_random']:.6e}; gap {run['gap']:.6e}{extra}; "
+            f"labels sha256 {run['labels_sha256'][:16]}")
+        for G, split in run.get("windows", {}).items():
+            log(f"  ({name}) LAPs {split['laps'][0]}..{split['laps'][1]} "
+                f"(G={G}) profiled: {split['device_launches_per_lap']:.2f} "
+                f"device launches and {split['kernel_launches_per_lap']:.2f} "
+                f"phase kernel launches a LAP, host copy and wait calls a LAP "
+                f"{split['host_reads_per_lap']}, device copies a LAP "
+                f"{split['device_copies_per_lap']}, idle share "
+                f"{split['idle_share']:.3f} (wall {split['wall_ms']:.2f} ms, "
+                f"device {split['device_ms']:.2f} ms)")
+        whole = run.get("call_profile")
+        if whole:
+            log(f"  ({name}) the whole call profiled: every kernel "
+                f"{whole['device_ms']:.3f} ms of device time in "
+                f"{whole['launches']} launches against the main call's "
+                f"{run['main_s'] * 1e3:.1f} ms wall (idle share "
+                f"{whole['idle_share']:.3f}); phase kernel "
+                f"{whole['kernel_ms']:.3f} ms in {whole['kernel_launches']} "
+                f"launches; by kernel {json.dumps(whole['kernels'])}")
+        out[name] = run
+
+    report("a", hier_call(x, HIER_K, dev, ("hier", (64, 64), "auction"),
+                          windows=True)[0])
+    report("b", hier_call(x, HIER_K, dev, ("hier", (64, 64), "auction_fused"),
+                          windows=True, chunk_size="auto")[0])
+    chunks = 1 + -(-(HIER_N // 64 - 1) // (CHUNK_ROWS // 64))
+    check(out["b"]["launches"]["gather_rows"] == chunks,
+          f"(b): {out['b']['launches']['gather_rows']} gather_rows launches, "
+          f"expected {chunks}")
+    run, res = hier_call(x, HIER_K, dev, ("hier", (64, 64), "auction"),
+                         categories=cls)
+    check(stratified(res.labels.cpu().numpy(), cls, HIER_K),
+          "(d): constraint (5) does not hold")
+    report("d", run, "; constraint (5) exact")
+    spent = time.perf_counter() - t0
+    once = spent > HIER_PHASE_BUDGET_S  # then the first call is the main
+    report("c", hier_call(x, HIER_K_LARGE, dev, ("hier", (256, 512),
+                                                 "auction"), once=once)[0],
+           f"; run once (phase 8 had taken {spent:.1f} s)" if once else "")
+
+    d, k = PRESETS["diabetes"][1], 256
+    xd = torch.from_numpy(make("mixture", PRESETS["diabetes"][0], d,
+                               seed=0)).to(dev)
+    first, first_s, _ = user_call(xd, k, dev, kplus_moments=2)
+    res, main_s, used = user_call(xd, k, dev, kplus_moments=2)
+    check(res.route == "flat" and res.solver == "auction"
+          and used["auction_phase_dense"] == -(-xd.shape[0] // k) - 1
+          and torch.equal(first.labels, res.labels),
+          f"(e): {res.route} {res.solver} {used}")
+    xa = kplus_augment(xd, 2)
+    check(xa.shape[1] == 2 * d, f"(e): {xa.shape[1]} features")
+    q = quality(xa, res.labels, k)
+    gap = float(res.gap)
+    check(np.isfinite(gap) and gap >= 0.0, f"(e): gap {gap}")
+    spread = moment_spread(xd, res.labels, k, 2)
+    plain_spread = moment_spread(
+        xd, anticluster(xd, k=k, device=dev).labels, k, 2)
+    check(spread < plain_spread,
+          f"(e): moment-2 spread {spread} not below {plain_spread}")
+    digest = hashlib.sha256(res.labels.cpu().numpy().tobytes()).hexdigest()
+    log(f"(e) kplus_moments=2 on {card}: route={res.route} d={d}->{2 * d} "
+        f"{main_s:.3f} s (first call {first_s:.3f} s); auction_phase_dense "
+        f"{used['auction_phase_dense']}; sizes {q['sizes']}; ofv (augmented) "
+        f"{q['ofv']:.6e} > random {q['ofv_random']:.6e}; gap {gap:.6e}; "
+        f"moment-2 spread {spread:.6e} against {plain_spread:.6e} without "
+        f"k-plus; labels sha256 {digest[:16]}")
+    out["e"] = {"main_s": main_s, "first_s": first_s, "gap": gap, **q,
+                "launches": {"auction_phase_dense":
+                             used["auction_phase_dense"]},
+                "moment_spread": spread, "moment_spread_plain": plain_spread,
+                "labels_sha256": digest}
+    out["seconds"] = time.perf_counter() - t0
     return out
 
 
@@ -2119,6 +2583,8 @@ def main():
     masked_run = check_masked_dense(dev, args.n)
     dense_row["masked_lap"] = masked_run["masked_lap"]
     dense_row["rounds_timed"] = masked_run["rounds_timed"]
+    hier_checks = check_hierarchical_phases(dev)
+    dense_row["rounds_timed_hier"] = hier_checks["rounds_timed"]
     errs = check_entry_kernels(dev, torch.Generator().manual_seed(4))
     entry_rows = measure_entry_kernels(dev, errs)
     rows = solve_rows + [dense_row] + entry_rows
@@ -2147,12 +2613,22 @@ def main():
             r["launches_phase7"] = {
                 call: run["launches"][r["name"]]
                 for call, run in constrained_run.items()}
+    phase("phase 8: the hierarchical route at full size")
+    hier_run = hierarchical_routes(dev, smi)
+    for r in rows:
+        if r["name"] in ("auction_phase_dense", "auction_phase", "bid_top2",
+                         "gather_rows"):
+            r["launches_phase8"] = {
+                call: run["launches"].get(r["name"], 0)
+                for call, run in hier_run.items() if isinstance(run, dict)}
     phase("done")
 
     log(json.dumps({"main_path": main_run, "against_plain": plain_run,
                     "entry_point": entry_run, "default_route": default_run,
                     "masked_laps": masked_run,
-                    "constrained_routes": constrained_run}))
+                    "constrained_routes": constrained_run,
+                    "hierarchical_checks": hier_checks,
+                    "hierarchical_routes": hier_run}))
     log(smi)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

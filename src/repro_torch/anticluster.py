@@ -11,17 +11,20 @@ Counterpart of ``repro/anticluster.py``::
 ``"flat"`` (the dense core at G = 1), ``"stream"`` (the chunked core, taken
 for an int ``chunk_size`` or, with ``"auto"``, from 65536 rows on, where the
 default solver is upgraded to the matrix-free ``"auction_fused"`` unless
-categories are given: their quota mask cannot be factored) or
-``"stacked"`` (a (G, M, D) input through the dense core).  Every route
-takes ``categories`` / ``fairness`` (Section 4.3, one or several
-attributes) and ``valid_mask`` (padding rows).
+categories are given: their quota mask cannot be factored),
+``"stacked"`` (a (G, M, D) input through the dense core) or ``"hier"``
+(Section 4.4: a plan of more than one level, given as a tuple or resolved
+by ``plan="auto"`` for k > ``max_k``; the chunk and the solver upgrade
+are decided for the plan's first level).  Every route takes
+``categories`` / ``fairness`` (Section 4.3, one or several attributes);
+all but ``"hier"`` take ``valid_mask`` (padding rows).
+``kplus_moments > 1`` appends the k-plus moment features to flat
+unmasked input before any route.
 
 Not ported yet, and raising ``NotImplementedError`` with the title of the
-ROADMAP Queue 1 item that brings them: hierarchical plans, i.e. k >
-``max_k`` or a tuple plan, and ``kplus_moments > 1`` ("Hierarchical route
-and k-plus"), ``mesh`` ("Mesh route"), the ``greedy`` and ``scipy`` solvers
-("Remaining solvers"), ``telemetry`` ("Consumers") and the engine
-("Sessions and updates").
+ROADMAP Queue 1 item that brings them: ``mesh`` ("Mesh route"), the
+``greedy`` and ``scipy`` solvers ("Remaining solvers"), ``telemetry``
+("Consumers") and the engine ("Sessions and updates").
 """
 
 from __future__ import annotations
@@ -37,6 +40,8 @@ import torch
 from repro_torch._device import DTYPE, resolve_device
 from repro_torch.core.aba import aba_core, aba_stream
 from repro_torch.core.assignment import AuctionConfig, get_solver
+from repro_torch.core.hierarchical import default_plan, hierarchical_core
+from repro_torch.core.kplus import kplus_augment
 from repro_torch.core.objective import (cluster_sizes, diversity_per_cluster,
                                         dual_certificate, segment_ids)
 
@@ -105,14 +110,6 @@ class AnticlusterSpec:
             _fairness_attrs(self.fairness)  # validate shape and dtype
         if self.mesh is not None:
             _not_ported("mesh=", "Mesh route")
-        if self.kplus_moments > 1:
-            _not_ported("kplus_moments > 1",
-                        "Hierarchical route and k-plus")
-        if (isinstance(self.plan, tuple) and len(self.plan) > 1) or \
-                (self.plan == "auto" and self.k > self.max_k):
-            _not_ported(f"a hierarchical plan (k={self.k}, max_k="
-                        f"{self.max_k}, plan={self.plan!r})",
-                        "Hierarchical route and k-plus")
         if self.telemetry:
             _not_ported("telemetry=True", "Consumers")
         get_solver(self.solver)  # unknown names and unported solvers raise
@@ -130,11 +127,18 @@ class AnticlusterSpec:
         return dataclasses.replace(self, **changes)
 
     def resolve_plan(self) -> tuple[int, ...]:
-        """The plan: always flat, ``(k,)``, in the ported slice."""
-        return self.plan if isinstance(self.plan, tuple) else (self.k,)
+        """The concrete hierarchy plan this spec dispatches to: ``(k,)``
+        for ``plan=None``, the tuple as given, or ``default_plan(k,
+        max_k)`` for ``"auto"``."""
+        if self.plan is None:
+            return (self.k,)
+        if isinstance(self.plan, tuple):
+            return self.plan
+        return default_plan(self.k, max_k=self.max_k)
 
     def resolve_chunk(self, n: int, k: int) -> int | None:
-        """Concrete chunk size for ``n`` rows, or None (dense)."""
+        """Concrete chunk size for ``n`` rows of a level with ``k``
+        anticlusters, or None (dense)."""
         if self.chunk_size is None:
             return None
         if self.chunk_size == "auto":
@@ -149,8 +153,8 @@ class AnticlusterResult:
     """Labels plus the resolved route and quality statistics.
 
     The JAX result's fields (but the engine's ``updated``), as tensors on
-    the run's device, plus ``route`` (``"flat"``, ``"stream"`` or
-    ``"stacked"``).  ``dual_bound`` / ``gap``
+    the run's device, plus ``route`` (``"flat"``, ``"stream"``,
+    ``"stacked"`` or ``"hier"``).  ``dual_bound`` / ``gap``
     are the LP-dual certificate from the auction's prices
     (``spec.stats=True``); ``gap >= 0``, near zero when the assignment
     step converged.
@@ -272,46 +276,69 @@ def _resolve_spec(spec, overrides: dict) -> AnticlusterSpec:
 def _route(spec: AnticlusterSpec, shape: tuple[int, ...],
            has_categories: bool, has_valid_mask: bool):
     """Static dispatch: ``(mode, plan, solver, chunk)`` with ``mode`` in
-    ``"stacked"`` | ``"stream"`` | ``"flat"`` and ``solver`` the registry
-    name after the at-scale upgrade, which categories keep off (the quota
-    mask cannot be factored, so the plain auction stays the stratified
-    default).  The JAX signature: ``has_valid_mask`` decides only between
-    the hierarchical and mesh routes, which the spec does not admit yet."""
+    ``"stacked"`` | ``"hier"`` | ``"stream"`` | ``"flat"``, ``solver`` the
+    registry name after the at-scale upgrade, which categories keep off
+    (the quota mask cannot be factored, so the plain auction stays the
+    stratified default), and ``chunk`` the concrete row count of the
+    (first) level, or None.  The JAX function's rules and errors, without
+    the mesh."""
     if len(shape) not in (2, 3):
         raise ValueError(f"x must be (n, d) or (G, M, D), got {shape}")
     plan = spec.resolve_plan()
-    if len(shape) == 3:
-        if spec.chunk_size is not None and spec.chunk_size != "auto":
-            raise NotImplementedError(
-                "chunk_size streaming needs flat (n, d) input; stacked "
-                "(G, M, D) batches stay dense")
-        if spec.chunk_size is not None and shape[1] >= _AUTO_STREAM_MIN:
-            warnings.warn(
-                f"chunk_size streaming does not apply to stacked (G, M, D) "
-                f"input; running the dense core on {shape}", RuntimeWarning,
-                stacklevel=3)
-        return "stacked", plan, spec.solver, None
-    chunk = spec.resolve_chunk(shape[0], spec.k)
+    streamable = len(shape) == 2
+    if spec.chunk_size is not None and not streamable \
+            and spec.chunk_size != "auto":
+        raise NotImplementedError(
+            "chunk_size streaming needs flat (n, d) input; stacked "
+            "(G, M, D) batches stay dense")
+    if spec.chunk_size is not None and len(shape) == 3 \
+            and shape[1] >= _AUTO_STREAM_MIN:
+        warnings.warn(
+            f"chunk_size streaming does not apply to stacked (G, M, D) "
+            f"input; running the dense core on {shape}", RuntimeWarning,
+            stacklevel=3)
+
+    def chunk_for(n_level: int, k_level: int) -> int | None:
+        return spec.resolve_chunk(n_level, k_level) if streamable else None
+
+    n = shape[0]
     solver = spec.solver
-    if spec.chunk_size == "auto" and solver == "auction" \
-            and chunk is not None and not has_categories:
+    if spec.chunk_size == "auto" and solver == "auction" and streamable \
+            and not has_categories and chunk_for(n, plan[0]) is not None:
         # at scale the matrix-free factored auction is the default engine
         solver = "auction_fused"
+    if len(shape) == 3:
+        if len(plan) > 1:
+            raise NotImplementedError(
+                "stacked (G, M, D) input requires a flat plan "
+                f"(got plan={plan}); hierarchy nests via repeated calls")
+        return "stacked", plan, solver, None
+    if len(plan) > 1:
+        if has_valid_mask:
+            raise NotImplementedError(
+                "hierarchical plans do not support valid_mask; drop the "
+                "padding rows instead")
+        return "hier", plan, solver, chunk_for(n, plan[0])
+    chunk = chunk_for(n, spec.k)
     return ("stream" if chunk is not None else "flat"), plan, solver, chunk
 
 
-def _call_core(x, spec: AnticlusterSpec, mode: str, solver: str, chunk,
-               cats, n_categories: int, vm, codes=None, n_codes: int = 0,
-               return_state: bool = False):
+def _call_core(x, spec: AnticlusterSpec, mode: str, plan, solver: str,
+               chunk, cats, n_categories: int, vm, codes=None,
+               n_codes: int = 0, return_state: bool = False):
     """Run one cold solve on the route's core.  ``cats`` / ``codes`` /
     ``vm`` are the constraints from :func:`_resolve_constraints` and the
     valid mask, on ``x``'s device.  The state's ``"prices"`` is the
-    per-level tuple (a 1-tuple here), as in the JAX front door."""
+    per-level tuple (a 1-tuple but on the ``"hier"`` route), as in the JAX
+    front door."""
     kw = dict(variant=spec.variant, categories=cats,
               n_categories=n_categories, fair_codes=codes,
               n_fair_codes=n_codes, solver=solver,
               auction_config=spec.auction_config,
               return_state=return_state, device=x.device)
+    if mode == "hier":
+        return hierarchical_core(x, plan, batched=spec.batched,
+                                 chunk_size=chunk, **kw)
     if mode == "stacked":
         out = aba_core(x, spec.k, vm, **kw)
     elif mode == "stream":
@@ -353,7 +380,10 @@ def _result_stats(x, labels, k: int, valid_mask=None,
 
 
 def _certificate(x, labels, prices: tuple, mode: str, k: int, vm=None):
-    """(dual_bound, gap) from the carried prices, re-centred per group."""
+    """(dual_bound, gap) from the carried prices, re-centred per group.
+    A hierarchical run's last level is ``(prod(plan[:-1]), k_last)``, and
+    its global labels are ``g * k_last + sub``: the row-major reshape is
+    the global clusters' order."""
     last = prices[-1]
     last = last - last.amax(dim=-1, keepdim=True)
     return dual_certificate(x, labels,
@@ -362,7 +392,8 @@ def _certificate(x, labels, prices: tuple, mode: str, k: int, vm=None):
 
 
 def _on(a, dev, dtype) -> torch.Tensor:
-    """``a`` (array or tensor) as a tensor of ``dtype`` on ``dev``."""
+    """``a`` (array or tensor) as a tensor of ``dtype`` (None: its own) on
+    ``dev``."""
     a = a if isinstance(a, torch.Tensor) else torch.as_tensor(np.asarray(a))
     return a.to(device=dev, dtype=dtype)
 
@@ -375,19 +406,36 @@ def anticluster(x, spec: AnticlusterSpec | None = None, device=None,
     a tensor; ``spec`` an :class:`AnticlusterSpec`, with keyword
     ``overrides`` applied on top (or used alone: ``anticluster(x, k=10)``).
     ``device=None`` runs on the CUDA device and raises where there is none;
-    pass ``device="cpu"`` for the plain PyTorch path.
+    pass ``device="cpu"`` for the plain PyTorch path.  With
+    ``kplus_moments > 1`` the solve and the statistics see the k-plus
+    augmented rows (flat, unmasked input only).
     """
     spec = _resolve_spec(spec, overrides)
     dev = resolve_device(device)
-    x = _on(x, dev, spec.dtype)
+    # the caller's rows as JAX's jnp.asarray reads them (its default 32-bit
+    # mode reads float64 as float32); k-plus augments them before the cast
+    # to spec.dtype, as JAX does
+    x = _on(x, dev, None)
+    if x.dtype == torch.float64:
+        x = x.float()
+    if x.dim() not in (2, 3):
+        raise ValueError(f"x must be (n, d) or (G, M, D), got "
+                         f"{tuple(x.shape)}")
+    if spec.kplus_moments > 1:
+        if x.dim() != 2 or spec.valid_mask is not None:
+            raise NotImplementedError(
+                "kplus_moments needs flat unmasked (n, d) input (the moment "
+                "statistics are computed over the row axis)")
+        x = kplus_augment(x, spec.kplus_moments)
+    x = x.to(spec.dtype)
     cats, n_categories, codes, n_codes = _resolve_constraints(spec)
     cats, codes = (None if t is None else t.to(dev) for t in (cats, codes))
     vm = (None if spec.valid_mask is None
           else _on(spec.valid_mask, dev, torch.bool))
     mode, plan, solver, chunk = _route(spec, tuple(x.shape),
                                        cats is not None, vm is not None)
-    out = _call_core(x, spec, mode, solver, chunk, cats, n_categories, vm,
-                     codes, n_codes, return_state=spec.stats)
+    out = _call_core(x, spec, mode, plan, solver, chunk, cats, n_categories,
+                     vm, codes, n_codes, return_state=spec.stats)
     labels, st = out if spec.stats else (out, None)
     xf = x.to(DTYPE)
     sizes, sd, rng = _result_stats(xf, labels, spec.k, vm,

@@ -194,10 +194,9 @@ def _solve_factored(x, c, is_real, config: AuctionConfig, prices=None):
                 x.new_zeros((G, 1)) if prices is None else prices.to(DTYPE))
     # Span for the eps schedule: the max of the cost is bid_top2 at zero
     # prices, its min the max of the negated values (x -> -x, p = 2||c||^2);
-    # the two bids are one launch on the card.  ||c||^2 is summed group by
-    # group so that it does not depend on G.
-    cn = torch.stack([(cg * cg).sum(dim=-1) for cg in c])
-    (hi_v1, _, _), (lo_v1, _, _) = ops.bid_top2_span(x, c, 2.0 * cn)
+    # the two bids are one launch on the card at any G, which forms
+    # ||c||^2 itself in an order that does not depend on G.
+    (hi_v1, _, _), (lo_v1, _, _) = ops.bid_top2_span(x, c)
     if is_real is None:
         hi = hi_v1.amax(dim=1)
         lo = -lo_v1.amax(dim=1)

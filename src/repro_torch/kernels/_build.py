@@ -53,7 +53,7 @@ _SYMBOLS = {
 # instantiations are for measurement only and count as launches of
 # "auction_phase" / "auction_phase_dense".
 _MORE_SYMBOLS = {
-    "bid_top2_span_f32": _SYMBOLS["bid_top2"][1],
+    "bid_top2_span_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "auction_phase_timed_f32": (_P,) * 14 + (_I,) * 5 + (_P, _I, _I, _P),
     "auction_phase_dense_timed_f32": (_P,) * 12 + (_I,) * 5 + (_P, _I, _I,
                                                                _P),

@@ -32,36 +32,42 @@ def bid_top2(x: torch.Tensor, c: torch.Tensor, prices: torch.Tensor):
     return (v1[0, 0], j1[0, 0], v2[0, 0]) if squeeze else (v1[0], j1[0], v2[0])
 
 
-def bid_top2_span(x: torch.Tensor, c: torch.Tensor, prices: torch.Tensor):
-    """``(bid_top2(x, c, 0), bid_top2(-x, c, prices))`` on a (G, m, d),
-    (G, k, d), (G, k) stack: the two bids behind the factored auction's
-    span.  On the card one launch (grid axis z is the pair, the rows of the
-    second negated as they are loaded), bitwise the two calls."""
+def bid_top2_span(x: torch.Tensor, c: torch.Tensor):
+    """``(bid_top2(x, c, 0), bid_top2(-x, c, 2 ||c||^2))`` on a (G, m, d),
+    (G, k, d) stack: the two bids behind the factored auction's span.  On
+    the card one launch (grid axis z is the pair, the rows of the second
+    negated as they are loaded, its bias the launch's own -||c||^2),
+    bitwise the two calls at those prices."""
     if not x.is_cuda:
-        return bid_top2_span_ref(x, c, prices)
-    v1, j1, v2 = _launch("bid_top2_span_f32", 2, x, c, prices)
+        return bid_top2_span_ref(x, c)
+    v1, j1, v2 = _launch("bid_top2_span_f32", 2, x, c, None)
     return (v1[0], j1[0], v2[0]), (v1[1], j1[1], v2[1])
 
 
 def _launch(symbol, slots, x, c, prices):
     """(slots, G, m) v1, j1, v2 of the kernel's entry ``symbol`` on a
-    (G, m, d), (G, k, d), (G, k) stack."""
-    if x.dim() != 3 or c.dim() != 3 or prices.dim() != 2:
+    (G, m, d), (G, k, d), (G, k) stack (``prices`` None: the span, which
+    forms its own)."""
+    shape = () if prices is None else tuple(prices.shape)
+    if x.dim() != 3 or c.dim() != 3 or len(shape) not in (0, 2):
         raise ValueError(f"bid_top2 takes (m, d), (k, d), (k,) or a (G, ...) "
                          f"stack; got {tuple(x.shape)}, {tuple(c.shape)}, "
-                         f"{tuple(prices.shape)}")
+                         f"{shape}")
     G, m, d = x.shape
     k = c.shape[1]
-    if c.shape != (G, k, d) or prices.shape != (G, k) or k < 1 or d < 1:
+    if c.shape != (G, k, d) or shape not in ((), (G, k)) or k < 1 or d < 1:
         raise ValueError(f"bid_top2 shapes disagree: x {tuple(x.shape)}, "
-                         f"c {tuple(c.shape)}, prices {tuple(prices.shape)}")
+                         f"c {tuple(c.shape)}, prices {shape}")
     if G > 65535:
         raise ValueError(f"bid_top2 takes at most 65535 groups, got {G}")
-    stream = _build.check_operands("bid_top2", x=x, c=c, prices=prices)
+    operands = dict(x=x, c=c) if prices is None else dict(x=x, c=c,
+                                                          prices=prices)
+    stream = _build.check_operands("bid_top2", **operands)
     v1, j1, v2 = top2_outputs((slots, G, m), x.device)
-    _build.launch("bid_top2", x.data_ptr(), c.data_ptr(), prices.data_ptr(),
-                  v1.data_ptr(), j1.data_ptr(), v2.data_ptr(), G, m, k, d,
-                  stream, symbol=symbol)
+    p = () if prices is None else (prices.data_ptr(),)
+    _build.launch("bid_top2", x.data_ptr(), c.data_ptr(), *p, v1.data_ptr(),
+                  j1.data_ptr(), v2.data_ptr(), G, m, k, d, stream,
+                  symbol=symbol)
     return v1, j1, v2
 
 

@@ -33,7 +33,11 @@
 //   * The stacked (G, m, d) x (G, k, d) form is grid axis y, so a group's
 //     result never depends on G; grid axis z is the slot of the span's pair
 //     (`bid_top2_span_f32`): slot 1 bids with -x (negated as it is staged,
-//     which is exact) at its own prices, slot 0 with x at zero prices.
+//     which is exact) at prices 2 ||c_j||^2, slot 0 with x at zero prices.
+//     Slot 1 bids with the bias -||c_j||^2 of its own chain, which is
+//     ||c_j||^2 - 2 ||c_j||^2 exactly, so the span takes one launch at any
+//     G, reads no prices, and a group's span (and with it the LAP's eps
+//     schedule) does not depend on G.
 //   * The bits do not depend on the tile, the pass or the slot: every value
 //     is bid::value of the sequential fmaf chain of x_i . c_j from 0 over d
 //     in order and of ||c_j||^2 (the same chain) less p_j; a lane pushes its
@@ -54,18 +58,18 @@ extern "C" int bid_top2_f32(const float* x, const float* c, const float* p,
                             float* v1, int64_t* j1, float* v2, int G, int m,
                             int k, int d, void* stream) {
   return static_cast<int>(bid::launch<void>(
-      x, nullptr, 0, c, p, nullptr, v1, j1, v2, 1, G, m, k, d,
+      x, nullptr, 0, c, p, v1, j1, v2, 1, G, m, k, d,
       static_cast<cudaStream_t>(stream)));
 }
 
 // The span of the factored auction in one launch: bid_top2(x, c, 0) into
-// slot 0 and bid_top2(-x, c, p) into slot 1 of v1, v2 (2, G, m) float32 and
-// j1 (2, G, m) int64; bitwise the two separate calls.
-extern "C" int bid_top2_span_f32(const float* x, const float* c,
-                                 const float* p, float* v1, int64_t* j1,
-                                 float* v2, int G, int m, int k, int d,
-                                 void* stream) {
+// slot 0 and bid_top2(-x, c, 2 ||c||^2) into slot 1 of v1, v2 (2, G, m)
+// float32 and j1 (2, G, m) int64, ||c_j||^2 the launch's own (the fmaf
+// chain of every value); bitwise the two separate calls at those prices.
+extern "C" int bid_top2_span_f32(const float* x, const float* c, float* v1,
+                                 int64_t* j1, float* v2, int G, int m, int k,
+                                 int d, void* stream) {
   return static_cast<int>(bid::launch<void>(
-      x, nullptr, 0, c, nullptr, p, v1, j1, v2, 2, G, m, k, d,
+      x, nullptr, 0, c, nullptr, v1, j1, v2, 2, G, m, k, d,
       static_cast<cudaStream_t>(stream)));
 }

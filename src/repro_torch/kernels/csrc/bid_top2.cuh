@@ -162,8 +162,9 @@ __device__ __forceinline__ void accumulate(const float* xf, const float (&cv)[CW
 
 // x: the rows (G, m, d) in place, or the (n, d) table read through idx
 // (G == 1); c (G, k, d).  blockIdx.z is the slot: slot 0 bids with x at
-// prices p0, slot 1 with -x at prices p1 (the span's pair); a null price
-// pointer means zero prices.  v1, j1, v2 are (slots, G, m).
+// prices p (a null pointer means zero prices), slot 1 (the span's pair)
+// with -x at prices 2 ||c_j||^2: its bias is -cn, which equals cn - 2 cn
+// exactly.  v1, j1, v2 are (slots, G, m).
 //
 // The tile of c is cs[j * ldc + f] (column j, feature f) and of x
 // xs[f * kRows + r].  `whole`: the CTA's whole k x d block of c arrives in
@@ -174,8 +175,7 @@ template <typename S, typename Idx>
 __global__ void __launch_bounds__(kThreads)
 bid_top2_kernel(const float* __restrict__ x, const Idx* __restrict__ idx,
                 int64_t n, const float* __restrict__ c,
-                const float* __restrict__ p0, const float* __restrict__ p1,
-                float* __restrict__ v1_out, int64_t* __restrict__ j1_out,
+                const float* __restrict__ p, float* __restrict__ v1_out, int64_t* __restrict__ j1_out,
                 float* __restrict__ v2_out, int G, int m, int k, int d,
                 int dtile, int ldc, int whole) {
   constexpr int RW = S::RW, CW = S::CW, WC = S::WC, kRows = S::kRows;
@@ -194,8 +194,7 @@ bid_top2_kernel(const float* __restrict__ x, const Idx* __restrict__ idx,
   const int lane = threadIdx.x & 31;
   const int wr = warp / WC, wc = warp % WC;
   const float* cg = c + static_cast<size_t>(g) * k * d;
-  const float* pg = slot ? p1 : p0;
-  if (pg != nullptr) pg += static_cast<size_t>(g) * k;
+  const float* pg = p == nullptr ? nullptr : p + static_cast<size_t>(g) * k;
   const bool neg = slot != 0;  // -x is exact, so the bits are -x's
 
   Top2 best[RW];
@@ -268,7 +267,7 @@ bid_top2_kernel(const float* __restrict__ x, const Idx* __restrict__ idx,
     for (int t = 0; t < CW; ++t) {
       const int col = k0 + wc * 32 * CW + lane + 32 * t;
       if (col < k) {
-        const float b = cn[t] - (pg != nullptr ? pg[col] : 0.f);
+        const float b = neg ? -cn[t] : cn[t] - (pg != nullptr ? pg[col] : 0.f);
 #pragma unroll
         for (int r = 0; r < RW; ++r) push(best[r], value(acc[r][t], b), col);
       }
@@ -323,8 +322,7 @@ bid_top2_kernel(const float* __restrict__ x, const Idx* __restrict__ idx,
 
 template <typename S, typename Idx>
 cudaError_t launch_shape(const float* x, const Idx* idx, int64_t n,
-                         const float* c, const float* p0, const float* p1,
-                         float* v1, int64_t* j1, float* v2, int slots, int G,
+                         const float* c, const float* p, float* v1, int64_t* j1, float* v2, int slots, int G,
                          int m, int k, int d, cudaStream_t stream) {
   const size_t cbytes = static_cast<size_t>(k) * d * 4;
   const size_t xbytes = static_cast<size_t>(S::kRows) * d * 4;
@@ -342,24 +340,24 @@ cudaError_t launch_shape(const float* x, const Idx* idx, int64_t n,
   }
   const dim3 grid((m + S::kRows - 1) / S::kRows, G, slots);
   bid_top2_kernel<S, Idx><<<grid, kThreads, smem, stream>>>(
-      x, idx, n, c, p0, p1, v1, j1, v2, G, m, k, d, dtile, ldc, whole);
+      x, idx, n, c, p, v1, j1, v2, G, m, k, d, dtile, ldc, whole);
   return cudaGetLastError();
 }
 
-// slots == 1: bid_top2(x, c, p0).  slots == 2: the span's pair, bid_top2(x,
-// c, p0) and bid_top2(-x, c, p1) in one launch.  The tile is the narrow one
+// slots == 1: bid_top2(x, c, p).  slots == 2: the span's pair, bid_top2(x,
+// c, p) and bid_top2(-x, c, 2 ||c||^2) in one launch.  The tile is the narrow one
 // while it takes at most kNarrowMaxCtas CTAs, else the wide one; a row's
 // bits do not depend on the tile.
 template <typename Idx>
 cudaError_t launch(const float* x, const Idx* idx, int64_t n, const float* c,
-                   const float* p0, const float* p1, float* v1, int64_t* j1,
-                   float* v2, int slots, int G, int m, int k, int d,
+                   const float* p, float* v1, int64_t* j1, float* v2,
+                   int slots, int G, int m, int k, int d,
                    cudaStream_t stream) {
   if (G <= 0 || m <= 0 || slots <= 0) return cudaSuccess;
   const int64_t narrow = static_cast<int64_t>((m + Narrow::kRows - 1) / Narrow::kRows) * G * slots;
   return narrow <= kNarrowMaxCtas
-      ? launch_shape<Narrow>(x, idx, n, c, p0, p1, v1, j1, v2, slots, G, m, k, d, stream)
-      : launch_shape<Wide>(x, idx, n, c, p0, p1, v1, j1, v2, slots, G, m, k, d, stream);
+      ? launch_shape<Narrow>(x, idx, n, c, p, v1, j1, v2, slots, G, m, k, d, stream)
+      : launch_shape<Wide>(x, idx, n, c, p, v1, j1, v2, slots, G, m, k, d, stream);
 }
 
 }  // namespace bid

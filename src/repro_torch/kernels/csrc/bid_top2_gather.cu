@@ -36,9 +36,9 @@ extern "C" int bid_top2_gather_f32(const float* x, const void* idx,
                                    void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err = idx_is_64
-      ? bid::launch(x, static_cast<const int64_t*>(idx), n, c, p, nullptr, v1,
+      ? bid::launch(x, static_cast<const int64_t*>(idx), n, c, p, v1,
                     j1, v2, 1, 1, m, k, d, s)
-      : bid::launch(x, static_cast<const int32_t*>(idx), n, c, p, nullptr, v1,
+      : bid::launch(x, static_cast<const int32_t*>(idx), n, c, p, v1,
                     j1, v2, 1, 1, m, k, d, s);
   return static_cast<int>(err);
 }

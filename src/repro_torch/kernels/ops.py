@@ -8,7 +8,7 @@ run the whole path against the plain versions, the counterpart of JAX's
 ``force=``.
 
 ``bid_top2_span`` is the factored auction's two span bids (x at zero
-prices, -x at the given ones) in one launch.  ``auction_phase`` runs one
+prices, -x at ``2 ||c||^2``) in one launch.  ``auction_phase`` runs one
 epsilon phase of the factored values (the ``"auction_fused"`` solver, which
 the stream route runs), ``auction_phase_dense`` every phase of a LAP's
 schedule on an explicit cost stack (the ``"auction"`` solver, which the
@@ -123,13 +123,13 @@ def bid_top2(x: torch.Tensor, c: torch.Tensor, prices: torch.Tensor, *,
     return _bid_top2(x, c, prices)
 
 
-def bid_top2_span(x: torch.Tensor, c: torch.Tensor, prices: torch.Tensor):
-    """``(bid_top2(x, c, 0), bid_top2(-x, c, prices))`` on a stacked
-    ``(G, m, d) x (G, k, d)`` with ``(G, k)`` prices: one launch on the
-    card, the two plain calls on the plain path."""
+def bid_top2_span(x: torch.Tensor, c: torch.Tensor):
+    """``(bid_top2(x, c, 0), bid_top2(-x, c, 2 ||c||^2))`` on a stacked
+    ``(G, m, d) x (G, k, d)``: one launch on the card at any G, the two
+    plain calls on the plain path."""
     if resolve_path(x) == "ref":
-        return bid_top2_span_ref(x, c, prices)
-    return _bid_top2_span(x, c, prices)
+        return bid_top2_span_ref(x, c)
+    return _bid_top2_span(x, c)
 
 
 def auction_phase(x: torch.Tensor, c: torch.Tensor, is_real, prices, eps,

@@ -98,11 +98,18 @@ def bid_top2_ref(x: torch.Tensor, c: torch.Tensor, prices: torch.Tensor):
     return top2(vals)
 
 
-def bid_top2_span_ref(x: torch.Tensor, c: torch.Tensor, prices: torch.Tensor):
+def bid_top2_span_ref(x: torch.Tensor, c: torch.Tensor):
     """The factored auction's span bids: ``bid_top2_ref(x, c, 0)`` and
-    ``bid_top2_ref(-x, c, prices)``, two calls."""
-    return (bid_top2_ref(x, c, torch.zeros_like(prices)),
-            bid_top2_ref(-x, c, prices))
+    ``bid_top2_ref(-x, c, 2 ||c||^2)``, two calls, group by group on a
+    stack, so that a group's norms (and bits) do not depend on G."""
+    if x.dim() == 3:
+        outs = [bid_top2_span_ref(x[g], c[g]) for g in range(x.shape[0])]
+        return tuple(tuple(torch.stack(t) for t in zip(*slot))
+                     for slot in zip(*outs))
+    c = c.float()
+    pn = 2.0 * (c * c).sum(dim=1)
+    return (bid_top2_ref(x, c, torch.zeros_like(pn)),
+            bid_top2_ref(-x, c, pn))
 
 
 def gather_rows_ref(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

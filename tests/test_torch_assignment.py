@@ -181,9 +181,10 @@ def test_fixed_rounds_past_convergence_equals_the_loop():
     assert torch.equal(loop[0], fixed[0]) and torch.equal(loop[1], fixed[1])
 
 
-def _two_call_span(x, c, prices):
-    """The span as the factored solve formed it before the paired launch:
-    two ``ops.bid_top2`` calls, at zero prices and with ``-x``."""
+def _two_call_span(x, c):
+    """The span as two ``ops.bid_top2`` calls: at zero prices, and with
+    ``-x`` at ``2 ||c||^2``, summed group by group."""
+    prices = torch.stack([2.0 * (cg * cg).sum(dim=-1) for cg in c])
     return (ops.bid_top2(x, c, x.new_zeros(prices.shape)),
             ops.bid_top2(-x, c, prices))
 
@@ -195,12 +196,33 @@ def test_span_pair_equals_two_calls_bitwise(G, n, d):
     j1 and v2 of both slots."""
     x, c, _ = _factored_instance(300 + G * n + d, G, n, d)
     x, c = torch.from_numpy(x), torch.from_numpy(c)
-    prices = 2.0 * (c * c).sum(dim=-1)
-    want = _two_call_span(x, c, prices)
+    want = _two_call_span(x, c)
     for span in (ops.bid_top2_span, bid_top2_span):
-        for got_slot, want_slot in zip(span(x, c, prices), want):
+        for got_slot, want_slot in zip(span(x, c), want):
             for g, w in zip(got_slot, want_slot):
                 assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("G,k,d", [(1, 18, 5), (64, 64, 32), (7, 3, 1)])
+def test_span_group_does_not_depend_on_G(G, k, d):
+    """A group's span bids on a stack are bitwise the same group's alone
+    (the factored LAP's eps schedule must not depend on G, ROADMAP P3),
+    and slot 1 bids at ``2 ||c||^2``: its values are ``2 x.c - ||c||^2``."""
+    rng = np.random.default_rng(G * k + d)
+    x = torch.from_numpy(rng.normal(size=(G, k, d)).astype(np.float32))
+    c = torch.from_numpy(rng.normal(size=(G, k, d)).astype(np.float32) * 3)
+    pair = ops.bid_top2_span(x, c)
+    for g in range(G):
+        alone = ops.bid_top2_span(x[g:g + 1], c[g:g + 1])
+        for got_slot, want_slot in zip(pair, alone):
+            for t, w in zip(got_slot, want_slot):
+                assert torch.equal(t[g], w[0])
+    vals = 2.0 * torch.einsum("gid,gjd->gij", x, c) \
+        - (c * c).sum(dim=-1)[:, None, :]
+    v1, j1, _ = pair[1]
+    torch.testing.assert_close(v1, vals.amax(dim=-1), rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(vals.gather(-1, j1[..., None])[..., 0], v1,
+                               rtol=1e-5, atol=1e-4)
 
 
 @pytest.mark.parametrize("seed", range(12))

@@ -102,14 +102,15 @@ def test_cuda_bid_top2_uneven_tiles(cuda, G, m, k, d):
 def test_cuda_bid_top2_span_equals_two_calls(cuda, G, n, d, dummies):
     """The span's pair in one launch is bitwise the two separate calls,
     bid_top2(x, c, 0) and bid_top2(-x, c, 2 ||c||^2), also with zero
-    (dummy) rows."""
+    (dummy) rows.  c is integer-valued, so that ||c||^2 is exact in any
+    order and the prices given to the second call are the launch's own."""
     gen = torch.Generator().manual_seed(G * n + d)
     x = torch.randn((G, n, d), generator=gen).to(cuda)
-    c = torch.randn((G, n, d), generator=gen).to(cuda)
+    c = torch.randint(-4, 5, (G, n, d), generator=gen).float().to(cuda)
     if dummies:
         x[:, n - dummies:] = 0.0
-    prices = 2.0 * torch.stack([(cg * cg).sum(dim=-1) for cg in c])
-    pair = _counted("bid_top2", cuda_bid_top2_span, x, c, prices)
+    prices = 2.0 * (c * c).sum(dim=-1)
+    pair = _counted("bid_top2", cuda_bid_top2_span, x, c)
     want = (cuda_bid_top2(x, c, torch.zeros_like(prices)),
             cuda_bid_top2(-x, c, prices))
     for got_slot, want_slot in zip(pair, want):
@@ -835,3 +836,58 @@ def test_cuda_auction_phase_dense_timed(cuda, threshold):
     assert 0 < int(trace[:, 6].sum()) < int(trace[:, 0].sum())
     if threshold >= 0:
         assert torch.equal(trace[:, 2] == 1, trace[:, 0] <= threshold)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [{}, {"chunk_size": 512},
+                                {"categories": "class"},
+                                {"solver": "auction_fused"}],
+                         ids=["dense", "chunk", "categories", "fused"])
+def test_cuda_hierarchical_route_equals_forced_plain_path(cuda, kw):
+    """The hierarchical route (plan (8, 16)) runs every LAP of both levels
+    through the phase kernels, one launch a LAP with the dense solver and
+    one span and four phases a LAP with the factored one, at G = 1 and at
+    G = 8 alike, and no round of the Python loop; with the dense solver
+    its labels are bitwise those of the forced plain path."""
+    n, plan = 4096, (8, 16)
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.normal(size=(n, 6)).astype(np.float32)).to(cuda)
+    if kw.get("categories"):
+        kw = {"categories": rng.integers(0, 3, size=n).astype(np.int32)}
+    res, used, plain = _constrained_run(x, cuda, k=128, plan=plan, **kw)
+    laps = n // 8 - 1 + n // 128 - 1
+    assert res.route == "hier" and res.plan == plan and plain == 0
+    assert res.balanced
+    if kw.get("solver") == "auction_fused":
+        assert used["bid_top2"] == laps and used["auction_phase"] == 4 * laps
+        return
+    assert used["auction_phase_dense"] == laps
+    with ops.forced_path("ref"):
+        ref_res, ref_used, ref_plain = _constrained_run(x, cuda, k=128,
+                                                        plan=plan, **kw)
+    assert not any(ref_used.values()) and ref_plain > 0
+    assert torch.equal(res.labels, ref_res.labels)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [1, 64])
+def test_cuda_span_group_does_not_depend_on_G(cuda, G):
+    """At the hierarchical route's span shapes (m = k = 64, d = 32): each
+    group of the stacked launch is bitwise the same group launched alone,
+    and both slots agree with the plain pair on the card to bid_top2's
+    tolerance, the argmax equal where the top-2 gap is clear."""
+    gen = torch.Generator().manual_seed(G)
+    x = torch.randn((G, 64, 32), generator=gen).to(cuda)
+    c = (torch.randn((G, 64, 32), generator=gen) * 3).to(cuda)
+    pair = _counted("bid_top2", cuda_bid_top2_span, x, c)
+    for g in range(G):
+        alone = cuda_bid_top2_span(x[g:g + 1], c[g:g + 1])
+        for got_slot, want_slot in zip(pair, alone):
+            for t, w in zip(got_slot, want_slot):
+                assert torch.equal(t[g], w[0])
+    for (v1, j1, v2), (w1, wj, w2) in zip(pair, ref.bid_top2_span_ref(x, c)):
+        scale = w1.abs().max()
+        tol = 1e-4 * scale + 1e-5 * torch.maximum(w1.abs(), w2.abs())
+        assert ((v1 - w1).abs() <= tol).all() and ((v2 - w2).abs() <= tol).all()
+        clear = (w1 - w2) > 1e-4 * scale
+        assert torch.equal(j1[clear], wj[clear])
