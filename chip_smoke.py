@@ -100,6 +100,24 @@ git-ignored ``build/``), then runs these phases, one or more lines each:
    profiled whole (each kernel's device time, the idle share); then (e)
    ``kplus_moments=2`` on phase 3's rows at k = 256, its moment-2 spread
    below the same call's without k-plus;
+9. sessions at full size on phase 3's rows at k = 256
+   (``AnticlusterEngine``, ``repro_torch.incremental``): (a) the default
+   spec's engine, ``partition`` (labels bitwise phase 6's) and three warm
+   ``repartition`` calls, each with its rounds, launches and the phases
+   its LAPs sat out, exact balance and the objective within 1 % of the
+   cold call's, then a window of 20 warm LAPs profiled (no host read or
+   wait in a LAP); (b) the same with ``chunk_size="auto"`` (the stream
+   route, labels bitwise phase 3's); (c) ``update`` of (a)'s session with
+   1 % of the rows out and as many in: one ``auction_phase_dense`` launch
+   on the (B, 256, 256) delta stack, exact balance, the kept rows' labels
+   kept, the objective within 1e-3 of a warm full repartition of the
+   post-delta rows, equal labels on a second run, an over-threshold
+   delta's fallback bitwise that repartition; (d) ``dispatch_repartition``
+   on (a)'s session, ``wait()`` bitwise ``repartition``, with the host
+   time it frees; (e) a warm repartition and an update at n = 16 384 on
+   the flat route and ``plan=(8, 16)``, labels bitwise the forced plain
+   path's; (f) the ``greedy`` and ``scipy`` solvers on the main data's
+   first LAP beside the auction;
 
 then one JSON line describing every kernel, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises, exits non-zero and
@@ -127,6 +145,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -134,7 +153,8 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from repro_torch.anticluster import anticluster  # noqa: E402
+from repro_torch import incremental  # noqa: E402
+from repro_torch.anticluster import AnticlusterEngine, anticluster  # noqa: E402
 from repro_torch.core import assignment as asg  # noqa: E402
 from repro_torch.core.aba import (_MASK_COST, _centrality,  # noqa: E402
                                   aba_core, aba_stream)
@@ -1415,8 +1435,9 @@ class LapWindow:
                     if key.startswith(HOST_COPIES))}
 
 
-def call_kernel_ms(x, k, dev, kernel: str, **kw) -> dict:
-    """One whole call under the profiler, device activity only: the device
+def call_kernel_ms(x, k, dev, kernel: str, call=None, **kw) -> dict:
+    """One whole call (``anticluster(x, k=k, **kw)``, or ``call()``) under
+    the profiler, device activity only: the device
     time and launches of ``kernel``, of every kernel and copy, and of the
     ten largest by name, summed over the call (the wall time is the
     profiler's, not a measurement).  Summed from the profiler's raw
@@ -1426,7 +1447,10 @@ def call_kernel_ms(x, k, dev, kernel: str, **kw) -> dict:
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        anticluster(x, k=k, device=dev, **kw)
+        if call is None:
+            anticluster(x, k=k, device=dev, **kw)
+        else:
+            call()
         torch.cuda.synchronize()
     by_name = {}
     for e in prof.profiler.kineto_results.events():
@@ -1443,8 +1467,10 @@ def call_kernel_ms(x, k, dev, kernel: str, **kw) -> dict:
                         for key, (ms, c) in ranked[:10]}}
 
 
-def lap_window(x, k, dev, solver, field, laps, what, **kw) -> dict:
-    """One call with a window of WINDOW_LAPS LAPs (fewer on a short call)
+def lap_window(x, k, dev, solver, field, laps, what, call=None,
+               **kw) -> dict:
+    """One call (``anticluster(x, k=k, **kw)``, or ``call()``) with a
+    window of WINDOW_LAPS LAPs (fewer on a short call)
     in its middle under the profiler (:class:`LapWindow`); logs and returns
     the window's split, and fails if the profiler saw no phase kernel, or
     if a LAP read back from the card, uploaded to it or waited for it: a
@@ -1454,7 +1480,10 @@ def lap_window(x, k, dev, solver, field, laps, what, **kw) -> dict:
     the host) wait for nothing and are logged."""
     count = min(WINDOW_LAPS, laps // 2)
     with LapWindow(solver, field, laps // 2 - count // 2, count) as window:
-        anticluster(x, k=k, device=dev, **kw)
+        if call is None:
+            anticluster(x, k=k, device=dev, **kw)
+        else:
+            call()
     split = window.split("auction_phase_kernel")
     waits = {key: v for key, v in split["host_reads_per_lap"].items()
              if key != "cudaMemcpyAsync"}
@@ -2223,6 +2252,401 @@ def hierarchical_routes(dev, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 9: sessions at full size
+# ---------------------------------------------------------------------------
+
+SESSION_EPOCHS = 3      # warm repartitions of each session
+DELTA_SHARE = 0.01      # the update's delta: rows removed, as many added
+DELTA_SEED = 9          # which rows leave
+DEFAULT_DIGEST = "65b9e33e025c4278"  # the default route's labels, runs 61-87
+PLAIN_SESSION_N = 16384  # (e): warm solves and updates against the plain path
+HOST_WORK = (24, 1024)   # (d): float64 matmuls of this order, the host work
+
+
+class SkipCounter:
+    """Within the block the phases that each LAP sits out (the ``skip``
+    the warm schedule hands the phase kernels) are summed on the card, by
+    phase: no read to the host in a LAP, one small reduction a LAP.
+    ``laps`` counts the dense launches, ``phases`` the factored ones."""
+
+    def __init__(self, n_phases: int = 4):
+        self.n_phases = n_phases
+        self.dense = self.factored = None
+        self.laps = self.phases = 0
+
+    def __enter__(self):
+        self.inner = (ops.auction_phase_dense, ops.auction_phase)
+        dense_fn, factored_fn = self.inner
+
+        def dense(cost, prices, eps, *args, skip=None, **kw):
+            self.laps += 1
+            if skip is not None:
+                s = skip.sum(dim=1)
+                self.dense = s if self.dense is None else self.dense + s
+            return dense_fn(cost, prices, eps, *args, skip=skip, **kw)
+
+        def factored(x, c, is_real, prices, eps, *args, skip=None, **kw):
+            p = self.phases % self.n_phases
+            self.phases += 1
+            if skip is not None:
+                if self.factored is None:
+                    self.factored = torch.zeros(self.n_phases,
+                                                dtype=torch.int64,
+                                                device=x.device)
+                self.factored[p] += skip.sum()
+            return factored_fn(x, c, is_real, prices, eps, *args, skip=skip,
+                               **kw)
+
+        ops.auction_phase_dense, ops.auction_phase = dense, factored
+        return self
+
+    def __exit__(self, *exc):
+        ops.auction_phase_dense, ops.auction_phase = self.inner
+
+    def skipped(self) -> list:
+        """Instances that sat out each phase, summed over the LAPs."""
+        t = self.dense if self.dense is not None else self.factored
+        return [0] * self.n_phases if t is None else t.tolist()
+
+
+def session_call(fn, *args, **kw):
+    """``fn(*args, **kw)`` synchronized: (its output, seconds, counts read
+    just after, zeroed just before)."""
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, counts()
+
+
+def balanced(labels, k: int) -> tuple[int, int]:
+    """The sizes' (min, max), checked to be exact balance."""
+    sizes = torch.bincount(labels.long(), minlength=k).cpu().numpy()
+    n = int(sizes.sum())
+    check(sizes.min() == n // k and sizes.max() == -(-n // k),
+          f"unbalanced sizes {sizes.min()}..{sizes.max()}")
+    return int(sizes.min()), int(sizes.max())
+
+
+def digest_of(labels) -> str:
+    return hashlib.sha256(labels.cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def warm_session(x, k, dev, card, name, expect, kernel, solver, field,
+                 **kw):
+    """One engine's cold ``partition`` and SESSION_EPOCHS warm
+    ``repartition`` calls on the same rows, each timed with its counters
+    and its skipped phases; the warm objective within 1 % of the cold
+    one, balance exact; then a window of LAPs of one more warm call
+    profiled (no host read or wait in a LAP).  Returns (the run, the
+    engine, the states: the partition's and each epoch's)."""
+    eng = AnticlusterEngine(k=k, device=dev, **kw)
+    n = x.shape[0]
+    laps = -(-n // k) - 1
+    (res, state), cold_s, cold_used = session_call(eng.partition, x)
+    check((res.route, res.solver) == expect,
+          f"({name}) route {res.route}/{res.solver}, expected {expect}")
+    check(cold_used[kernel] > 0 and cold_used["plain_rounds"] == 0,
+          f"({name}) partition launches {cold_used}")
+    balanced(res.labels, k)
+    ofv_cold = float(objective_centroid(x, res.labels, k))
+    run = {"route": res.route, "solver": res.solver, "cold_s": cold_s,
+           "cold_rounds": cold_used["rounds"], "ofv_cold": ofv_cold,
+           "cold_sha256": digest_of(res.labels), "epochs": [],
+           "launches": {"partition": cold_used}}
+    log(f"({name}) partition on {card}: route={res.route} "
+        f"solver={res.solver} {cold_s:.3f} s, {cold_used['rounds']} rounds "
+        f"({cold_used['rounds'] / n:.2f} per row), {kernel} "
+        f"{cold_used[kernel]}, ofv {ofv_cold:.6e}, labels sha256 "
+        f"{run['cold_sha256']}")
+    states, results = [state], [res]
+    for e in range(SESSION_EPOCHS):
+        with SkipCounter() as skips:
+            (res, state), warm_s, used = session_call(eng.repartition, x,
+                                                      state)
+        check(used[kernel] > 0 and used["plain_rounds"] == 0,
+              f"({name}) warm launches {used}")
+        sizes = balanced(res.labels, k)
+        ofv = float(objective_centroid(x, res.labels, k))
+        check(abs(ofv - ofv_cold) <= 0.01 * ofv_cold,
+              f"({name}) warm objective {ofv} not within 1 % of the cold "
+              f"{ofv_cold}")
+        skipped = skips.skipped()
+        epoch = {"seconds": warm_s, "rounds": used["rounds"],
+                 "rounds_per_row": used["rounds"] / n,
+                 "launches": {key: used[key] for key in _build.launches},
+                 "skipped_by_phase": skipped,
+                 "skipped_per_lap": sum(skipped) / laps, "sizes": sizes,
+                 "ofv": ofv, "ofv_rel_cold": (ofv - ofv_cold) / ofv_cold,
+                 "gap": float(res.gap), "sha256": digest_of(res.labels)}
+        run["epochs"].append(epoch)
+        states.append(state)
+        results.append(res)
+        log(f"  ({name}) warm repartition {e + 1}: {warm_s:.3f} s, "
+            f"{used['rounds']} rounds ({epoch['rounds_per_row']:.3f} per "
+            f"row), {kernel} {used[kernel]}, bid_top2 {used['bid_top2']}, "
+            f"phases sat out by phase {skipped} "
+            f"({epoch['skipped_per_lap']:.3f} a LAP), sizes "
+            f"{sizes[0]}..{sizes[1]}, ofv {ofv:.6e} "
+            f"({epoch['ofv_rel_cold']:+.2e} against the cold call), gap "
+            f"{epoch['gap']:.6e}")
+    check(eng.compile_count == 1,
+          f"({name}) {eng.compile_count} solve closures for one shape")
+    run["window"] = lap_window(
+        x, k, dev, solver, field, laps, f"({name}) a warm repartition",
+        call=lambda: eng.repartition(x, states[-1]))
+    return run, eng, states, results
+
+
+def session_against_plain(x, dev, kw) -> dict:
+    """(e): a warm repartition of drifted rows and an update of that
+    session (1 % of the rows out, as many in) through the kernels and with
+    every phase in the Python loop (``forced_path("ref")``), from one
+    partition's state: labels bitwise equal, both times."""
+    n = x.shape[0]
+    eng = AnticlusterEngine(device=dev, **kw)
+    _, state = eng.partition(x)
+    x2 = x + 0.05 * torch.sin(x)
+    m = round(n * DELTA_SHARE)
+    rng = np.random.default_rng(DELTA_SEED)
+    added = torch.from_numpy(make("mixture", m, x.shape[1], seed=2)).to(dev)
+    removed = np.sort(rng.choice(n, m, replace=False))
+
+    def run():
+        warm, st = eng.repartition(x2, state)
+        upd, _, _ = eng.update(x2, st, added=added, removed=removed)
+        return warm, upd
+
+    (warm, upd), kernel_s, used = session_call(run)
+    check(upd.updated and used["plain_rounds"] == 0
+          and used["auction_phase_dense"] > 0, f"(e) {kw}: {used}")
+    with ops.forced_path("ref"):
+        (pwarm, pupd), plain_s, inside = session_call(run)
+    check(not any(inside[name] for name in _build.launches)
+          and inside["plain_rounds"] > 0,
+          f"(e) {kw}: kernels launched under the forced plain path: "
+          f"{inside}")
+    check(torch.equal(warm.labels, pwarm.labels),
+          f"(e) {kw}: the warm labels differ from the forced plain path's")
+    check(torch.equal(upd.labels, pupd.labels),
+          f"(e) {kw}: the update's labels differ from the forced plain "
+          f"path's")
+    log(f"(e) n={n} {kw}: a warm repartition and an update of {m} rows "
+        f"out, {m} in: labels bitwise the forced plain path's; kernels "
+        f"{kernel_s:.3f} s ({used['rounds']} rounds, auction_phase_dense "
+        f"{used['auction_phase_dense']}), Python loop {plain_s:.3f} s "
+        f"({inside['rounds']} rounds)")
+    return {"kernel_s": kernel_s, "plain_s": plain_s,
+            "rounds": used["rounds"], "plain_rounds": inside["rounds"],
+            "launches": used}
+
+
+def host_work():
+    """HOST_WORK float64 matmuls on the host (numpy drops the GIL)."""
+    reps, order = HOST_WORK
+    a = np.random.default_rng(0).normal(size=(order, order))
+    for _ in range(reps):
+        a = a @ a
+        a /= np.abs(a).max()
+    return a
+
+
+def sessions(dev, n: int, card: str, default: dict, stream: dict) -> dict:
+    """Phase 9: sessions at full size on phase 3's rows at k = 256, as a
+    user drives them: (a) the default spec's engine, (b) the same with
+    ``chunk_size="auto"`` (the stream route), each a ``partition`` (labels
+    bitwise phases 6's and 3's) and SESSION_EPOCHS warm ``repartition``
+    calls, with a window of LAPs profiled (:func:`warm_session`); (c) an
+    ``update`` of (a)'s session, 1 % of the rows out at random and as many
+    from ``make("mixture", ..., seed=1)`` in: one ``auction_phase_dense``
+    launch on the (B, 256, 256) delta stack, exact balance, the kept rows'
+    labels kept, the objective within 1e-3 of a warm full repartition of
+    the post-delta rows, the same labels run twice, and an over-threshold
+    delta's fallback bitwise that repartition; (d)
+    ``dispatch_repartition`` on (a)'s session, its ``wait()`` bitwise the
+    synchronous call, with the host time it frees; (e) a warm
+    repartition and an update at n = 16 384 on the flat route and on
+    ``plan=(8, 16)`` against the forced plain path; (f) the ``greedy`` and
+    ``scipy`` solvers on the first LAP of the main data beside the
+    auction."""
+    d, k = PRESETS["diabetes"][1], 256
+    x = torch.from_numpy(make("mixture", n, d, seed=0)).to(dev)
+    t_start = time.perf_counter()
+    out = {}
+    a, eng, states, results = warm_session(
+        x, k, dev, card, "a", ("flat", "auction"), "auction_phase_dense",
+        "auction", "solve")
+    check(a["cold_sha256"] == default["labels_sha256"][:16],
+          f"(a) partition's labels {a['cold_sha256']} are not phase 6's "
+          f"{default['labels_sha256'][:16]}")
+    check(n != PRESETS["diabetes"][0] or a["cold_sha256"] == DEFAULT_DIGEST,
+          f"(a) partition's labels {a['cold_sha256']}, expected "
+          f"{DEFAULT_DIGEST}")
+    out["a"] = a
+    b, _, _, _ = warm_session(
+        x, k, dev, card, "b", ("stream", "auction_fused"), "auction_phase",
+        "auction_fused", "factored", chunk_size="auto")
+    check(b["cold_sha256"] == stream["labels_sha256"][:16],
+          f"(b) partition's labels {b['cold_sha256']} are not phase 3's "
+          f"{stream['labels_sha256'][:16]}")
+    out["b"] = b
+
+    # (c) a delta update of (a)'s session
+    state = states[-1]
+    m = round(n * DELTA_SHARE)
+    removed = np.sort(np.random.default_rng(DELTA_SEED).choice(n, m,
+                                                               replace=False))
+    added = torch.from_numpy(make("mixture", m, d, seed=1)).to(dev)
+    keep = np.ones(n, bool)
+    keep[removed] = False
+    (res_u, new_x, _), upd_s, used = session_call(
+        eng.update, x, state, added=added, removed=removed)
+    check(res_u.updated, "(c) the update fell back")
+    check(used["auction_phase_dense"] == 1 and used["plain_rounds"] == 0,
+          f"(c) expected one auction_phase_dense launch: {used}")
+    sizes = balanced(res_u.labels, k)
+    kept = torch.from_numpy(np.flatnonzero(keep)).to(dev)
+    check(torch.equal(res_u.labels[:n - m], state.prev_labels[kept]),
+          "(c) a kept row changed its label")
+    with PhaseRecorder("auction_phase_dense") as rec:
+        res_u2, _, _ = eng.update(x, state, added=added, removed=removed)
+    check(torch.equal(res_u.labels, res_u2.labels),
+          "(c) the same update gave other labels")
+    B = rec.calls[0]["kw"]["cost"].shape[0]
+    carried = incremental._carried_state(
+        state, n, added, x[torch.from_numpy(removed).to(dev)])
+    (res_r, _), rep_s, rep_used = session_call(eng.repartition, new_x,
+                                               carried)
+    o_u = float(objective_centroid(new_x, res_u.labels, k))
+    o_r = float(objective_centroid(new_x, res_r.labels, k))
+    check(o_u >= (1.0 - 1e-3) * o_r,
+          f"(c) update objective {o_u} below the repartition's {o_r} by "
+          f"more than 1e-3")
+    fallback = AnticlusterEngine(eng.spec.evolve(update_threshold=0.01),
+                                 device=dev)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always", RuntimeWarning)
+        res_f, _, _ = fallback.update(x, state, added=added, removed=removed)
+    msgs = [str(w.message) for w in caught
+            if issubclass(w.category, RuntimeWarning)]
+    check(len(msgs) == 1 and "full warm repartition" in msgs[0]
+          and not res_f.updated,
+          f"(c) the over-threshold delta did not fall back loudly: {msgs}")
+    check(torch.equal(res_f.labels, res_r.labels),
+          "(c) the fallback's labels are not the repartition's")
+    check(eng.compile_count == 1, f"(c) {eng.compile_count} solve closures")
+    whole = call_kernel_ms(x, k, dev, "auction_phase_kernel",
+                           call=lambda: eng.update(x, state, added=added,
+                                                   removed=removed))
+    out["c"] = {"m": m, "B": B, "seconds": upd_s, "repartition_s": rep_s,
+                "launches": used, "rounds": used["rounds"],
+                "bids": used["bids"],
+                "repartition_rounds": rep_used["rounds"], "sizes": sizes,
+                "ofv": o_u, "ofv_repartition": o_r, "gap": float(res_u.gap),
+                "sha256": digest_of(res_u.labels), "call_profile": whole}
+    log(f"(c) update of (a)'s session on {card}: {m} rows out, {m} in: "
+        f"{upd_s:.3f} s, one auction_phase_dense launch on the ({B}, {k}, "
+        f"{k}) delta stack, {used['rounds']} rounds, {used['bids']} bids; a "
+        f"warm repartition of the post-delta rows {rep_s:.3f} s "
+        f"({rep_used['rounds']} rounds); sizes {sizes[0]}..{sizes[1]}, "
+        f"kept labels kept, ofv {o_u:.6e} against {o_r:.6e} "
+        f"({(o_u - o_r) / o_r:+.2e}); the same labels twice; "
+        f"update_threshold=0.01 fell back with its warning to the "
+        f"repartition's labels")
+    log(f"  (c) an update profiled whole: the dense kernel "
+        f"{whole['kernel_ms']:.3f} ms of device time, every kernel and copy "
+        f"{whole['device_ms']:.3f} ms in {whole['launches']} launches, "
+        f"against the update's {upd_s * 1e3:.1f} ms wall; by kernel "
+        f"{json.dumps(whole['kernels'])}")
+
+    # (d) dispatch_repartition on (a)'s session, from the state of the
+    # call before the last, whose warm result the last call gave: two
+    # dispatches (the first starts the worker thread and its stream) and
+    # the synchronous call in turns, then one with host work between
+    # dispatch and wait
+    def dispatched(work=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pending = eng.dispatch_repartition(x, states[-2])
+        dispatch_s = time.perf_counter() - t0
+        ready = pending.ready()
+        if work is not None:
+            work()
+        res_d, _ = pending.wait()
+        torch.cuda.synchronize()
+        check(torch.equal(res_d.labels, results[-1].labels),
+              "(d) wait()'s labels are not repartition's")
+        return {"ready_at_once": ready, "dispatch_s": dispatch_s,
+                "wait_s": time.perf_counter() - t0}
+
+    first = dispatched()
+    second = dispatched()
+    (res_s, _), sync_s, _ = session_call(eng.repartition, x, states[-2])
+    check(torch.equal(res_s.labels, results[-1].labels),
+          "(d) the synchronous call gave other labels")
+    third = dispatched()
+    t0 = time.perf_counter()
+    host_work()
+    host_s = time.perf_counter() - t0
+    both = dispatched(host_work)
+    eng.close()
+    out["d"] = {"first": first, "second": second, "third": third,
+                "repartition_s": sync_s, "host_work_s": host_s,
+                "with_host_work": both,
+                "overlap_s": sync_s + host_s - both["wait_s"]}
+    log(f"(d) dispatch_repartition on (a)'s session, labels bitwise "
+        f"repartition's: the first (it starts the worker thread and its "
+        f"stream) returned after {first['dispatch_s'] * 1e3:.3f} ms, "
+        f"ready() {first['ready_at_once']}, wait() after "
+        f"{first['wait_s']:.3f} s; then {second['dispatch_s'] * 1e3:.3f} "
+        f"ms / {second['wait_s']:.3f} s, repartition {sync_s:.3f} s, "
+        f"{third['dispatch_s'] * 1e3:.3f} ms / {third['wait_s']:.3f} s; "
+        f"with {host_s:.3f} s of host work (numpy matmuls) between dispatch "
+        f"and wait: {both['wait_s']:.3f} s, {out['d']['overlap_s']:.3f} s "
+        f"less than repartition and the host work one after the other")
+
+    # (e) warm and delta paths against the plain path
+    xp = torch.from_numpy(make("mixture", PLAIN_SESSION_N, d,
+                               seed=1)).to(dev)
+    out["e"] = {"flat": session_against_plain(xp, dev, dict(k=k)),
+                "hier": session_against_plain(xp, dev,
+                                              dict(k=128, plan=(8, 16)))}
+
+    # (f) greedy and scipy on the first LAP of the main data
+    _, dist = _centrality(x[None])
+    order = torch.argsort(-dist[0], stable=True)
+    c, xb = x[order[:k]], x[order[k:2 * k]]
+    cost = (-2.0 * xb @ c.T + (c * c).sum(dim=-1)[None])[None].contiguous()
+    values, times = {}, {}
+    for name in ("auction", "greedy", "scipy"):
+        solve = asg.get_solver(name).solve
+        assign, _ = solve(cost, asg.AuctionConfig())
+        check(torch.equal(torch.sort(assign[0]).values,
+                          torch.arange(k, device=dev)),
+              f"(f) {name}: not a permutation")
+        values[name] = asg.assignment_value(cost[0].cpu().numpy(),
+                                            assign[0].cpu().numpy())
+        times[name] = time_ms(lambda: solve(cost, asg.AuctionConfig()),
+                              reps=5, warmup=1)
+    span = float(asg._dense_span(cost)[0])
+    slack = span / 4.0  # n * eps_lo = n * span / (eps_end_mul * n)
+    check(values["scipy"] >= values["auction"] - slack
+          and values["auction"] >= values["scipy"] - slack,
+          f"(f) auction {values['auction']} and scipy {values['scipy']} "
+          f"more than n * eps_lo = {slack} apart")
+    out["f"] = {"values": values, "ms": times, "n_eps_lo": slack}
+    log(f"(f) the first LAP of the main data (n={k}): assignment value "
+        f"auction {values['auction']:.6e} ({times['auction']:.3f} ms), "
+        f"greedy {values['greedy']:.6e} ({times['greedy']:.3f} ms, {k} "
+        f"rounds of a masked argmax), scipy {values['scipy']:.6e} "
+        f"({times['scipy']:.3f} ms, a host round trip); n * eps_lo "
+        f"{slack:.6e}")
+    out["seconds"] = time.perf_counter() - t_start
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 2, continued, and phase 5: the kernel entry point repro_torch.kernels
 # ---------------------------------------------------------------------------
 
@@ -2621,6 +3045,18 @@ def main():
             r["launches_phase8"] = {
                 call: run["launches"].get(r["name"], 0)
                 for call, run in hier_run.items() if isinstance(run, dict)}
+    phase("phase 9: sessions at full size")
+    session_run = sessions(dev, args.n, smi, default_run, main_run)
+    for r in rows:
+        if r["name"] in ("auction_phase_dense", "auction_phase", "bid_top2",
+                         "gather_rows"):
+            r["launches_phase9"] = {
+                f"({call}) warm repartition {e + 1}": epoch["launches"][
+                    r["name"]]
+                for call in ("a", "b")
+                for e, epoch in enumerate(session_run[call]["epochs"])}
+            r["launches_phase9"]["(c) update"] = \
+                session_run["c"]["launches"][r["name"]]
     phase("done")
 
     log(json.dumps({"main_path": main_run, "against_plain": plain_run,
@@ -2628,7 +3064,8 @@ def main():
                     "masked_laps": masked_run,
                     "constrained_routes": constrained_run,
                     "hierarchical_checks": hier_checks,
-                    "hierarchical_routes": hier_run}))
+                    "hierarchical_routes": hier_run,
+                    "sessions": session_run}))
     log(smi)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

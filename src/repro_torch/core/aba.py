@@ -7,7 +7,9 @@ or Section 4.3 categorical rearrangement and the Algorithm-1 batch scan,
 with ``valid_mask`` padding and multi-attribute quota codes, and every
 batch goes through the one :func:`_assign_batch`, so ``aba_stream`` with
 ``chunk_size >= n`` gives labels bit-identical to ``aba_core(x[None])[0]``.
-:func:`aba_reference` is the numpy oracle with an exact LAP.
+:func:`aba_reference` is the numpy oracle with an exact LAP;
+:func:`delta_moments` down-dates the carried centrality moments of a
+session (``repro_torch.incremental``).
 
 The scans are Python loops.  The streaming core pulls each chunk's rows
 through the ``gather_rows`` kernel.  On the card every epsilon phase of a
@@ -434,6 +436,26 @@ def aba_stream(x, k: int, chunk_size: int, *, variant: str = "base",
     if return_state:
         return out, {"prices": p_out, "mu": mu}
     return out
+
+
+def delta_moments(moment_sum, moment_count, added=None, removed=None):
+    """Merge arrivals and departures into carried centrality moments.
+
+    ``moment_sum`` ((d,) feature sum over valid rows) and ``moment_count``
+    (() valid-row count) are the running moments the engine's ``ABAState``
+    carries behind the level-1 centrality sort.  ``added`` / ``removed``
+    are the delta's row blocks ((m, d) / (r, d)); the result equals the
+    post-delta rows' moments up to float summation order.
+    """
+    moment_sum = torch.as_tensor(moment_sum).float()
+    moment_count = torch.as_tensor(moment_count).float()
+    if removed is not None and removed.shape[0]:
+        moment_sum = moment_sum - removed.float().sum(dim=0)
+        moment_count = moment_count - float(removed.shape[0])
+    if added is not None and added.shape[0]:
+        moment_sum = moment_sum + added.float().sum(dim=0)
+        moment_count = moment_count + float(added.shape[0])
+    return moment_sum, moment_count
 
 
 def aba_reference(x: np.ndarray, k: int, *, variant: str = "base",

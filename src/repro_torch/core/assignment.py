@@ -6,8 +6,9 @@ explicit ``(B, n, n)`` cost stack, whose whole epsilon schedule is one
 launch of the ``auction_phase_dense`` kernel on the card) and its
 matrix-free form (``auction_solve_factored`` on ``cost = -2 x.c^T +
 ||c||^2``, whose every epsilon phase is one launch of the ``auction_phase``
-kernel on the card), and the solver registry holding ``"auction"`` and
-``"auction_fused"``.  All solvers MAXIMIZE total cost.
+kernel on the card), the delta update's ``solve_restricted_slots``, and
+the solver registry holding ``"auction"``, ``"auction_fused"``,
+``"greedy"`` and ``"scipy"``.  All solvers MAXIMIZE total cost.
 
 Differences from the JAX engine, none of which changes a result:
 
@@ -32,16 +33,22 @@ Differences from the JAX engine, none of which changes a result:
   factored path misses this by one ulp of the span; see ROADMAP fault
   R1.)
 * Indices are int64 inside; the public solvers return int32 assignments.
-* ``greedy``, ``scipy`` and solver telemetry are not ported yet (ROADMAP
-  Queue 1: Remaining solvers).
+* ``greedy_solve`` is a Python loop of n masked flat argmaxes on the
+  cost's device (n rounds of a few launches each), not a traced loop;
+  ``scipy`` is a host round trip (``.cpu()`` -> ``linear_sum_assignment``
+  -> the cost's device), registered with ``host_callback=True``.
+* Solver telemetry is not ported yet (ROADMAP Queue 1: Remaining solvers).
 """
 
 from __future__ import annotations
 
 import functools
+import inspect
 import math
+import warnings
 from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch._device import DTYPE, as_float, resolve_device
@@ -133,18 +140,27 @@ def _schedule(top2_fn, eps_sched, n: int, config: AuctionConfig,
     probe = None
     if config.adaptive_reentry:
         probe = top2_fn(prices)
-        v1, j1, v2 = probe
-        demand = torch.zeros_like(v1).scatter_add_(1, j1, torch.ones_like(v1))
-        contested = demand.gather(1, j1) > 1.0
-        infeas = torch.where(contested, v1 - v2, 0.0).amax(dim=1)
-        reentry = torch.minimum(
-            torch.maximum(infeas / _REENTRY_SLACK, eps_sched[-1]), eps_sched[0])
+        reentry = _reentry(probe, eps_sched)
     else:
         # legacy fixed shortcut: warm instances skip all but the last phase
         reentry = torch.full((B,), -math.inf, device=prices.device)
     skip = is_warm[None, :] & (eps_sched > reentry[None, :])
     skip[-1] = False
     return prices, skip, probe
+
+
+def _reentry(probe, eps_sched):
+    """(B,) epsilon at which a warm instance re-enters the schedule: the
+    largest value gap ``v1 - v2`` a row stands to lose on a contested
+    object (the probe's reduction at the carried prices), over
+    ``_REENTRY_SLACK``, clipped to ``[eps_lo, eps_hi]``.  The demand
+    counts are integer-valued float sums, exact in any order."""
+    v1, j1, v2 = probe
+    demand = torch.zeros_like(v1).scatter_add_(1, j1, torch.ones_like(v1))
+    contested = demand.gather(1, j1) > 1.0
+    infeas = torch.where(contested, v1 - v2, 0.0).amax(dim=1)
+    return torch.minimum(
+        torch.maximum(infeas / _REENTRY_SLACK, eps_sched[-1]), eps_sched[0])
 
 
 def _max_rounds(n: int, config: AuctionConfig) -> int:
@@ -161,6 +177,12 @@ def _repair_permutation(assign: torch.Tensor) -> torch.Tensor:
     return torch.where(need, free_cols.gather(1, slot), assign)
 
 
+def _dense_span(cost: torch.Tensor) -> torch.Tensor:
+    """(B, n, n) -> (B,) the span of each instance's finite costs."""
+    finite = torch.where(cost <= _NEG / 2, 0.0, cost)
+    return (finite.amax(dim=(1, 2)) - finite.amin(dim=(1, 2))).clamp(min=1e-6)
+
+
 def _solve_dense(cost, config: AuctionConfig, prices=None):
     """(B, n, n) float32 -> ((B, n) int64 assignment, (B, n) prices)."""
     B, n, _ = cost.shape
@@ -168,9 +190,7 @@ def _solve_dense(cost, config: AuctionConfig, prices=None):
         return (torch.zeros((B, 1), dtype=torch.int64, device=cost.device),
                 cost.new_zeros((B, 1)) if prices is None else prices.to(DTYPE))
     cost = cost.contiguous()
-    finite = torch.where(cost <= _NEG / 2, 0.0, cost)
-    span = (finite.amax(dim=(1, 2)) - finite.amin(dim=(1, 2))).clamp(min=1e-6)
-    eps_sched = _eps_schedule(span, n, config)
+    eps_sched = _eps_schedule(_dense_span(cost), n, config)
     prices, skip, seed = _schedule(dense_top2(cost), eps_sched, n, config,
                                    prices)
     # the whole schedule is one dispatch: one dense phase kernel launch on
@@ -276,6 +296,86 @@ def auction_solve_factored(x, c, *, is_real=None,
     return (out, p_out) if return_prices else out
 
 
+def solve_restricted_slots(cost, mandatory, *, solver: str = "auction",
+                           config: AuctionConfig = AuctionConfig(),
+                           prices=None, device=None):
+    """Frozen-price restricted assignment of m arriving rows over T slots.
+
+    The delta-update subsystem's dense-slot primitive: ``cost`` is the
+    (m, T) value of placing each arriving row into each open capacity slot
+    (m <= T), ``mandatory`` ((T,) bool) marks slots that MUST take a real
+    row.  The problem is squared with ``T - m`` neutral dummy rows
+    (constant cost 0) barred from mandatory slots by the span-scaled
+    penalty ``pen = -(4 * span + 1)``: an eps-optimal assignment never
+    takes a penalized pair when a feasible completion exists, and unlike
+    the quota mask's ``-1e9`` it does not blow up the span-derived epsilon
+    schedule (ROADMAP R6).  ``prices`` ((T,)) warm-starts the solve through
+    :func:`_schedule`'s re-entry probe.
+
+    Returns ``(slots (m,) int32, slot_prices (T,) float32)``.
+    """
+    dev = resolve_device(device)
+    cost = as_float(cost, dev)
+    if cost.dim() != 2:
+        raise ValueError(f"cost must be (m, T), got {tuple(cost.shape)}")
+    m, T = cost.shape
+    if m > T:
+        raise ValueError(f"m={m} arriving rows exceed T={T} open slots")
+    solver_obj = get_solver(solver)
+    if m == T:
+        square = cost
+    else:
+        # dummy rows see cost 0, so the span must cover 0
+        hi = cost.amax().clamp(min=0.0)
+        lo = cost.amin().clamp(max=0.0)
+        pen = -(4.0 * (hi - lo).clamp(min=1e-6) + 1.0)
+        dummy = torch.where(torch.as_tensor(mandatory, device=dev).bool(),
+                            pen, 0.0)
+        square = torch.cat([cost, dummy.expand(T - m, T)])
+    p = None if prices is None else as_float(prices, dev)[None]
+    assign, p_out = solver_obj.solve(square[None], config, p)
+    return assign[0, :m].to(torch.int32), p_out[0]
+
+
+def greedy_solve(cost) -> torch.Tensor:
+    """Global-greedy max assignment of an (n, n) matrix or a (B, n, n)
+    stack: n rounds of a flat argmax (the first maximal index, as
+    ``jnp.argmax``), the chosen row and column masked to ``_NEG``.  Returns
+    int64 ``row_to_col``."""
+    c = cost.to(DTYPE).clone()
+    squeeze = c.dim() == 2
+    if squeeze:
+        c = c[None]
+    B, n, _ = c.shape
+    assign = torch.full((B, n), -1, dtype=torch.int64, device=c.device)
+    b = torch.arange(B, device=c.device)
+    for _ in range(n):
+        flat = c.view(B, n * n).argmax(dim=1)
+        r, col = flat // n, flat % n
+        assign[b, r] = col
+        c[b, r, :] = _NEG
+        c[b, :, col] = _NEG
+    return assign[0] if squeeze else assign
+
+
+def scipy_solve(cost: np.ndarray) -> np.ndarray:
+    """Exact max-cost assignment (Hungarian) of an (n, n) numpy matrix on
+    the host, int32 ``row_to_col``."""
+    from scipy.optimize import linear_sum_assignment
+
+    rows, cols = linear_sum_assignment(np.asarray(cost), maximize=True)
+    out = np.empty(cost.shape[0], dtype=np.int32)
+    out[rows] = cols
+    return out
+
+
+def assignment_value(cost, row_to_col) -> float:
+    """Total cost of an assignment (host arithmetic, float64)."""
+    cost = np.asarray(cost, np.float64)
+    return float(cost[np.arange(len(row_to_col)),
+                      np.asarray(row_to_col)].sum())
+
+
 # ---------------------------------------------------------------------------
 # Solver registry
 # ---------------------------------------------------------------------------
@@ -285,37 +385,90 @@ class Solver(NamedTuple):
 
     ``solve(cost, config, prices=None)`` takes a (B, n, n) float32 stack and
     returns ``(row_to_col, prices)`` as int64 / float32 tensors, maximizing
-    total cost.  ``factored(x, c, is_real=..., config=..., prices=...)`` is
-    the optional matrix-free path, used whenever the cost factors as
-    ``-2 x.c^T + ||c||^2``.
+    total cost; backends without a price concept (greedy, Hungarian)
+    return the incoming prices unchanged (zeros when cold).
+    ``factored(x, c, is_real=..., config=..., prices=...)`` is the optional
+    matrix-free path, used whenever the cost factors as ``-2 x.c^T +
+    ||c||^2``.  ``host_callback`` marks backends that solve on the host
+    (``"scipy"``): the engine's non-blocking
+    ``AnticlusterEngine.dispatch_repartition`` refuses them, since their
+    solve holds the host thread anyway.
     """
 
     solve: Callable
     factored: Callable | None = None
+    host_callback: bool = False
 
 
 _REGISTRY: dict[str, Solver] = {}
 
-_NOT_PORTED = {"greedy": "Queue 1: Remaining solvers",
-               "scipy": "Queue 1: Remaining solvers"}
+
+def _accepts_prices(fn: Callable) -> bool:
+    try:
+        return "prices" in inspect.signature(fn).parameters
+    except (TypeError, ValueError):  # C callables etc.: assume legacy
+        return False
+
+
+def _prices_or_zeros(shape_src: torch.Tensor, prices):
+    """Pass-through prices for price-less backends ((..., n) from
+    (..., n, n))."""
+    if prices is not None:
+        return torch.as_tensor(prices, dtype=DTYPE, device=shape_src.device)
+    return shape_src.new_zeros(shape_src.shape[:-1], dtype=DTYPE)
+
+
+def _legacy_solve_shim(solve: Callable) -> Callable:
+    @functools.wraps(solve)
+    def shim(cost, config=AuctionConfig(), prices=None):
+        return solve(cost, config), _prices_or_zeros(cost, prices)
+    return shim
+
+
+def _legacy_factored_shim(factored: Callable) -> Callable:
+    @functools.wraps(factored)
+    def shim(x, c, *, is_real=None, config=AuctionConfig(), prices=None):
+        out = factored(x, c, is_real=is_real, config=config)
+        if prices is None:
+            return out, c.new_zeros(c.shape[:-1], dtype=DTYPE)
+        return out, torch.as_tensor(prices, dtype=DTYPE, device=c.device)
+    return shim
 
 
 def register_solver(name: str, solve: Callable, *,
                     factored: Callable | None = None,
+                    host_callback: bool = False,
                     overwrite: bool = False) -> Solver:
-    """Register a LAP backend under ``name`` (see :class:`Solver`)."""
+    """Register a LAP backend under ``name`` (see :class:`Solver`).
+
+    A ``solve`` (or ``factored``) without a ``prices`` parameter is the
+    legacy price-less form ``solve(cost, config) -> row_to_col``: it is
+    wrapped in a pass-through shim (incoming prices returned unchanged,
+    zeros when cold) with a ``DeprecationWarning``.
+    """
     if not overwrite and name in _REGISTRY:
         raise ValueError(f"solver {name!r} already registered "
                          f"(pass overwrite=True to replace it)")
-    _REGISTRY[name] = Solver(solve=solve, factored=factored)
+    if not _accepts_prices(solve):
+        warnings.warn(
+            f"solver {name!r} uses the deprecated price-less signature "
+            "solve(cost, config); wrapping it in a pass-through shim. "
+            "Migrate to solve(cost, config, prices=None) -> "
+            "(assignment, prices) to participate in warm starts.",
+            DeprecationWarning, stacklevel=2)
+        solve = _legacy_solve_shim(solve)
+    if factored is not None and not _accepts_prices(factored):
+        warnings.warn(
+            f"solver {name!r}: factored path uses the deprecated price-less "
+            "signature; wrapping it in a pass-through shim.",
+            DeprecationWarning, stacklevel=2)
+        factored = _legacy_factored_shim(factored)
+    _REGISTRY[name] = Solver(solve=solve, factored=factored,
+                             host_callback=host_callback)
     return _REGISTRY[name]
 
 
 def get_solver(name: str) -> Solver:
-    if name in _NOT_PORTED and name not in _REGISTRY:
-        raise NotImplementedError(
-            f"solver {name!r} is not ported to PyTorch yet (ROADMAP "
-            f"{_NOT_PORTED[name]})")
     if name not in _REGISTRY:
         raise KeyError(f"unknown solver {name!r}; registered: "
                        f"{available_solvers()}")
@@ -331,5 +484,24 @@ def _factored_entry(x, c, *, is_real=None, config=AuctionConfig(),
     return _solve_factored(x, c, is_real, config, prices)
 
 
+def _greedy_entry(cost, config=AuctionConfig(), prices=None):
+    del config  # greedy has no tuning knobs
+    return greedy_solve(cost), _prices_or_zeros(cost, prices)
+
+
+def _scipy_entry(cost, config=AuctionConfig(), prices=None):
+    """Exact Hungarian, instance by instance on the host; the assignment
+    comes back to the cost's device, the prices pass through."""
+    del config
+    stack = cost.detach().to(DTYPE).cpu().numpy()
+    squeeze = stack.ndim == 2
+    out = np.stack([scipy_solve(c) for c in (stack[None] if squeeze
+                                             else stack)])
+    out = torch.from_numpy(out).to(device=cost.device, dtype=torch.int64)
+    return out[0] if squeeze else out, _prices_or_zeros(cost, prices)
+
+
 register_solver("auction", _solve_dense)
 register_solver("auction_fused", _solve_dense, factored=_factored_entry)
+register_solver("greedy", _greedy_entry)
+register_solver("scipy", _scipy_entry, host_callback=True)

@@ -20,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -60,8 +61,10 @@ _MORE_SYMBOLS = {
 }
 
 # kernel name -> launches since the count was last zeroed; every wrapper
-# counts here through launch(), and nowhere else
+# counts here through launch(), and nowhere else, under _count_lock: an
+# engine's worker thread launches beside its caller's thread
 launches = dict.fromkeys(_SYMBOLS, 0)
+_count_lock = threading.Lock()
 
 _functions: dict = {}
 build_log: dict = {}      # name -> nvcc's output (ptxas registers / spills)
@@ -146,7 +149,8 @@ def launch(name: str, *args, symbol: str | None = None) -> None:
     err = function(name, symbol)(*args)
     if err:
         raise RuntimeError(f"{name} kernel launch failed (cudaError {err})")
-    launches[name] += 1
+    with _count_lock:
+        launches[name] += 1
 
 
 # operand name -> the types a kernel takes for it (float32 where not named)

@@ -27,8 +27,11 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import auction_phase_dense_ref, auction_phase_ref
 
-# CUDA device index -> int64 [rounds, bids, ticket, single-bidder rounds]
-_totals: dict[int, torch.Tensor] = {}
+# (CUDA device index, stream) -> int64 [rounds, bids, ticket, single-bidder
+# rounds]: one set a stream, so that launches running at once on two
+# streams (an engine's dispatch beside the caller's work) never share the
+# ticket that finds a launch's last CTA
+_totals: dict[tuple[int, int], torch.Tensor] = {}
 
 
 def auction_phase(x, c, is_real, prices, eps, max_rounds: int,
@@ -146,13 +149,13 @@ def _operands(kernel, G, max_rounds, fixed_rounds, skip, seed_top2,
     return seed, stream
 
 
-def _outputs(G, n, dev, P=1):
-    """(assign, prices, per-phase and group rounds, the device's
+def _outputs(G, n, dev, stream, P=1):
+    """(assign, prices, per-phase and group rounds, the stream's
     counters)."""
-    counters = _totals.get(dev.index)
+    counters = _totals.get((dev.index, stream))
     if counters is None:
-        counters = _totals[dev.index] = torch.zeros(4, dtype=torch.int64,
-                                                    device=dev)
+        counters = _totals[(dev.index, stream)] = torch.zeros(
+            4, dtype=torch.int64, device=dev)
     return (torch.empty((G, n), dtype=torch.int64, device=dev),
             torch.empty((G, n), dtype=torch.float32, device=dev),
             torch.empty((P, G), dtype=torch.int64, device=dev), counters)
@@ -164,7 +167,7 @@ def _launch(x, c, is_real, prices, eps, max_rounds, fixed_rounds, skip,
     seed, stream = _operands("auction_phase", G, max_rounds, fixed_rounds,
                              skip, seed_top2, x=x, c=c, prices=prices,
                              eps=eps, is_real=is_real)
-    assign, p_out, rounds, counters = _outputs(G, n, x.device)
+    assign, p_out, rounds, counters = _outputs(G, n, x.device, stream)
     # what does not fit in shared memory (the kernel decides): c
     # feature-major with a row of column terms, (d + 1, n rounded up to
     # 4), and the per-row state, 10 words a row
@@ -187,7 +190,8 @@ def _launch_dense(cost, prices, eps, max_rounds, fixed_rounds, skip,
     seed, stream = _operands("auction_phase_dense", G, max_rounds,
                              fixed_rounds, skip, seed_top2, cost=cost,
                              prices=prices, eps=eps)
-    assign, p_out, rounds, counters = _outputs(G, n, cost.device, P)
+    assign, p_out, rounds, counters = _outputs(G, n, cost.device, stream,
+                                               P)
     # the per-row state where it does not fit in shared memory (the kernel
     # decides), 10 words a row
     scratch = torch.empty(G * 10 * n, dtype=torch.float32, device=cost.device)
@@ -258,7 +262,7 @@ def totals() -> dict:
     :func:`reset_totals`, summed over devices (a read from the card).  A
     launch on a stack adds, for each of its phases, its longest group's
     rounds, as the Python loop over the stack counts them, and every
-    group's bids and single-bidder rounds."""
+    group's bids and single-bidder rounds; summed over streams too."""
     out = {"rounds": 0, "bids": 0, "single_bidder_rounds": 0}
     for t in _totals.values():
         r, b, _, s = t.tolist()

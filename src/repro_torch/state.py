@@ -3,10 +3,13 @@
 This system has no weights: the auction's dual prices are its carried
 state.  A warm run starts every batch LAP from carried prices instead of
 zeros (``aba_core`` / ``aba_stream`` ``prices=``, the solvers' ``prices=``).
-These two functions move such a state between the JAX package (whose
+These functions move such a state between the JAX package (whose
 ``ABAState`` leaves and whose cores' ``return_state`` dicts become numpy
 arrays with ``np.asarray``) and the port's tensors, so that both packages
-can run the same warm solve.
+can run the same warm solve: :func:`state_from_numpy` /
+:func:`state_to_numpy` as mappings, :func:`abastate_from_numpy` /
+:func:`abastate_to_numpy` as the engine's ``ABAState``, so that a JAX
+session's state warm-starts a port session.
 
 A state is a mapping of leaf names to arrays, or a tuple of arrays for the
 per-level ``prices``.  Float leaves become float32 tensors, integer leaves
@@ -54,3 +57,26 @@ def state_to_numpy(state: dict) -> dict:
         else:
             out[name] = leaf.detach().cpu().numpy()
     return out
+
+
+def abastate_from_numpy(state, device=None):
+    """A state with the ``ABAState`` fields (the JAX dataclass, a mapping,
+    any object with those attributes) -> the port's
+    :class:`repro_torch.anticluster.ABAState` on ``device``."""
+    from repro_torch.anticluster import ABAState
+
+    if not isinstance(state, dict):
+        state = {f.name: getattr(state, f.name)
+                 for f in dataclasses.fields(ABAState)}
+    t = state_from_numpy(state, device)
+    return ABAState(prices=tuple(t["prices"]),
+                    moment_sum=t["moment_sum"].float(),
+                    moment_count=t["moment_count"].float(),
+                    prev_labels=t["prev_labels"])
+
+
+def abastate_to_numpy(state) -> dict:
+    """The port's ``ABAState`` -> a dict of its fields as numpy arrays
+    (``prices`` a tuple)."""
+    return state_to_numpy({f.name: getattr(state, f.name)
+                           for f in dataclasses.fields(state)})

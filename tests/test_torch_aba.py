@@ -224,8 +224,10 @@ def _out_of_slice(kw, title):
                   "Mesh route"),
     _out_of_slice({"mesh": object()}, "Mesh route"),
     _out_of_slice({"telemetry": True}, "Consumers"),
-    _out_of_slice({"solver": "greedy"}, "Remaining solvers"),
-    _out_of_slice({"solver": "scipy"}, "Remaining solvers"),
+    # the greedy and scipy solvers are ported: with them, the fields still
+    # out of the slice raise as before
+    _out_of_slice({"solver": "greedy", "mesh": object()}, "Mesh route"),
+    _out_of_slice({"solver": "scipy", "telemetry": True}, "Consumers"),
 ])
 def test_out_of_slice_fields_raise(kw, title):
     """Each raises naming its ROADMAP Queue 1 item by a title that the
@@ -241,21 +243,26 @@ def test_out_of_slice_fields_raise(kw, title):
 def test_out_of_slice_core_arguments_and_engine_raise():
     x = _data(64, 4)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        AnticlusterEngine(AnticlusterSpec(k=4))
+        AnticlusterEngine(AnticlusterSpec(k=4, telemetry=True), device=CPU)
     titles = _queue1_titles()
     for call, title in (
             (lambda: aba_core(x[None], 4, telemetry=True, device=CPU),
              "Remaining solvers"),
             (lambda: aba_stream(x, 4, 32, telemetry=True, device=CPU),
              "Remaining solvers"),
-            (lambda: AnticlusterEngine(AnticlusterSpec(k=4)),
-             "Sessions and updates"),
-            (lambda: AnticlusterEngine(AnticlusterSpec(
-                k=4, categories=np.zeros(64, np.int32))),
-             "Sessions and updates")):
+            (lambda: AnticlusterEngine(AnticlusterSpec(k=4, telemetry=True),
+                                       device=CPU),
+             "Consumers")):
         assert any(t.startswith(title) for t in titles), title
         with pytest.raises(NotImplementedError,
                            match=re.escape(f"ROADMAP Queue 1: {title}")):
             call()
+    # the engine is ported; a delta update of a categorical session is not
+    # a local patch, and raises
+    engine = AnticlusterEngine(AnticlusterSpec(
+        k=4, categories=np.zeros(64, np.int32)), device=CPU)
+    _, state = engine.partition(x)
+    with pytest.raises(NotImplementedError, match="category-free"):
+        engine.update(x, state, added=x[:2])
     with pytest.raises(KeyError):
         AnticlusterSpec(k=4, solver="no-such-solver")

@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.anticluster import anticluster
+from repro_torch.anticluster import AnticlusterEngine, anticluster
 from repro_torch.core import assignment as asg
 from repro_torch.core.aba import _MASK_COST, aba_core, aba_stream
 from repro_torch.core.objective import balance_ok
@@ -891,3 +891,79 @@ def test_cuda_span_group_does_not_depend_on_G(cuda, G):
         assert ((v1 - w1).abs() <= tol).all() and ((v2 - w2).abs() <= tol).all()
         clear = (w1 - w2) > 1e-4 * scale
         assert torch.equal(j1[clear], wj[clear])
+
+
+def _session_run(x, dev, kw, delta=None):
+    """A cold partition, a warm repartition of drifted rows, and (with
+    ``delta`` = (added, removed)) an update of the warm session, on the
+    card: (warm result, update result or None, launches by kernel of the
+    warm call and the update, plain rounds)."""
+    eng = AnticlusterEngine(device=dev, **kw)
+    _, state = eng.partition(x)
+    x2 = x + 0.05 * torch.sin(x)
+    before = dict(_build.launches)
+    r0 = ref.rounds_executed
+    warm, state = eng.repartition(x2, state)
+    upd = None
+    if delta is not None:
+        upd, _, _ = eng.update(x2, state, added=delta[0], removed=delta[1])
+    used = {name: _build.launches[name] - before[name] for name in before}
+    return warm, upd, used, ref.rounds_executed - r0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["flat", "hier", "stream"])
+def test_cuda_warm_session_equals_forced_plain_path(cuda, route):
+    """A warm repartition (carried prices, the re-entry probe, per-group
+    phase skips, the seeded first round) and an update of its session
+    (one dense launch on the (B, k, k) delta stack) run through the phase
+    kernels and no round of the Python loop; with the dense solver their
+    labels are bitwise those of the forced plain path; the stream route's
+    warm LAPs take two bid_top2 launches (the span, and the re-entry
+    probe at the carried prices) and four phases each."""
+    n, k = 4096, 64
+    rng = np.random.default_rng(21)
+    x = torch.from_numpy(rng.normal(size=(n, 6)).astype(np.float32)).to(cuda)
+    kw = {"flat": dict(k=k), "hier": dict(k=128, plan=(8, 16)),
+          "stream": dict(k=k, chunk_size=512,
+                         solver="auction_fused")}[route]
+    added = torch.from_numpy(rng.normal(size=(40, 6)).astype(np.float32))
+    delta = (added.to(cuda), np.sort(rng.choice(n, 40, replace=False)))
+    warm, upd, used, plain = _session_run(x, cuda, kw, delta)
+    assert warm.balanced and upd.balanced and upd.updated and plain == 0
+    if route == "stream":
+        laps = n // k - 1
+        assert used["bid_top2"] == 2 * laps
+        assert used["auction_phase"] == 4 * laps
+        assert used["auction_phase_dense"] == 1  # the delta's stack
+        return
+    laps = (n // k - 1 if route == "flat"
+            else n // 8 - 1 + n // 128 - 1)
+    assert used["auction_phase_dense"] == laps + 1
+    with ops.forced_path("ref"):
+        ref_warm, ref_upd, ref_used, ref_plain = _session_run(x, cuda, kw,
+                                                              delta)
+    assert not any(ref_used.values()) and ref_plain > 0
+    assert torch.equal(warm.labels, ref_warm.labels)
+    assert torch.equal(upd.labels, ref_upd.labels)
+
+
+@pytest.mark.cuda
+def test_cuda_dispatch_repartition_equals_repartition(cuda):
+    """The dispatched solve (a worker thread, a side stream that waits on
+    the caller's) gives repartition's labels and prices bitwise, and its
+    launches are counted."""
+    rng = np.random.default_rng(22)
+    x = torch.from_numpy(rng.normal(size=(4096, 22)).astype(np.float32))
+    eng = AnticlusterEngine(k=64, device=cuda)
+    _, state = eng.partition(x.to(cuda))
+    x2 = (x + 0.05 * torch.randn(x.shape, generator=torch.Generator()
+                                 .manual_seed(3))).to(cuda)
+    n0 = _build.launches["auction_phase_dense"]
+    pending = eng.dispatch_repartition(x2, state)
+    res_d, st_d = pending.wait()
+    assert pending.ready()
+    assert _build.launches["auction_phase_dense"] - n0 == 4096 // 64 - 1
+    res_r, st_r = eng.repartition(x2, state)
+    assert torch.equal(res_d.labels, res_r.labels)
+    assert torch.equal(st_d.prices[0], st_r.prices[0])
