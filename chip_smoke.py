@@ -39,6 +39,11 @@ git-ignored ``build/``), then runs these phases, one or more lines each:
    call (b)'s first G = 64 LAP, bitwise against the loop, the span's pair
    on (b)'s first LAP at G = 1 and at G = 64 against the plain pair, and
    the dense rounds by bidder count on 16 LAPs at n = 64 and at n = 512;
+   at phase 10's sequencer shape (k = 495, the stream route) the factored
+   kernel bitwise the loop on every phase of the sequencer's first LAP and
+   the span's pair there against its plain version; each phase kernel's
+   per-group ``rounds_g`` (the telemetry's rounds) equal to its plain
+   twin's exact count there and on a G = 3 warm dense stack of that LAP;
    then the
    kernel entry point's
    ``cdist``, ``cdist_gather``, ``bid_top2_gather`` and ``ssm_scan`` at the
@@ -53,8 +58,8 @@ git-ignored ``build/``), then runs these phases, one or more lines each:
    read just after, then a profile of the first few batches of one chunk,
    then a window of 20 LAPs in the middle of a third call profiled (no
    copy between host and card and no wait on the card in a LAP);
-4. the same path at n = 16 384 against the plain kernels, and the default
-   spec's flat route at n = 16 384 against the forced plain path (the
+4. the same path at n = PLAIN_N (8192) against the plain kernels, and the
+   default spec's flat route at that n against the forced plain path (the
    Python loop over ``top2``): labels bitwise equal, both times; likewise
    phase 7's calls (a), (b) and (d) at that n, and the categorical stream
    core with ``chunk_size >= n`` against the flat core; the hierarchical
@@ -118,6 +123,25 @@ git-ignored ``build/``), then runs these phases, one or more lines each:
    the flat route and ``plan=(8, 16)``, labels bitwise the forced plain
    path's; (f) the ``greedy`` and ``scipy`` solvers on the main data's
    first LAP beside the auction;
+10. the consumers at full size on phase 3's rows (``repro_torch.data``,
+   ``repro_torch.serve``, ``repro_torch.obs``): (a) ``ABABatchSequencer(x,
+   batch_size=512)`` (k = 495, the stream route, ``"auction_fused"``), its
+   partition, two warm epochs on drifted features and ``grow`` by 1 %, each
+   with its rounds equal to those its telemetry sums, exact batch sizes
+   (floor/ceil after ``grow``), the same schedule from a second
+   sequencer, the batches' diversity spread below random batches'; (b)
+   ``aba_folds(x, 10, categories=class)`` (the stream route, one dense
+   launch a LAP; constraint (5) exact, ``fold_splits`` covering every row
+   once) and ``fold_partition(x, 10)`` with an update of 1 %; (c) a burst
+   of 32 requests of 12 288-16 384 rows through ``AnticlusterRouter(k=256,
+   plan=None)``, stacked (``max_group=8``) and one by one, every ticket
+   balanced and within 1e-3 of its one-shot objective (the bitwise ones
+   counted), the metrics and throughput, then a live partition with two
+   updates; (d) tracing on around an engine's flat and stream call with
+   ``telemetry=True`` (the span's ``rounds_total`` equal to the kernels'
+   rounds, the labels those without telemetry, no host read or wait in a
+   LAP), device launches a LAP equal with tracing on and off, and
+   ``obs.memory_profile`` of the flat and the stream call;
 
 then one JSON line describing every kernel, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises, exits non-zero and
@@ -134,6 +158,9 @@ digests: equal digests are equal bits.
 from __future__ import annotations
 
 import argparse
+import collections
+import contextlib
+import dataclasses
 import functools
 import hashlib
 import importlib
@@ -153,15 +180,17 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from repro_torch import incremental  # noqa: E402
+from repro_torch import incremental, obs  # noqa: E402
 from repro_torch.anticluster import AnticlusterEngine, anticluster  # noqa: E402
 from repro_torch.core import assignment as asg  # noqa: E402
 from repro_torch.core.aba import (_MASK_COST, _centrality,  # noqa: E402
                                   aba_core, aba_stream)
 from repro_torch.core.hierarchical import _regroup  # noqa: E402
 from repro_torch.core.kplus import kplus_augment, moment_spread  # noqa: E402
-from repro_torch.core.objective import (balance_ok,  # noqa: E402
-                                        objective_centroid)
+from repro_torch.core.objective import (  # noqa: E402
+    balance_ok, diversity_per_cluster, objective_centroid)
+from repro_torch.data import (ABABatchSequencer, aba_folds,  # noqa: E402
+                              fold_partition, fold_splits, minibatch)
 from repro_torch.data.synthetic import PRESETS, make  # noqa: E402
 import repro_torch.kernels as K  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
@@ -175,6 +204,7 @@ from repro_torch.kernels.ref import (  # noqa: E402
     bid_top2_gather_ref, bid_top2_ref, cdist_gather_ref, cdist_ref,
     gather_rows_ref, ssm_scan_chunk_ref, ssm_scan_ref)
 from repro_torch.kernels.ssm_scan import ssm_scan_chunk  # noqa: E402
+from repro_torch.serve import AnticlusterRouter  # noqa: E402
 
 # the module, not the function the package exports under its name
 bid_top2_module = importlib.import_module("repro_torch.kernels.bid_top2")
@@ -495,6 +525,9 @@ class PhaseRecorder:
             bound = signature.bind(*args, **kwargs)
             bound.apply_defaults()
             kw = dict(bound.arguments)
+            # the kernel's arguments: whether the solver asked for the
+            # rounds is not one
+            kw.pop("return_rounds", None)
             if self.keep is not None and not self.keep(kw):
                 return self.inner(*args, **kwargs)
             kw["prices"] = kw["prices"].clone()
@@ -544,7 +577,7 @@ def check_phase_calls(calls, what, loop=loop_over_bid_top2,
     equal.  Returns the phases checked."""
     for i, call in enumerate(calls):
         a, p, loop_counts = python_loop(call["kw"], loop=loop)
-        got_a, got_p = call["out"]
+        got_a, got_p = call["out"][:2]
         check(torch.equal(got_a, a) and torch.equal(got_p, p),
               f"{kernel} differs from the Python loop: {what}, phase {i}")
         for key, want in loop_counts.items():
@@ -1729,8 +1762,14 @@ def constrained_routes(dev, n: int, card: str, masked_run: dict) -> dict:
 # phase 4: the path against its plain kernels
 # ---------------------------------------------------------------------------
 
+# Phase 4's rows.  Its Python loops set its time, linearly in the rows:
+# at 16 384 rows phase 4 took 313 s of a 1 074 s run of this script on
+# an H100 (PERF.md).
+PLAIN_N = 8192
+
+
 def against_plain(dev):
-    n, d, k, chunk = 16384, PRESETS["diabetes"][1], 256, 4096
+    n, d, k, chunk = PLAIN_N, PRESETS["diabetes"][1], 256, 4096
     x = torch.from_numpy(make("mixture", n, d, seed=1)).to(dev)
     kw = dict(k=k, chunk_size=chunk, solver="auction_fused", device=dev)
     res = anticluster(x, **kw)
@@ -2944,6 +2983,513 @@ def log_rows(rows):
             f"{lib}, bound {r['bound_ms']:.6f} ms ({r['bound_by']})")
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the consumers at full size
+# ---------------------------------------------------------------------------
+
+SEQ_BATCH = 512         # (a): examples a step, k = 495 on the diabetes rows
+SEQ_DRIFT = (0.01, 11)  # (a): the epochs' features x + 0.01 N(0, 1), seed
+SEQ_GROW = 2537         # (a): rows the sequencer grows by (1 %), seed 1
+FOLDS = 10              # (b): k of the folds
+FOLD_DELTA_SEED = 12    # (b): which rows the live folds lose
+ROUTER_K = 256          # (c)
+ROUTER_BURST = 32       # (c): requests of the burst
+ROUTER_ROWS = (12288, 16384)  # (c): their row counts, one 16 384-row bucket
+ROUTER_SEED = 5
+ROUTER_GROUP = 8        # (c): the stacked setting's max_group
+LIVE_ROWS = 16384       # (c): the live partition's rows
+
+
+class _FirstLap(Exception):
+    """Stops a solve once its first LAP is recorded (phase 2)."""
+
+
+def check_rounds_g(calls, what, dense=False) -> int:
+    """Each recorded phase-kernel call again with ``return_rounds``: its
+    assignment and prices bitwise the loop's, and its (P, G) ``rounds_g``
+    group by group equal to the plain twin's exact count (the loop over
+    the CUDA bid_top2 for the factored kernel, ``ref.top2`` for the dense
+    one), so ``rounds_g.amax(1)`` is the telemetry's ``rounds``.  Returns
+    the calls checked."""
+    for i, call in enumerate(calls):
+        kw = call["kw"]
+        if dense:
+            got = phase_kernel.auction_phase_dense(**kw, return_rounds=True)
+            want = ref.auction_phase_dense_ref(**kw, return_rounds=True)
+        else:
+            got = phase_kernel.auction_phase(**kw, return_rounds=True)
+            want = ref.auction_rounds(
+                ref.factored_top2(kw["x"], kw["c"], kw["is_real"],
+                                  cuda_bid_top2),
+                kw["prices"], kw["eps"], kw["max_rounds"],
+                kw["fixed_rounds"], kw["skip"], kw["seed_top2"], True)
+            want = (*want[:2], want[2][None])
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              f"{what}, call {i}: the kernel differs from the loop")
+        check(torch.equal(got[2], want[2]),
+              f"{what}, call {i}: rounds_g {got[2].tolist()} against the "
+              f"plain twin's {want[2].tolist()}")
+    return len(calls)
+
+
+def check_sequencer_lap(dev) -> dict:
+    """Phase 2 at phase 10's sequencer shape (k = 495, the stream route,
+    ``"auction_fused"``): the factored kernel bitwise the loop on every
+    phase of the sequencer's first LAP with equal rounds, bids and
+    single-bidder rounds, its ``rounds_g`` the plain twin's exact count,
+    and the span's pair there against its plain version.  Then the dense
+    kernel's ``rounds_g`` on a G = 3 warm stack of the same LAP with skips,
+    ``fixed_rounds`` and a biting ``max_rounds``."""
+    n, d, _ = PRESETS["diabetes"]
+    k = n // SEQ_BATCH
+    x = torch.from_numpy(make("mixture", n, d, seed=0)[:k * SEQ_BATCH]
+                         ).to(dev)
+
+    def first_lap(kw):
+        if len(rec.calls) == 4:
+            raise _FirstLap
+        return True
+
+    rec = PhaseRecorder(keep=first_lap)
+    try:
+        with rec:  # the sequencer's solve: chunk_size="auto" is 8192 rows
+            aba_stream(x, k, 8192, solver="auction_fused", device=dev)
+    except _FirstLap:
+        pass
+    check(len(rec.calls) == 4, f"{len(rec.calls)} phases recorded")
+    what = f"the sequencer's first LAP (n={k} d={d})"
+    check_phase_calls(rec.calls, what)
+    check_rounds_g(rec.calls, what)
+    err = check_span([rec.calls[0]["kw"]], what)
+    xs = rec.calls[0]["kw"]["x"][0]
+    cs = rec.calls[0]["kw"]["c"][0]
+    cost = (-2.0 * xs @ cs.T + (cs * cs).sum(1)[None])[None].repeat(3, 1, 1)
+    warm = rec.calls[-1]["out"][1].repeat(3, 1)
+    warm[0] = 0.0  # one cold group beside two warm ones
+    checked = 0
+    for cfg in (asg.AuctionConfig(), asg.AuctionConfig(fixed_rounds=40),
+                asg.AuctionConfig(max_rounds=7)):
+        with PhaseRecorder("auction_phase_dense") as dense:
+            asg.auction_solve(cost, cfg, prices=warm, device=dev)
+        checked += check_rounds_g(dense.calls, f"{what} as a G=3 dense "
+                                  f"stack, {cfg}", dense=True)
+    rounds = [int(c["rounds"]) for c in rec.calls]
+    log(f"auction_phase on {what}: 4 phases bitwise the every-round loop "
+        f"over bid_top2, rounds {rounds}, rounds_g the plain twin's exact "
+        f"count; auction_phase_dense rounds_g equal on {checked} G=3 warm "
+        f"launches (skip, fixed_rounds=40, max_rounds=7); span pair "
+        f"max_abs_err {err:.3e}")
+    return {"k": k, "rounds": rounds, "span_err": err,
+            "dense_launches_checked": checked}
+
+
+@contextlib.contextmanager
+def telemetry_specs():
+    """Within the block the data consumers build their engines with
+    ``telemetry=True``, so that ``engine.last_telemetry`` holds each call's
+    per-phase rounds (the sequencer's spec helper)."""
+    inner = minibatch._auto_or_flat_spec
+    minibatch._auto_or_flat_spec = \
+        lambda *a, **kw: inner(*a, **kw).evolve(telemetry=True)
+    try:
+        yield
+    finally:
+        minibatch._auto_or_flat_spec = inner
+
+
+def tele_rounds(engine) -> int:
+    """The rounds the engine's last telemetry sums."""
+    return int(engine.last_telemetry["rounds"].sum())
+
+
+def batch_labels(batches, n: int) -> torch.Tensor:
+    lab = np.zeros(n, np.int64)
+    for b, idx in enumerate(batches):
+        lab[idx] = b
+    return torch.from_numpy(lab)
+
+
+def sequencer_run(dev, n: int, card: str) -> dict:
+    """(a): ``ABABatchSequencer(x, batch_size=512)`` on phase 3's rows (the
+    stream route, ``"auction_fused"``), its cold partition, two warm
+    epochs on drifted features, and ``grow`` by 1 %; each call's wall
+    time, rounds, launches and the rounds its telemetry sums (equal to the
+    kernels'); exact batch sizes, then floor/ceil; the same schedule from a
+    second sequencer; the batches' diversity spread below random
+    batches'."""
+    d = PRESETS["diabetes"][1]
+    x = make("mixture", n, d, seed=0)
+    with telemetry_specs():
+        seq, cold_s, used = session_call(ABABatchSequencer, x, SEQ_BATCH,
+                                         device=dev)
+    k, n_used = seq.k, seq.n_used
+    laps = SEQ_BATCH - 1
+    check((seq.result.route, seq.result.solver) == ("stream", "auction_fused")
+          and used["bid_top2"] == laps and used["auction_phase"] == 4 * laps
+          and used["gather_rows"] > 0 and used["plain_rounds"] == 0,
+          f"(a) the sequencer's partition: {seq.result.route}/"
+          f"{seq.result.solver}, launches {used}")
+    check(isinstance(seq.batches, np.ndarray)
+          and seq.batches.shape == (k, SEQ_BATCH),
+          f"(a) batches of shape {np.shape(seq.batches)}")
+    check(tele_rounds(seq.engine) == used["rounds"],
+          f"(a) telemetry rounds {tele_rounds(seq.engine)} against the "
+          f"kernels' {used['rounds']}")
+    cold = seq.batches.copy()
+    sd, spread = seq.diversity_stats()
+    rand = minibatch.random_sequencer_batches(n_used, SEQ_BATCH)
+    xr = torch.from_numpy(x[:n_used]).to(dev)
+    div_r = diversity_per_cluster(xr, batch_labels(rand, n_used).to(dev),
+                                  k).cpu().numpy()
+    check(sd < float(div_r.std()) and spread < float(np.ptp(div_r)),
+          f"(a) diversity sd {sd} / range {spread} not below random "
+          f"{div_r.std()} / {np.ptp(div_r)}")
+    run = {"k": k, "n_used": n_used, "cold_s": cold_s,
+           "cold_rounds": used["rounds"], "cold_launches": used,
+           "diversity_sd": sd, "diversity_range": spread,
+           "random_sd": float(div_r.std()),
+           "random_range": float(np.ptp(div_r)), "epochs": []}
+    log(f"(a) ABABatchSequencer(batch_size={SEQ_BATCH}) on {card}: k={k} "
+        f"n_used={n_used}, route {seq.result.route} / {seq.result.solver}, "
+        f"partition {cold_s:.3f} s, {used['rounds']} rounds (the telemetry "
+        f"sums {tele_rounds(seq.engine)}), bid_top2 {used['bid_top2']} "
+        f"auction_phase {used['auction_phase']} gather_rows "
+        f"{used['gather_rows']}; batches all {SEQ_BATCH}; diversity sd "
+        f"{sd:.4e} range {spread:.4e} against random batches' "
+        f"{div_r.std():.4e} / {np.ptp(div_r):.4e}")
+    scale, seed = SEQ_DRIFT
+    drift = (x + scale * np.random.default_rng(seed).standard_normal(
+        x.shape)).astype(np.float32)
+    for e in range(2):
+        batches, warm_s, used = session_call(seq.epoch, 1, features=drift)
+        check(used["auction_phase"] == 4 * laps
+              and used["plain_rounds"] == 0
+              and tele_rounds(seq.engine) == used["rounds"],
+              f"(a) warm epoch {e + 1}: launches {used}, telemetry rounds "
+              f"{tele_rounds(seq.engine)}")
+        check(all(len(b) == SEQ_BATCH for b in batches)
+              and [int(b[0]) for b in batches] == [
+                  int(seq.batches[i][0]) for i in
+                  minibatch.epoch_order(seq.seed, 1, k)],
+              f"(a) warm epoch {e + 1}: batch sizes or order")
+        skipped = seq.engine.last_telemetry["skipped"].mean(axis=(0, 2))
+        run["epochs"].append({"seconds": warm_s, "rounds": used["rounds"],
+                              "launches": used,
+                              "skipped_share_by_phase": skipped.tolist()})
+        log(f"  (a) warm epoch(1, features=x + {scale} N(0, 1)) "
+            f"{e + 1}: {warm_s:.3f} s, {used['rounds']} rounds (the "
+            f"telemetry sums {tele_rounds(seq.engine)}), auction_phase "
+            f"{used['auction_phase']}, bid_top2 {used['bid_top2']}; share "
+            f"of LAPs sitting out each phase {np.round(skipped, 3).tolist()}")
+    check(seq.engine.compile_count == 1,
+          f"(a) {seq.engine.compile_count} solve closures for one shape")
+    added = make("mixture", SEQ_GROW, d, seed=1)
+    res, grow_s, used = session_call(seq.grow, added)
+    sizes = sorted({len(b) for b in seq.batches})
+    grown = n_used + SEQ_GROW
+    check(sizes[0] == grown // k and sizes[-1] == -(-grown // k)
+          and seq.n_used == grown
+          and used["auction_phase_dense"] == (1 if res.updated else 0),
+          f"(a) grow: sizes {sizes}, n_used {seq.n_used}, {used}")
+    run.update(grow_s=grow_s, grow_updated=bool(res.updated),
+               grow_launches=used, grow_sizes=sizes)
+    log(f"  (a) grow by {SEQ_GROW} rows: {grow_s:.3f} s, updated="
+        f"{res.updated}, auction_phase_dense {used['auction_phase_dense']} "
+        f"({used['rounds']} rounds), batch sizes {sizes}")
+    again = ABABatchSequencer(x, SEQ_BATCH, device=dev)
+    check(np.array_equal(again.batches, cold),
+          "(a) a second sequencer gave another schedule")
+    log("  (a) a second sequencer on the same rows: the same schedule, "
+        "bitwise")
+    return run
+
+
+def folds_run(dev, n: int, card: str) -> dict:
+    """(b): ``aba_folds(x, 10, categories=class)`` (the stream route with
+    the solver kept ``"auction"``: one ``auction_phase_dense`` launch a
+    LAP), constraint (5) exact, fold sizes within one, ``fold_splits``
+    covering every row once; then ``fold_partition(x, 10)`` (the stream
+    route, ``"auction_fused"``) and one update of 1 % of the rows."""
+    d = PRESETS["diabetes"][1]
+    x = make("mixture", n, d, seed=0)
+    cls = attributes(n)["class"]
+    laps = -(-n // FOLDS) - 1
+    labels, fold_s, used = session_call(aba_folds, x, FOLDS,
+                                        categories=cls, device=dev)
+    check(used["auction_phase_dense"] == laps and used["gather_rows"] > 0
+          and used["plain_rounds"] == 0 and used["auction_phase"] == 0,
+          f"(b) aba_folds launches {used} for {laps} LAPs")
+    check(stratified(labels, cls, FOLDS), "(b) constraint (5) broken")
+    sizes = np.bincount(labels, minlength=FOLDS)
+    check(sizes.max() - sizes.min() <= 1, f"(b) fold sizes {sizes}")
+    seen = np.concatenate([val for _tr, val in fold_splits(labels, FOLDS)])
+    check(np.array_equal(np.sort(seen), np.arange(n)),
+          "(b) fold_splits does not cover every row once")
+    launched = sum(used[name] for name in _build.launches)
+    log(f"(b) aba_folds(x, {FOLDS}, categories=class) on {card}: stream "
+        f"route, solver auction, {fold_s:.3f} s for {laps} LAPs "
+        f"({fold_s / laps * 1e6:.1f} us a LAP, host-bound), "
+        f"auction_phase_dense {used['auction_phase_dense']} gather_rows "
+        f"{used['gather_rows']} ({launched / laps:.4f} of the port's "
+        f"kernels a LAP), {used['rounds']} rounds; constraint (5) exact, "
+        f"fold sizes {sizes.min()}..{sizes.max()}, fold_splits cover every "
+        f"row once")
+    part, live_s, live_used = session_call(fold_partition, x, FOLDS,
+                                           device=dev)
+    check((part.result.route, part.result.solver)
+          == ("stream", "auction_fused")
+          and live_used["auction_phase"] == 4 * laps
+          and live_used["bid_top2"] == laps,
+          f"(b) fold_partition {part.result.route}/{part.result.solver}: "
+          f"{live_used}")
+    m = n // 100
+    removed = np.sort(np.random.default_rng(FOLD_DELTA_SEED).choice(
+        n, m, replace=False))
+    res, upd_s, upd_used = session_call(part.update,
+                                        added=make("mixture", m, d, seed=1),
+                                        removed=removed)
+    balanced(part.labels, FOLDS)
+    check(res.updated and upd_used["auction_phase_dense"] == 1,
+          f"(b) the live folds' update: updated={res.updated} {upd_used}")
+    log(f"  (b) fold_partition(x, {FOLDS}): {live_s:.3f} s "
+        f"({live_s / laps * 1e6:.1f} us a LAP), bid_top2 "
+        f"{live_used['bid_top2']} auction_phase {live_used['auction_phase']}"
+        f"; update of {m} rows out and in: {upd_s:.3f} s, one "
+        f"auction_phase_dense launch ({upd_used['rounds']} rounds), "
+        f"balanced")
+    return {"laps": laps, "folds_s": fold_s, "folds_launches": used,
+            "live_s": live_s, "live_launches": live_used,
+            "update_s": upd_s, "update_launches": upd_used}
+
+
+def serve_burst(burst, dev, **kw) -> tuple:
+    """The burst through a background router with ``telemetry=True``,
+    admitted at once (``partition_many``): (results, seconds, counts,
+    metrics, each lane's last call's rounds a LAP, summed over phases)."""
+    router = AnticlusterRouter(k=ROUTER_K, plan=None, device=dev,
+                               telemetry=True, **kw)
+    try:
+        out, seconds, used = session_call(router.partition_many, burst)
+        lap_rounds = {key: lane.engine.last_telemetry["rounds"].sum(1)
+                      for key, lane in router._lanes.items()}
+        return out, seconds, used, router.metrics(), lap_rounds
+    finally:
+        router.close()
+
+
+def router_run(dev, n: int, card: str) -> dict:
+    """(c): a burst of ROUTER_BURST requests (rows drawn with a seed from
+    ROUTER_ROWS, sliced from phase 3's data, k = 256) through the router
+    stacked (``max_group=8``, row buckets) and one by one (``max_group=1,
+    row_buckets=False``): every ticket balanced, its objective within 1e-3
+    of the request's one-shot ``anticluster``, the bitwise ones counted;
+    the metrics and throughput of both (``telemetry=True``: the stacked
+    call's rounds a LAP, real rows against padding); then a live
+    partition of 16 384
+    rows with two updates of 1 %."""
+    d = PRESETS["diabetes"][1]
+    x = torch.from_numpy(make("mixture", n, d, seed=0)).to(dev)
+    rng = np.random.default_rng(ROUTER_SEED)
+    rows = rng.integers(ROUTER_ROWS[0], ROUTER_ROWS[1] + 1, ROUTER_BURST)
+    starts = rng.integers(0, n - ROUTER_ROWS[1], ROUTER_BURST)
+    burst = [x[s:s + r] for s, r in zip(starts, rows)]
+    oneshot, oneshot_s, used = session_call(
+        lambda: [anticluster(b, k=ROUTER_K, plan=None, device=dev)
+                 for b in burst])
+    oneshot_rounds = used["rounds"]
+    ofv = [float(objective_centroid(b, r.labels, ROUTER_K))
+           for b, r in zip(burst, oneshot)]
+    out = {"rows": [int(r) for r in rows], "oneshot_s": oneshot_s,
+           "oneshot_rounds": oneshot_rounds}
+    for name, kw in (("stacked", {"max_group": ROUTER_GROUP}),
+                     ("one by one", {"max_group": 1,
+                                     "row_buckets": False})):
+        results, seconds, used, m, lap_rounds = serve_burst(burst, dev,
+                                                           **kw)
+        bitwise, worst = 0, 0.0
+        for b, res, one, o in zip(burst, results, oneshot, ofv):
+            balanced(res.labels, ROUTER_K)
+            rel = (float(objective_centroid(b, res.labels, ROUTER_K)) - o) / o
+            check(abs(rel) <= 1e-3, f"(c) {name}: objective {rel:+.2e} "
+                  f"relative to the one-shot call's")
+            worst = max(worst, abs(rel))
+            bitwise += bool(torch.equal(res.labels, one.labels))
+        check(used["auction_phase_dense"] > 0 and used["plain_rounds"] == 0,
+              f"(c) {name}: launches {used}")
+        run = {"seconds": seconds, "requests_per_s": ROUTER_BURST / seconds,
+               "rounds": used["rounds"],
+               "bitwise_oneshot": bitwise, "worst_rel_objective": worst,
+               "launches": used, "stacked_calls": m.stacked_calls,
+               "solo_calls": m.solo_calls, "warm_calls": m.warm_calls,
+               "stack_occupancy": m.stack_occupancy,
+               "row_occupancy": m.row_occupancy,
+               "latency_p50": m.latency_p50, "latency_p99": m.latency_p99,
+               "devices": m.devices}
+        stacked = [r for key, r in lap_rounds.items() if key[0] == "stack"]
+        if stacked:
+            # the bucket's LAPs whose rows are real in every request, and
+            # those that hold padding rows in some (all of them in the
+            # shortest request's last ones)
+            real_laps = int(rows.min()) // ROUTER_K - 1
+            r = stacked[-1]
+            run["lap_rounds_real"] = float(r[:real_laps].mean())
+            run["lap_rounds_padded"] = float(r[real_laps:].mean())
+            log(f"  (c) {name}: the last stacked call's rounds a LAP, "
+                f"mean over LAPs 1..{real_laps} (every request's rows "
+                f"real) {run['lap_rounds_real']:.1f}, over LAPs "
+                f"{real_laps + 1}..{len(r)} (padding rows in some) "
+                f"{run['lap_rounds_padded']:.1f}")
+        out[name] = run
+        log(f"(c) the router, {name} ({kw}) on {card}: {ROUTER_BURST} "
+            f"requests in {seconds:.3f} s ({run['requests_per_s']:.2f} "
+            f"requests/s; the one-shot calls {oneshot_s:.3f} s); stacked "
+            f"calls {m.stacked_calls}, solo {m.solo_calls}, warm "
+            f"{m.warm_calls}, stack occupancy {m.stack_occupancy:.3f}, row "
+            f"occupancy {m.row_occupancy:.4f}, latency p50 "
+            f"{m.latency_p50:.4f} s p99 {m.latency_p99:.4f} s; "
+            f"auction_phase_dense {used['auction_phase_dense']}, "
+            f"{used['rounds']} rounds (the one-shot calls {oneshot_rounds}); "
+            f"every "
+            f"ticket balanced, objective within {worst:.2e} of the one-shot "
+            f"call's, {bitwise} of {ROUTER_BURST} labels bitwise")
+    router = AnticlusterRouter(k=ROUTER_K, plan=None, device=dev)
+    live = x[:LIVE_ROWS]
+    m = LIVE_ROWS // 100
+    times = []
+    try:
+        res, s, _ = session_call(
+            lambda: router.open_partition("live", live).result(timeout=600))
+        times.append(s)
+        balanced(res.labels, ROUTER_K)
+        for i in range(2):
+            removed = np.sort(np.random.default_rng(i).choice(
+                router.live_partition("live").n, m, replace=False))
+            res, s, used = session_call(
+                lambda: router.submit_update(
+                    "live", added=x[LIVE_ROWS + i * m:LIVE_ROWS + (i + 1) * m],
+                    removed=removed).result(timeout=600))
+            balanced(res.labels, ROUTER_K)
+            check(res.updated and used["auction_phase_dense"] == 1,
+                  f"(c) live update {i + 1}: updated={res.updated} {used}")
+            times.append(s)
+        router.close_partition("live")
+        check(router.metrics().live_partitions == 0, "(c) close_partition")
+    finally:
+        router.close()
+    out["live_s"] = times
+    log(f"  (c) a live partition of {LIVE_ROWS} rows: open "
+        f"{times[0]:.3f} s, two updates of {m} rows out and in "
+        f"{times[1]:.3f} / {times[2]:.3f} s (one auction_phase_dense launch "
+        f"each, balanced), closed")
+    return out
+
+
+def observed_call(fn, *args, **kw):
+    """``fn`` under tracing by :func:`session_call`: (output, seconds,
+    counts, the trace's events)."""
+    with obs.tracing() as trace:
+        out, seconds, used = session_call(fn, *args, **kw)
+    return out, seconds, used, trace.snapshot()
+
+
+def repartition_span(events) -> dict:
+    spans = [ev for ev in events if ev["name"] == "engine/repartition"]
+    check(len(spans) == 1, f"{len(spans)} engine/repartition spans")
+    return spans[0]["attrs"]
+
+
+def observability_run(dev, n: int, card: str, default: dict,
+                      stream: dict) -> dict:
+    """(d): tracing on around an engine's flat call (phase 6's spec) and
+    stream call (phase 3's), both with ``telemetry=True``: span and event
+    names and counts, the ``engine/repartition`` span's ``rounds_total``
+    equal to the kernels' rounds, the labels phase 6's and phase 3's; the
+    flat call's middle LAPs profiled with telemetry on (no host read or
+    wait in a LAP), and a one-shot flat call with tracing on (device
+    launches a LAP equal to phase 6's window, tracing off);
+    ``obs.memory_profile`` of the flat and the stream call."""
+    d, k = PRESETS["diabetes"][1], 256
+    x = torch.from_numpy(make("mixture", n, d, seed=0)).to(dev)
+    laps = -(-n // k) - 1
+    out = {}
+    for name, kw, digest, solver, field in (
+            ("flat", {}, default["labels_sha256"], "auction",
+             "solve_stats"),
+            ("stream", {"chunk_size": "auto"}, stream["labels_sha256"],
+             "auction_fused", "factored_stats")):
+        eng = AnticlusterEngine(k=k, telemetry=True, device=dev, **kw)
+        held = []
+        window = lap_window(
+            x, k, dev, solver, field, laps,
+            f"(d) {name} partition with telemetry and tracing on",
+            call=lambda: held.append(observed_call(eng.partition, x)))
+        (res, _state), seconds, used, events = held[0]
+        attrs = repartition_span(events)
+        names = collections.Counter(ev["name"] for ev in events)
+        check(digest_of(res.labels) == digest[:16],
+              f"(d) {name}: labels with telemetry {digest_of(res.labels)} "
+              f"against {digest[:16]} without")
+        check(attrs["rounds_total"] == used["rounds"],
+              f"(d) {name}: rounds_total {attrs['rounds_total']} against "
+              f"the kernels' {used['rounds']}")
+        check(names["solver/phase"] == 4
+              and names.get("stream/plan", 0) == (name == "stream"),
+              f"(d) {name}: events {dict(names)}")
+        out[name] = {"seconds_profiled": seconds, "events": dict(names),
+                     "rounds_total": attrs["rounds_total"],
+                     "kernel_rounds": used["rounds"],
+                     "warm_fraction": attrs["warm_fraction"],
+                     "window": window}
+        log(f"(d) {name} engine partition, telemetry and tracing on: spans "
+            f"and events {dict(names)}; engine/repartition rounds_total "
+            f"{attrs['rounds_total']} = the kernels' {used['rounds']}; "
+            f"labels {digest_of(res.labels)}, those of the call without "
+            f"telemetry")
+    # the default call's middle LAPs profiled with tracing off, then on,
+    # back to back (the process's first profiled window records more
+    # events than later ones)
+    windows, held = {}, []
+    for traced in (False, True):
+        windows[traced] = lap_window(
+            x, k, dev, "auction", "solve", laps,
+            f"(d) the default call with tracing {('off', 'on')[traced]}",
+            call=(lambda: held.append(observed_call(anticluster, x, k=k,
+                                                    device=dev)))
+            if traced else None)
+    names = collections.Counter(ev["name"] for ev in held[0][3])
+    on, off = (windows[t]["device_launches_per_lap"] for t in (True, False))
+    check(on == off and names == {"anticluster": 1},
+          f"(d) tracing on: {on} device launches a LAP against {off} off; "
+          f"events {dict(names)}")
+    out["traced_oneshot"] = {"events": dict(names), "window_on": windows[True],
+                             "window_off": windows[False]}
+    log(f"  (d) the default call with tracing on: events {dict(names)}, "
+        f"{on:.2f} device launches a LAP, with tracing off {off:.2f} "
+        f"(phase 6: {default['window']['device_launches_per_lap']:.2f})")
+    # each call with its statistics (the default) and without them
+    # (stats=False: the solve's own footprint)
+    for name, kw in (("flat", {}), ("stream", {"chunk_size": "auto"})):
+        for stats in (True, False):
+            prof = obs.memory_profile(anticluster, x, k=k, device=dev,
+                                      stats=stats, **kw)
+            check(prof.available and prof.temp_bytes > 0,
+                  f"(d) memory_profile of the {name} call: {prof}")
+            out[f"memory_{name}_stats_{stats}"] = dataclasses.asdict(prof)
+            log(f"  (d) obs.memory_profile of the {name} call, stats="
+                f"{stats}, on {card}: peak {prof.temp_bytes / 2**20:.2f} "
+                f"MiB allocated on the card beyond what was live before, "
+                f"arguments {prof.argument_bytes / 2**20:.2f} MiB, outputs "
+                f"{prof.output_bytes / 2**20:.3f} MiB")
+    return out
+
+
+def consumers(dev, n: int, card: str, default: dict, stream: dict) -> dict:
+    """Phase 10: the engine's consumers at full size on phase 3's rows."""
+    return {"a": sequencer_run(dev, n, card), "b": folds_run(dev, n, card),
+            "c": router_run(dev, n, card),
+            "d": observability_run(dev, n, card, default, stream)}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=PRESETS["diabetes"][0],
@@ -3009,6 +3555,7 @@ def main():
     dense_row["rounds_timed"] = masked_run["rounds_timed"]
     hier_checks = check_hierarchical_phases(dev)
     dense_row["rounds_timed_hier"] = hier_checks["rounds_timed"]
+    hier_checks["sequencer_lap"] = check_sequencer_lap(dev)
     errs = check_entry_kernels(dev, torch.Generator().manual_seed(4))
     entry_rows = measure_entry_kernels(dev, errs)
     rows = solve_rows + [dense_row] + entry_rows
@@ -3057,6 +3604,8 @@ def main():
                 for e, epoch in enumerate(session_run[call]["epochs"])}
             r["launches_phase9"]["(c) update"] = \
                 session_run["c"]["launches"][r["name"]]
+    phase("phase 10: the consumers at full size")
+    consumer_run = consumers(dev, args.n, smi, default_run, main_run)
     phase("done")
 
     log(json.dumps({"main_path": main_run, "against_plain": plain_run,
@@ -3065,7 +3614,7 @@ def main():
                     "constrained_routes": constrained_run,
                     "hierarchical_checks": hier_checks,
                     "hierarchical_routes": hier_run,
-                    "sessions": session_run}))
+                    "sessions": session_run, "consumers": consumer_run}))
     log(smi)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

@@ -8,7 +8,10 @@ LAP, whose bidding rounds and chunk gathers run through hand-written CUDA
 kernels for Hopper (``repro_torch/kernels/csrc``); and the sessions on top
 of it: :class:`AnticlusterEngine` (warm ``repartition``,
 ``dispatch_repartition``, ``update``) and
-``repro_torch.incremental.IncrementalPartition``.  Entry points run on the
+``repro_torch.incremental.IncrementalPartition``; and their consumers:
+``repro_torch.data`` (the mini-batch sequencer, K-fold cross-validation),
+``repro_torch.serve`` (the serving router) and ``repro_torch.obs``
+(tracing, solver telemetry, memory profiles).  Entry points run on the
 CUDA device unless ``device="cpu"`` is passed.  The front door is
 ``from repro_torch.anticluster import anticluster``, as in the JAX package.
 """

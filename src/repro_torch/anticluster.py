@@ -26,11 +26,15 @@ solves: ``partition`` (the cold solve, bitwise ``anticluster``),
 ``repartition`` (every batch LAP warm-started from the carried
 :class:`ABAState` prices), ``dispatch_repartition`` (the same solve
 enqueued from a worker thread on a side CUDA stream) and ``update``
-(delta updates, :mod:`repro_torch.incremental`).
+(delta updates, :mod:`repro_torch.incremental`).  With
+``AnticlusterSpec(telemetry=True)`` the engine keeps the solver's stats of
+its last solve in ``last_telemetry`` (numpy, read once at ``wait()``).
+The reference's spans and events (``anticluster``,
+``engine/repartition``, ``stream/plan``, ``solver/phase``) are recorded
+when :mod:`repro_torch.obs` tracing is enabled.
 
 Not ported yet, and raising ``NotImplementedError`` with the title of the
-ROADMAP Queue 1 item that brings them: ``mesh`` ("Mesh route") and
-``telemetry`` ("Consumers").
+ROADMAP Queue 1 item that brings it: ``mesh`` ("Mesh route").
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch._device import DTYPE, resolve_device
 from repro_torch.core.aba import aba_core, aba_stream
 from repro_torch.core.assignment import AuctionConfig, get_solver
@@ -118,8 +123,6 @@ class AnticlusterSpec:
             _fairness_attrs(self.fairness)  # validate shape and dtype
         if self.mesh is not None:
             _not_ported("mesh=", "Mesh route")
-        if self.telemetry:
-            _not_ported("telemetry=True", "Consumers")
         get_solver(self.solver)  # unknown names and unported solvers raise
 
     def evolve(self, **changes) -> "AnticlusterSpec":
@@ -348,22 +351,30 @@ def _route(spec: AnticlusterSpec, shape: tuple[int, ...],
 
 def _call_core(x, spec: AnticlusterSpec, mode: str, plan, solver: str,
                chunk, cats, n_categories: int, vm, codes=None,
-               n_codes: int = 0, prices=None, return_state: bool = False):
+               n_codes: int = 0, prices=None, return_state: bool = False,
+               telemetry: bool = False):
     """Run one solve on the route's core.  ``cats`` / ``codes`` / ``vm``
     are the constraints from :func:`_resolve_constraints` and the valid
     mask, on ``x``'s device.  ``prices`` is the per-level tuple of an
     :class:`ABAState` (None: the cold start).  The state's ``"prices"`` is
     the per-level tuple (a 1-tuple but on the ``"hier"`` route), as in the
-    JAX front door."""
+    JAX front door.  ``telemetry`` (with ``return_state``) adds the
+    state's ``"telemetry"``: the solver's per-batch stats on the flat,
+    stream and stacked routes, None on ``"hier"`` (its per-level solves
+    have no single batch axis) and for solvers without a telemetry twin."""
     kw = dict(variant=spec.variant, categories=cats,
               n_categories=n_categories, fair_codes=codes,
               n_fair_codes=n_codes, solver=solver,
               auction_config=spec.auction_config,
               return_state=return_state, device=x.device)
     if mode == "hier":
-        return hierarchical_core(x, plan, batched=spec.batched,
-                                 chunk_size=chunk, prices=prices, **kw)
+        out = hierarchical_core(x, plan, batched=spec.batched,
+                                chunk_size=chunk, prices=prices, **kw)
+        if return_state and telemetry:
+            out[1]["telemetry"] = None  # per-level solves: no batch axis
+        return out
     kw["prices"] = None if prices is None else prices[0]
+    kw["telemetry"] = telemetry
     if mode == "stacked":
         out = aba_core(x, spec.k, vm, **kw)
     elif mode == "stream":
@@ -376,9 +387,12 @@ def _call_core(x, spec: AnticlusterSpec, mode: str, plan, solver: str,
     if not return_state:
         return out[0] if mode == "flat" else out
     labels, st = out
-    if mode == "flat":
-        return labels[0], {"prices": (st["prices"],), "mu": st["mu"][0]}
-    return labels, {"prices": (st["prices"],), "mu": st["mu"]}
+    flat = mode == "flat"
+    state = {"prices": (st["prices"],), "mu": st["mu"][0] if flat
+             else st["mu"]}
+    if telemetry:
+        state["telemetry"] = st["telemetry"]
+    return (labels[0] if flat else labels), state
 
 
 def _result_stats(x, labels, k: int, valid_mask=None,
@@ -474,11 +488,23 @@ def anticluster(x, spec: AnticlusterSpec | None = None, device=None,
           else _on(spec.valid_mask, dev, torch.bool))
     mode, plan, solver, chunk = _route(spec, tuple(x.shape),
                                        cats is not None, vm is not None)
-    out = _call_core(x, spec, mode, plan, solver, chunk, cats, n_categories,
-                     vm, codes, n_codes, return_state=spec.stats)
+    with obs.span("anticluster", shape=tuple(x.shape), mode=mode,
+                  solver=solver, k=spec.k):
+        out = _call_core(x, spec, mode, plan, solver, chunk, cats,
+                         n_categories, vm, codes, n_codes,
+                         return_state=spec.stats)
+        _finish_for_trace(dev)
     labels, st = out if spec.stats else (out, None)
     return _result(x, labels, None if st is None else st["prices"], spec,
                    mode, plan, solver, vm)
+
+
+def _finish_for_trace(dev: torch.device) -> None:
+    """With tracing on, wait for the card's queue so that the open span
+    times the solve and not only its enqueueing (a host wait at the end of
+    the call, never inside a LAP; with tracing off, one global read)."""
+    if obs.enabled() and dev.type == "cuda":
+        torch.cuda.current_stream(dev).synchronize()
 
 
 def _rows(x, dev) -> torch.Tensor:
@@ -554,6 +580,10 @@ class AnticlusterEngine:
         self._built = 0
         self._worker: concurrent.futures.ThreadPoolExecutor | None = None
         self._stream = None
+        #: numpy copy of the last solve's solver telemetry (read once, at
+        #: ``wait()``); stays None unless ``spec.telemetry`` is set and the
+        #: route and solver report it
+        self.last_telemetry = None
 
     @property
     def compile_count(self) -> int:
@@ -703,7 +733,16 @@ class AnticlusterEngine:
         fn = self._fns.get(key)
         if fn is None:
             fn = self._fns[key] = self._build(shape, per_call_mask)
-        pending = PendingRepartition(self, x, vm, mode, plan, solver)
+        span = None
+        if obs.enabled():
+            # async span: dispatch and wait() may happen on different
+            # threads and stack frames
+            span = obs.begin("engine/repartition", shape=shape, mode=mode,
+                             solver=solver, k=spec.k,
+                             telemetry=spec.telemetry)
+            if mode == "stream":
+                obs.event("stream/plan", shape=shape, chunk=_chunk)
+        pending = PendingRepartition(self, x, vm, mode, plan, solver, span)
         if not asynchronous:
             pending._out = fn(x, prices, vm)
             return pending
@@ -748,7 +787,8 @@ class AnticlusterEngine:
         def body(x, prices, vm):
             labels, st = _call_core(x, spec, mode, plan, solver, chunk, cats,
                                     ncats, vm, codes, ncodes, prices=prices,
-                                    return_state=True)
+                                    return_state=True,
+                                    telemetry=spec.telemetry)
             # the auction is invariant to a uniform shift: re-centre so the
             # carried state stays bounded over epochs
             new_prices = tuple(p - p.amax(dim=-1, keepdim=True)
@@ -759,7 +799,8 @@ class AnticlusterEngine:
             else:
                 cnt = (x.new_tensor(float(shape[0]), dtype=DTYPE)
                        if vm is None else vm.sum(dtype=DTYPE))
-            return labels, new_prices, st["mu"] * cnt[..., None], cnt
+            return (labels, new_prices, st["mu"] * cnt[..., None], cnt,
+                    st.get("telemetry"))
 
         return body
 
@@ -771,13 +812,17 @@ class PendingRepartition:
     ``ready()`` polls without blocking: the worker has enqueued the solve
     and the card has run it.  ``wait()`` joins the worker (re-raising its
     exception), synchronizes on the solve's end event and finishes the
-    result exactly as ``repartition`` does; it is idempotent.
+    result exactly as ``repartition`` does; it is idempotent.  It also
+    copies the solver telemetry to ``engine.last_telemetry`` (one read
+    from the card, with ``spec.telemetry``) and finishes the
+    ``engine/repartition`` span.
     """
 
-    def __init__(self, engine, x, vm, mode, plan, solver):
+    def __init__(self, engine, x, vm, mode, plan, solver, span=None):
         self._engine = engine
         self._x, self._vm = x, vm
         self._mode, self._plan, self._solver = mode, plan, solver
+        self._span = span
         self._out = None
         self._future: concurrent.futures.Future | None = None
         self._done: tuple | None = None
@@ -804,15 +849,35 @@ class PendingRepartition:
                 # the outputs were allocated on the side stream: keep their
                 # memory from reuse until the caller's stream is done
                 caller = torch.cuda.current_stream(self._engine.device)
-                labels, prices, msum, mcnt = out
-                for t in (labels, msum, mcnt, *prices):
+                labels, prices, msum, mcnt, tele = out
+                for t in (labels, msum, mcnt, *prices,
+                          *(() if tele is None else tele.values())):
                     t.record_stream(caller)
-        labels, prices, msum, mcnt = out
+        labels, prices, msum, mcnt, tele = out
         engine = self._engine
+        if tele is not None:
+            # one read from the card, after the solve: the session keeps
+            # its telemetry on the host
+            engine.last_telemetry = {key: t.cpu().numpy()
+                                     for key, t in tele.items()}
         result = _result(self._x, labels, prices, engine.spec, self._mode,
                          self._plan, self._solver, self._vm)
         state = ABAState(prices=prices, moment_sum=msum, moment_count=mcnt,
                          prev_labels=labels)
+        if self._span is not None:
+            summary = obs.summarize_auction_telemetry(
+                engine.last_telemetry if tele is not None else None)
+            if summary is not None:
+                self._span.set(rounds_total=summary["rounds_total"],
+                               warm_fraction=summary.get("warm_fraction"))
+                trace = obs.active()
+                if trace is not None:
+                    for phase, r in enumerate(summary["rounds_per_phase"]):
+                        trace.event("solver/phase", phase=phase,
+                                    rounds=int(r))
+            _finish_for_trace(engine.device)
+            self._span.finish(gap=result.gap)
         self._done = (result, state)
         self._x = self._vm = self._out = self._future = None
+        self._span = None
         return self._done

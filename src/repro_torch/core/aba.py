@@ -17,8 +17,8 @@ LAP is one kernel launch: ``auction_phase_dense`` on the batch's cost stack
 with the ``"auction"`` solver (and with any solver under the quota mask,
 which cannot be factored), ``auction_phase`` with ``"auction_fused"``.
 
-Solver telemetry is not ported yet and raises with its ROADMAP Queue 1
-item's title ("Remaining solvers").
+``telemetry=True`` (with ``return_state``) adds the solver's per-batch
+stats, stacked along the batch axis on the device, as JAX's cores do.
 """
 
 from __future__ import annotations
@@ -141,11 +141,26 @@ def _as_mask(valid_mask, dev) -> torch.Tensor:
     return torch.as_tensor(valid_mask, device=dev).bool()
 
 
-def _telemetry_not_ported(telemetry: bool):
-    if telemetry:
-        raise NotImplementedError(
-            "telemetry= is not ported to PyTorch yet (ROADMAP Queue 1: "
-            "Remaining solvers)")
+def _check_telemetry(telemetry: bool, return_state: bool):
+    if telemetry and not return_state:
+        raise ValueError("telemetry=True requires return_state=True (the "
+                         "stats pytree rides the state dict)")
+
+
+def _stats_fn(solver_obj, fused: bool, telemetry: bool):
+    """The solve path's telemetry twin, or None (``telemetry`` off, or a
+    solver that registers none: its telemetry is None, as in JAX)."""
+    if not telemetry:
+        return None
+    return solver_obj.factored_stats if fused else solver_obj.solve_stats
+
+
+def _stack_stats(stats: list):
+    """Per-batch stats dicts -> one dict stacked along a leading batch axis
+    (on the device), or None when no batch LAP ran."""
+    if not stats or stats[0] is None:
+        return None
+    return {key: torch.stack([s[key] for s in stats]) for key in stats[0]}
 
 
 def _centrality(xf: torch.Tensor, vm: torch.Tensor | None = None):
@@ -168,7 +183,8 @@ def _use_interleave(variant: str, n: int, k: int) -> bool:
 
 
 def _assign_batch(solver_obj, fused: bool, config, cents, counts, xb,
-                  is_real, prices=None, cat_counts=None, cb=None, ub=None):
+                  is_real, prices=None, cat_counts=None, cb=None, ub=None,
+                  stats_fn=None):
     """One Algorithm-1 batch on a (G, k, ...) stack: solve the LAP against
     the current centroids and fold the rows into the running means.
 
@@ -178,13 +194,15 @@ def _assign_batch(solver_obj, fused: bool, config, cents, counts, xb,
     cluster's count of every code: a cluster is closed for a real row (its
     cost ``_MASK_COST``) once any of the row's codes is at its quota, which
     with A = 1 is constraint (5).  The mask cannot be factored, so the
-    caller passes ``fused`` False with it.  Returns ``(cents, counts,
-    cat_counts, assign, prices)``; the assignment is int64.
+    caller passes ``fused`` False with it.  ``stats_fn`` (the solver's
+    telemetry twin) replaces the solve with its ``(assign, prices, stats)``
+    form.  Returns ``(cents, counts, cat_counts, assign, prices, stats)``,
+    ``stats`` None without ``stats_fn``; the assignment is int64.
     """
     if fused:
         # matrix-free: each auction phase is one auction_phase launch
-        assign, p_out = solver_obj.factored(xb, cents, is_real=is_real,
-                                            config=config, prices=prices)
+        out = (stats_fn or solver_obj.factored)(
+            xb, cents, is_real=is_real, config=config, prices=prices)
     else:
         # reduced cost: the row constant ||x||^2 is dropped (LAP-invariant)
         cost = (-2.0 * torch.einsum("gid,gjd->gij", xb, cents)
@@ -202,7 +220,8 @@ def _assign_batch(solver_obj, fused: bool, config, cents, counts, xb,
             if is_real is not None:
                 closed &= is_real[..., None]
             cost = torch.where(closed, _MASK_COST, cost)
-        assign, p_out = solver_obj.solve(cost, config, prices)
+        out = (stats_fn or solver_obj.solve)(cost, config, prices)
+    assign, p_out = out[:2]
     real = (torch.ones_like(assign) if is_real is None else is_real.long())
     new_counts = counts.scatter_add(1, assign, real)
     a3 = assign[..., None].expand(-1, -1, xb.shape[-1])
@@ -217,7 +236,8 @@ def _assign_batch(solver_obj, fused: bool, config, cents, counts, xb,
         cat_counts = cat_counts.reshape(G, -1).scatter_add(
             1, slot, real[..., None].expand_as(cb).reshape(G, -1)
         ).view(G, k, n_codes)
-    return cents, new_counts, cat_counts, assign, p_out
+    return (cents, new_counts, cat_counts, assign, p_out,
+            out[2] if stats_fn is not None else None)
 
 
 def aba_core(x, k: int, valid_mask=None, *, variant: str = "base",
@@ -240,9 +260,14 @@ def aba_core(x, k: int, valid_mask=None, *, variant: str = "base",
     runs its dense ``solve`` under the quota mask.  ``prices`` ((G, k))
     warm-starts every batch LAP from the same carried vector;
     ``return_state`` also returns ``{"prices": (G, k) final prices of the
-    last batch, "mu": (G, D)}``.  Returns (G, M) int32 labels in [0, k).
+    last batch, "mu": (G, D)}``, and with ``telemetry`` ``"telemetry"``:
+    the solver's per-batch stats stacked along the batch axis (``rounds``
+    (n_batches - 1, P), ``eps`` (n_batches - 1, P, G), ...), or None when
+    only one batch runs or the solve path registers no telemetry twin.
+    Labels and prices are those of the ``telemetry=False`` call.  Returns
+    (G, M) int32 labels in [0, k).
     """
-    _telemetry_not_ported(telemetry)
+    _check_telemetry(telemetry, return_state)
     dev = resolve_device(device)
     xf = as_float(x, dev)
     G, M, D = xf.shape
@@ -304,17 +329,23 @@ def aba_core(x, k: int, valid_mask=None, *, variant: str = "base",
         cat_counts = _first_quota_counts(codes_of(0), real[:, 0], n_codes)
     p_out = (xf.new_zeros((G, k)) if p_in is None else p_in)
     fused = solver_obj.factored is not None and ub is None
+    stats_fn = _stats_fn(solver_obj, fused, telemetry)
+    stats = []
     for b in range(1, n_batches):
-        cents, counts, cat_counts, assign, p_out = _assign_batch(
+        cents, counts, cat_counts, assign, p_out, st = _assign_batch(
             solver_obj, fused, auction_config, cents, counts, rows_of(b),
             None if all_real[b] else real[:, b], prices=p_in,
             cat_counts=cat_counts, cb=None if ub is None else codes_of(b),
-            ub=ub)
+            ub=ub, stats_fn=stats_fn)
         labels.append(assign)
+        stats.append(st)
     out = torch.zeros((G, M + 1), dtype=torch.int64, device=dev).scatter_(
         1, order, torch.cat(labels, dim=1))[:, :M].to(torch.int32)
     if return_state:
-        return out, {"prices": p_out, "mu": mu}
+        state = {"prices": p_out, "mu": mu}
+        if telemetry:
+            state["telemetry"] = _stack_stats(stats)
+        return out, state
     return out
 
 
@@ -342,9 +373,10 @@ def aba_stream(x, k: int, chunk_size: int, *, variant: str = "base",
     Unlike the JAX core, the last chunk is not padded with all-dummy
     sentinel batches: a Python loop has no fixed trip count to fill.  So the
     returned ``state["prices"]`` ((1, k)) are those of the last real batch,
-    as in the dense core.
+    as in the dense core.  ``telemetry`` adds ``state["telemetry"]`` as
+    :func:`aba_core` does, one G = 1 entry a batch.
     """
-    _telemetry_not_ported(telemetry)
+    _check_telemetry(telemetry, return_state)
     dev = resolve_device(device)
     xf = as_float(x, dev)
     n, d = xf.shape
@@ -418,6 +450,8 @@ def aba_stream(x, k: int, chunk_size: int, *, variant: str = "base",
                                          [None], real[0][None], n_codes)
     p_out = (xf.new_zeros((1, k)) if p_in is None else p_in)
     fused = solver_obj.factored is not None and ub is None
+    stats_fn = _stats_fn(solver_obj, fused, telemetry)
+    stats = []
     for c0 in range(1, n_batches, cpb):
         bs = batches[c0:c0 + cpb]
         nb = bs.shape[0]
@@ -425,16 +459,21 @@ def aba_stream(x, k: int, chunk_size: int, *, variant: str = "base",
         cc = None if ub is None else codes[bs.clamp(max=n - 1)]
         for j in range(nb):
             b = c0 + j
-            cents, counts, cat_counts, assign, p_out = _assign_batch(
+            cents, counts, cat_counts, assign, p_out, st = _assign_batch(
                 solver_obj, fused, auction_config, cents, counts,
                 xc[j][None], None if all_real[b] else real[b][None],
                 prices=p_in, cat_counts=cat_counts,
-                cb=None if cc is None else cc[j][None], ub=ub)
+                cb=None if cc is None else cc[j][None], ub=ub,
+                stats_fn=stats_fn)
             labels.append(assign[0])
+            stats.append(st)
     out = torch.zeros((n + 1,), dtype=torch.int64, device=dev).scatter_(
         0, order, torch.cat(labels))[:n].to(torch.int32)
     if return_state:
-        return out, {"prices": p_out, "mu": mu}
+        state = {"prices": p_out, "mu": mu}
+        if telemetry:
+            state["telemetry"] = _stack_stats(stats)
+        return out, state
     return out
 
 

@@ -37,7 +37,15 @@ Differences from the JAX engine, none of which changes a result:
   cost's device (n rounds of a few launches each), not a traced loop;
   ``scipy`` is a host round trip (``.cpu()`` -> ``linear_sum_assignment``
   -> the cost's device), registered with ``host_callback=True``.
-* Solver telemetry is not ported yet (ROADMAP Queue 1: Remaining solvers).
+* The telemetry twins (``return_stats=True``, the registry's
+  ``solve_stats`` / ``factored_stats``) give JAX's stats pytree.  Its
+  ``rounds`` are the phase kernels' per-group ``rounds_g`` (the plain
+  loop's exact per-instance count on the CPU), the longest group's per
+  phase, which is what JAX's stacked while loop counts; they stay on the
+  device.  A cold solve reports ``reentry`` 0, as JAX's ``prices=None``
+  does; the port's engine ``partition`` runs that cold schedule where the
+  JAX engine passes zero prices and reports the probe's re-entry epsilon
+  (ROADMAP departure P6).
 """
 
 from __future__ import annotations
@@ -131,10 +139,13 @@ def _schedule(top2_fn, eps_sched, n: int, config: AuctionConfig,
     The probe's reduction becomes the first phase's first round.  The last
     phase always runs, so the ``n * eps_lo`` bound holds either way.  All
     of it is device work: nothing is read back to the host.
+
+    A fourth element is the telemetry's ``(warm, reentry)``, each (B,), or
+    None for a cold solve.
     """
     B = eps_sched.shape[1]
     if prices0 is None:
-        return eps_sched.new_zeros((B, n)), None, None
+        return eps_sched.new_zeros((B, n)), None, None, None
     prices = prices0.to(DTYPE)
     is_warm = (prices != 0.0).any(dim=1)
     probe = None
@@ -146,7 +157,7 @@ def _schedule(top2_fn, eps_sched, n: int, config: AuctionConfig,
         reentry = torch.full((B,), -math.inf, device=prices.device)
     skip = is_warm[None, :] & (eps_sched > reentry[None, :])
     skip[-1] = False
-    return prices, skip, probe
+    return prices, skip, probe, (is_warm, reentry)
 
 
 def _reentry(probe, eps_sched):
@@ -183,22 +194,72 @@ def _dense_span(cost: torch.Tensor) -> torch.Tensor:
     return (finite.amax(dim=(1, 2)) - finite.amin(dim=(1, 2))).clamp(min=1e-6)
 
 
+def _zero_stats(B: int, config: AuctionConfig, device) -> dict:
+    """The telemetry pytree for solves that run no phases (n == 1)."""
+    zeros = torch.zeros((max(int(config.n_phases), 1), B), dtype=DTYPE,
+                        device=device)
+    return _stats(zeros.long(), zeros, None, None)
+
+
+def _squeeze_stats(stats: dict) -> dict:
+    """Drop the B axis for single-instance (squeezed) solves."""
+    return {"rounds": stats["rounds"], "eps": stats["eps"][:, 0],
+            "warm": stats["warm"][0], "reentry": stats["reentry"][0],
+            "skipped": stats["skipped"][:, 0]}
+
+
+def _stats(rounds_g, eps_sched, skip, warm) -> dict:
+    """JAX's telemetry pytree of one solve, all on the device: ``rounds``
+    (P,) int32, the longest group's rounds of each phase (``rounds_g`` is
+    (P, B)); ``eps`` (P, B); ``warm`` / ``reentry`` (B,); ``skipped``
+    (P, B)."""
+    P, B = eps_sched.shape
+    dev = eps_sched.device
+    if warm is None:
+        is_warm = torch.zeros((B,), dtype=torch.bool, device=dev)
+        reentry = torch.zeros((B,), dtype=DTYPE, device=dev)
+    else:
+        is_warm, reentry = warm
+    return {"rounds": rounds_g.amax(dim=1).to(torch.int32),
+            "eps": eps_sched,
+            "warm": is_warm,
+            "reentry": reentry,
+            "skipped": (torch.zeros((P, B), dtype=torch.bool, device=dev)
+                        if skip is None else skip)}
+
+
 def _solve_dense(cost, config: AuctionConfig, prices=None):
     """(B, n, n) float32 -> ((B, n) int64 assignment, (B, n) prices)."""
+    return _dense(cost, config, prices, False)
+
+
+def _solve_dense_stats(cost, config: AuctionConfig, prices=None):
+    """:func:`_solve_dense` and its telemetry: ``(assign, prices, stats)``
+    with the same assignment and prices (the launch returns the rounds it
+    writes anyway)."""
+    return _dense(cost, config, prices, True)
+
+
+def _dense(cost, config: AuctionConfig, prices, stats: bool):
     B, n, _ = cost.shape
     if n == 1:
-        return (torch.zeros((B, 1), dtype=torch.int64, device=cost.device),
-                cost.new_zeros((B, 1)) if prices is None else prices.to(DTYPE))
+        out = (torch.zeros((B, 1), dtype=torch.int64, device=cost.device),
+               cost.new_zeros((B, 1)) if prices is None
+               else prices.to(DTYPE))
+        return out + (_zero_stats(B, config, cost.device),) if stats else out
     cost = cost.contiguous()
     eps_sched = _eps_schedule(_dense_span(cost), n, config)
-    prices, skip, seed = _schedule(dense_top2(cost), eps_sched, n, config,
-                                   prices)
+    prices, skip, seed, warm = _schedule(dense_top2(cost), eps_sched, n,
+                                         config, prices)
     # the whole schedule is one dispatch: one dense phase kernel launch on
     # the card, the Python loop over the phases on the CPU
-    assign, prices = ops.auction_phase_dense(
+    out = ops.auction_phase_dense(
         cost, prices, eps_sched, _max_rounds(n, config), config.fixed_rounds,
-        skip=skip, seed_top2=seed)
-    return _repair_permutation(assign), prices
+        skip=skip, seed_top2=seed, return_rounds=stats)
+    assign, prices = _repair_permutation(out[0]), out[1]
+    if not stats:
+        return assign, prices
+    return assign, prices, _stats(out[2], eps_sched, skip, warm)
 
 
 def _solve_factored(x, c, is_real, config: AuctionConfig, prices=None):
@@ -208,10 +269,22 @@ def _solve_factored(x, c, is_real, config: AuctionConfig, prices=None):
     rows, whose cost is the neutral constant 0.  Returns int64 assignments
     and the final prices.
     """
+    return _factored(x, c, is_real, config, prices, False)
+
+
+def _solve_factored_stats(x, c, is_real, config: AuctionConfig,
+                          prices=None):
+    """:func:`_solve_factored` and its telemetry: ``(assign, prices,
+    stats)``, the P one-phase launches' rounds stacked to (P, G)."""
+    return _factored(x, c, is_real, config, prices, True)
+
+
+def _factored(x, c, is_real, config: AuctionConfig, prices, stats: bool):
     G, n, _ = x.shape
     if n == 1:
-        return (torch.zeros((G, 1), dtype=torch.int64, device=x.device),
-                x.new_zeros((G, 1)) if prices is None else prices.to(DTYPE))
+        out = (torch.zeros((G, 1), dtype=torch.int64, device=x.device),
+               x.new_zeros((G, 1)) if prices is None else prices.to(DTYPE))
+        return out + (_zero_stats(G, config, x.device),) if stats else out
     # Span for the eps schedule: the max of the cost is bid_top2 at zero
     # prices, its min the max of the negated values (x -> -x, p = 2||c||^2);
     # the two bids are one launch on the card at any G, which forms
@@ -228,26 +301,35 @@ def _solve_factored(x, c, is_real, config: AuctionConfig, prices=None):
         lo = torch.where(any_dummy, lo.clamp(max=0.0), lo)
     span = (hi - lo).clamp(min=1e-6)
     eps_sched = _eps_schedule(span, n, config)
-    prices, skip, seed = _schedule(factored_top2(x, c, is_real, bid_top2),
-                                   eps_sched, n, config, prices)
+    prices, skip, seed, warm = _schedule(
+        factored_top2(x, c, is_real, bid_top2), eps_sched, n, config, prices)
     # every phase is one dispatch: the phase kernel on the card, the Python
     # loop on the CPU
+    rounds = []
     for p in range(eps_sched.shape[0]):
-        assign, prices = ops.auction_phase(
+        out = ops.auction_phase(
             x, c, is_real, prices, eps_sched[p], _max_rounds(n, config),
             config.fixed_rounds, skip=None if skip is None else skip[p],
-            seed_top2=seed if p == 0 else None)
-    return _repair_permutation(assign), prices
+            seed_top2=seed if p == 0 else None, return_rounds=stats)
+        assign, prices = out[:2]
+        rounds.extend(out[2:])
+    assign = _repair_permutation(assign)
+    if not stats:
+        return assign, prices
+    return assign, prices, _stats(torch.cat(rounds), eps_sched, skip, warm)
 
 
 def auction_solve(cost, config: AuctionConfig = AuctionConfig(), *,
-                  prices=None, return_prices: bool = False, device=None):
+                  prices=None, return_prices: bool = False,
+                  return_stats: bool = False, device=None):
     """eps-optimal max-cost assignment of an (n, n) matrix or (B, n, n) stack.
 
     Returns ``row_to_col`` (int32, (n,) or (B, n)); instance b of a stack
     gets exactly ``auction_solve(cost[b])``.  ``prices`` ((n,) / (B, n))
     warm-starts the schedule; ``return_prices`` also returns the final
-    prices.
+    prices; ``return_stats`` returns ``(row_to_col, prices, stats)``, the
+    telemetry pytree of JAX's ``_run_phases`` (the B axis dropped for an
+    (n, n) input), with the same assignment and prices.
     """
     dev = resolve_device(device)
     cost = as_float(cost, dev)
@@ -258,24 +340,35 @@ def auction_solve(cost, config: AuctionConfig = AuctionConfig(), *,
     p = None if prices is None else as_float(prices, dev)
     if squeeze:
         cost, p = cost[None], None if p is None else p[None]
-    out, p_out = _solve_dense(cost, config, p)
-    out = out.to(torch.int32)
+    return _public(_dense(cost, config, p, return_stats), squeeze,
+                   return_prices or return_stats)
+
+
+def _public(out, squeeze: bool, with_prices: bool):
+    """A public solver's return: int32 ``row_to_col``, then the prices and
+    the stats as asked, the instance axis dropped for a single instance."""
+    assign, p_out = out[0].to(torch.int32), out[1]
+    stats = out[2] if len(out) > 2 else None
     if squeeze:
-        out, p_out = out[0], p_out[0]
-    return (out, p_out) if return_prices else out
+        assign, p_out = assign[0], p_out[0]
+        stats = None if stats is None else _squeeze_stats(stats)
+    if stats is not None:
+        return assign, p_out, stats
+    return (assign, p_out) if with_prices else assign
 
 
 def auction_solve_factored(x, c, *, is_real=None,
                            config: AuctionConfig = AuctionConfig(),
                            prices=None, return_prices: bool = False,
-                           device=None):
+                           return_stats: bool = False, device=None):
     """Matrix-free auction on ``cost[i, j] = -2 x_i . c_j + ||c_j||^2``.
 
     Takes a single ``(n, d) x (n, d)`` problem or a stacked
     ``(G, n, d) x (G, n, d)`` batch; on the card every epsilon phase is one
     ``auction_phase`` launch, so the (n, n) value matrix is never built.
     ``is_real`` marks real rows (dummy rows cost 0).  Returns ``row_to_col``
-    int32, plus the final prices with ``return_prices``.
+    int32, plus the final prices with ``return_prices``; ``return_stats``
+    returns ``(row_to_col, prices, stats)`` as :func:`auction_solve` does.
     """
     dev = resolve_device(device)
     x, c = as_float(x, dev), as_float(c, dev)
@@ -288,12 +381,9 @@ def auction_solve_factored(x, c, *, is_real=None,
         x, c = x[None], c[None]
         p = None if p is None else p[None]
         r = None if r is None else r[None]
-    out, p_out = _solve_factored(x, c, None if r is None else r.bool(),
-                                 config, p)
-    out = out.to(torch.int32)
-    if squeeze:
-        out, p_out = out[0], p_out[0]
-    return (out, p_out) if return_prices else out
+    return _public(_factored(x, c, None if r is None else r.bool(), config,
+                             p, return_stats), squeeze,
+                   return_prices or return_stats)
 
 
 def solve_restricted_slots(cost, mandatory, *, solver: str = "auction",
@@ -392,12 +482,17 @@ class Solver(NamedTuple):
     ||c||^2``.  ``host_callback`` marks backends that solve on the host
     (``"scipy"``): the engine's non-blocking
     ``AnticlusterEngine.dispatch_repartition`` refuses them, since their
-    solve holds the host thread anyway.
+    solve holds the host thread anyway.  ``solve_stats`` /
+    ``factored_stats`` are the optional telemetry twins: the signatures of
+    ``solve`` / ``factored``, returning ``(row_to_col, prices, stats)``.
+    Backends without them report no telemetry (``None``).
     """
 
     solve: Callable
     factored: Callable | None = None
     host_callback: bool = False
+    solve_stats: Callable | None = None
+    factored_stats: Callable | None = None
 
 
 _REGISTRY: dict[str, Solver] = {}
@@ -438,6 +533,8 @@ def _legacy_factored_shim(factored: Callable) -> Callable:
 def register_solver(name: str, solve: Callable, *,
                     factored: Callable | None = None,
                     host_callback: bool = False,
+                    solve_stats: Callable | None = None,
+                    factored_stats: Callable | None = None,
                     overwrite: bool = False) -> Solver:
     """Register a LAP backend under ``name`` (see :class:`Solver`).
 
@@ -464,7 +561,9 @@ def register_solver(name: str, solve: Callable, *,
             DeprecationWarning, stacklevel=2)
         factored = _legacy_factored_shim(factored)
     _REGISTRY[name] = Solver(solve=solve, factored=factored,
-                             host_callback=host_callback)
+                             host_callback=host_callback,
+                             solve_stats=solve_stats,
+                             factored_stats=factored_stats)
     return _REGISTRY[name]
 
 
@@ -484,6 +583,11 @@ def _factored_entry(x, c, *, is_real=None, config=AuctionConfig(),
     return _solve_factored(x, c, is_real, config, prices)
 
 
+def _factored_stats_entry(x, c, *, is_real=None, config=AuctionConfig(),
+                          prices=None):
+    return _solve_factored_stats(x, c, is_real, config, prices)
+
+
 def _greedy_entry(cost, config=AuctionConfig(), prices=None):
     del config  # greedy has no tuning knobs
     return greedy_solve(cost), _prices_or_zeros(cost, prices)
@@ -501,7 +605,9 @@ def _scipy_entry(cost, config=AuctionConfig(), prices=None):
     return out[0] if squeeze else out, _prices_or_zeros(cost, prices)
 
 
-register_solver("auction", _solve_dense)
-register_solver("auction_fused", _solve_dense, factored=_factored_entry)
+register_solver("auction", _solve_dense, solve_stats=_solve_dense_stats)
+register_solver("auction_fused", _solve_dense, factored=_factored_entry,
+                solve_stats=_solve_dense_stats,
+                factored_stats=_factored_stats_entry)
 register_solver("greedy", _greedy_entry)
 register_solver("scipy", _scipy_entry, host_callback=True)

@@ -39,6 +39,7 @@ import warnings
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch._device import DTYPE
 from repro_torch.anticluster import (ABAState, AnticlusterEngine,
                                      AnticlusterResult, AnticlusterSpec,
@@ -206,8 +207,16 @@ def engine_update(engine: AnticlusterEngine, x, state: ABAState, *,
 
     Flat, streamed and hierarchical category-free sessions only; stacked,
     categorical and masked sessions raise ``NotImplementedError``
-    (repartition instead).
+    (repartition instead).  Recorded as the ``engine/update`` span when
+    :mod:`repro_torch.obs` tracing is enabled.
     """
+    with obs.span("engine/update") as sp:
+        return _engine_update(engine, x, state, sp, added=added,
+                              removed=removed)
+
+
+def _engine_update(engine: AnticlusterEngine, x, state: ABAState, sp, *,
+                   added=None, removed=None):
     spec = engine.spec
     x = engine._rows(x)
     shape = tuple(x.shape)
@@ -245,6 +254,7 @@ def engine_update(engine: AnticlusterEngine, x, state: ABAState, *,
     keep = _removed_mask(removed, n)
     r = int((~keep).sum())
     m = 0 if added_x is None else int(added_x.shape[0])
+    sp.set(n=n, added=m, removed=r, fallback=False)
 
     if m == 0 and r == 0:
         # a zero delta IS a repartition
@@ -264,6 +274,7 @@ def engine_update(engine: AnticlusterEngine, x, state: ABAState, *,
     new_x = x_kept if m == 0 else torch.cat([x_kept, added_x])
 
     def _fallback(reason: str):
+        sp.set(fallback=True, reason=reason)
         warnings.warn(
             f"update(added={m}, removed={r}) on n={n}: {reason}; falling "
             "back to a full warm repartition of the post-delta rows "

@@ -35,7 +35,8 @@ _totals: dict[tuple[int, int], torch.Tensor] = {}
 
 
 def auction_phase(x, c, is_real, prices, eps, max_rounds: int,
-                  fixed_rounds: int = 0, skip=None, seed_top2=None):
+                  fixed_rounds: int = 0, skip=None, seed_top2=None,
+                  return_rounds: bool = False):
     """One epsilon phase of the factored auction on each group of a stack.
 
     x, c (G, n, d) float32 rows and centroids (cost ``-2 x_i.c_j +
@@ -43,14 +44,19 @@ def auction_phase(x, c, is_real, prices, eps, max_rounds: int,
     (G, n) float32; eps (G,) float32; ``skip`` (G,) bool or None (rows of
     those groups start on the identity); ``seed_top2`` (v1, j1, v2), each
     (G, n), the first round's reduction, or None.  Returns ``(assign (G, n)
-    int64 with -1 for an unassigned row, prices (G, n))``.
+    int64 with -1 for an unassigned row, prices (G, n))``, and with
+    ``return_rounds`` the launch's (1, G) int64 ``rounds_g``, on the
+    device: the rounds each group ran (``fixed_rounds`` when that is > 0;
+    the seeded round counts, a skipped unseeded group ran 0).
     """
     _check_shapes(x, c, is_real, prices, eps, skip, seed_top2)
     if not x.is_cuda:
         return auction_phase_ref(x, c, is_real, prices, eps, max_rounds,
-                                 fixed_rounds, skip, seed_top2)
-    return _launch(x, c, is_real, prices, eps, max_rounds, fixed_rounds,
-                   skip, seed_top2)
+                                 fixed_rounds, skip, seed_top2,
+                                 return_rounds)
+    out = _launch(x, c, is_real, prices, eps, max_rounds, fixed_rounds,
+                  skip, seed_top2)
+    return out if return_rounds else out[:2]
 
 
 def auction_phase_timed(x, c, is_real, prices, eps, max_rounds: int,
@@ -71,14 +77,16 @@ def auction_phase_timed(x, c, is_real, prices, eps, max_rounds: int,
     """
     _check_shapes(x, c, is_real, prices, eps, skip, seed_top2)
     trace = _trace(x, trace_rounds, threshold)
-    assign, p_out = _launch(x, c, is_real, prices, eps, max_rounds,
-                            fixed_rounds, skip, seed_top2,
-                            timed=(trace.data_ptr(), trace_rounds, threshold))
+    assign, p_out, _ = _launch(x, c, is_real, prices, eps, max_rounds,
+                               fixed_rounds, skip, seed_top2,
+                               timed=(trace.data_ptr(), trace_rounds,
+                                      threshold))
     return assign, p_out, trace
 
 
 def auction_phase_dense(cost, prices, eps, max_rounds: int,
-                        fixed_rounds: int = 0, skip=None, seed_top2=None):
+                        fixed_rounds: int = 0, skip=None, seed_top2=None,
+                        return_rounds: bool = False):
     """The P epsilon phases of the dense-cost auction on each group of a
     stack, phase after phase, in one launch.
 
@@ -91,14 +99,18 @@ def auction_phase_dense(cost, prices, eps, max_rounds: int,
     before; ``max_rounds`` and ``fixed_rounds`` hold in each.  Returns the
     last phase's ``(assign (G, n) int64 with -1 for an unassigned row,
     prices (G, n))``, bitwise those of ``ref.auction_rounds`` over
-    ``ref.top2`` of ``cost - p``, phase after phase.
+    ``ref.top2`` of ``cost - p``, phase after phase.  ``return_rounds`` also
+    returns the launch's (P, G) int64 ``rounds_g``, on the device: the
+    rounds of every phase and group, as :func:`auction_phase` counts them.
     """
     _check_dense_shapes(cost, prices, eps, skip, seed_top2)
     if not cost.is_cuda:
         return auction_phase_dense_ref(cost, prices, eps, max_rounds,
-                                       fixed_rounds, skip, seed_top2)
-    return _launch_dense(cost, prices, eps, max_rounds, fixed_rounds, skip,
-                         seed_top2)
+                                       fixed_rounds, skip, seed_top2,
+                                       return_rounds)
+    out = _launch_dense(cost, prices, eps, max_rounds, fixed_rounds, skip,
+                        seed_top2)
+    return out if return_rounds else out[:2]
 
 
 def auction_phase_dense_timed(cost, prices, eps, max_rounds: int,
@@ -111,7 +123,7 @@ def auction_phase_dense_timed(cost, prices, eps, max_rounds: int,
     launch's phases.  CUDA tensors only."""
     _check_dense_shapes(cost, prices, eps, skip, seed_top2)
     trace = _trace(cost, trace_rounds, threshold)
-    assign, p_out = _launch_dense(
+    assign, p_out, _ = _launch_dense(
         cost, prices, eps, max_rounds, fixed_rounds, skip, seed_top2,
         timed=(trace.data_ptr(), trace_rounds, threshold))
     return assign, p_out, trace
@@ -180,7 +192,7 @@ def _launch(x, c, is_real, prices, eps, max_rounds, fixed_rounds, skip,
                   rounds.data_ptr(), counters.data_ptr(), scratch.data_ptr(),
                   G, n, d, max_rounds, fixed_rounds, *timed, stream,
                   symbol="auction_phase_timed_f32" if timed else None)
-    return assign, p_out
+    return assign, p_out, rounds
 
 
 def _launch_dense(cost, prices, eps, max_rounds, fixed_rounds, skip,
@@ -202,7 +214,7 @@ def _launch_dense(cost, prices, eps, max_rounds, fixed_rounds, skip,
                   counters.data_ptr(), scratch.data_ptr(), G, n, P,
                   max_rounds, fixed_rounds, *timed, stream,
                   symbol="auction_phase_dense_timed_f32" if timed else None)
-    return assign, p_out
+    return assign, p_out, rounds
 
 
 def _check_shapes(x, c, is_real, prices, eps, skip, seed_top2):

@@ -134,24 +134,29 @@ def bid_top2_span(x: torch.Tensor, c: torch.Tensor):
 
 def auction_phase(x: torch.Tensor, c: torch.Tensor, is_real, prices, eps,
                   max_rounds: int, fixed_rounds: int = 0, *, skip=None,
-                  seed_top2=None):
+                  seed_top2=None, return_rounds: bool = False):
     """One epsilon phase of the factored auction on a (G, n, d) stack (see
-    ``kernels.auction_phase.auction_phase``); returns (assign, prices)."""
+    ``kernels.auction_phase.auction_phase``); returns (assign, prices), and
+    with ``return_rounds`` the (1, G) rounds of each group."""
     if resolve_path(x) == "ref":
         return auction_phase_ref(x, c, is_real, prices, eps, max_rounds,
-                                  fixed_rounds, skip, seed_top2)
+                                  fixed_rounds, skip, seed_top2,
+                                  return_rounds)
     return _auction_phase(x, c, is_real, prices, eps, max_rounds,
-                          fixed_rounds, skip, seed_top2)
+                          fixed_rounds, skip, seed_top2, return_rounds)
 
 
 def auction_phase_dense(cost: torch.Tensor, prices, eps, max_rounds: int,
-                        fixed_rounds: int = 0, *, skip=None, seed_top2=None):
+                        fixed_rounds: int = 0, *, skip=None, seed_top2=None,
+                        return_rounds: bool = False):
     """The P epsilon phases of a (P, G) schedule ``eps`` (``skip`` (P, G) or
     None) of the dense-cost auction on a (G, n, n) cost stack, phase after
     phase (see ``kernels.auction_phase.auction_phase_dense``); returns the
-    last phase's (assign, prices)."""
+    last phase's (assign, prices), and with ``return_rounds`` the (P, G)
+    rounds of every phase and group."""
     if resolve_path(cost) == "ref":
         return auction_phase_dense_ref(cost, prices, eps, max_rounds,
-                                       fixed_rounds, skip, seed_top2)
+                                       fixed_rounds, skip, seed_top2,
+                                       return_rounds)
     return _auction_phase_dense(cost, prices, eps, max_rounds, fixed_rounds,
-                                skip, seed_top2)
+                                skip, seed_top2, return_rounds)

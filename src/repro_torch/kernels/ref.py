@@ -163,7 +163,8 @@ def ssm_scan_ref(dt, b_in, c_out, x_in, a_mat):
 
 
 def auction_rounds(top2_fn, prices, eps, max_rounds: int,
-                   fixed_rounds: int = 0, skip=None, seed_top2=None):
+                   fixed_rounds: int = 0, skip=None, seed_top2=None,
+                   return_rounds: bool = False):
     """One epsilon phase of batched Jacobi forward auction (maximization).
 
     ``top2_fn(prices)`` returns the per-row ``(v1, j1, v2)`` of
@@ -171,11 +172,18 @@ def auction_rounds(top2_fn, prices, eps, max_rounds: int,
     Every row starts unassigned, except in instances marked by ``skip``
     ((B,) bool), whose rows start on the identity and so never bid.
     ``seed_top2`` is the first round's reduction, already computed by the
-    caller at the incoming prices.  Returns ``(row_to_col, prices)``.
+    caller at the incoming prices.  Returns ``(row_to_col, prices)``, and
+    with ``return_rounds`` also the (B,) int64 rounds each instance ran, as
+    the phase kernels write them to ``rounds_g``: the rounds that began
+    with an unassigned row of the instance (the no-op rounds between two
+    tests of the predicate are not counted), the seeded round always, and
+    ``fixed_rounds`` when that is > 0.  The count stays on the device.
     """
     global rounds_executed
     B, n = prices.shape
     dev = prices.device
+    ran = (torch.zeros(B, dtype=torch.int64, device=dev)
+           if return_rounds and not fixed_rounds else None)
     rows = torch.arange(n, device=dev).expand(B, n)
     # Column n of these buffers is a dump slot: a scatter to it is the JAX
     # ``mode="drop"``, and an unassigned row (-1) reads it as "no object".
@@ -194,9 +202,11 @@ def auction_rounds(top2_fn, prices, eps, max_rounds: int,
     # -inf, below the NEG floor of every object's best bid, so they are
     # never the best bidder; and the lost-object test reads got_bid through
     # the dump column, which is False.
-    def body(prices, top2):
+    def body(prices, top2, seeded=False):
         bidders = (assign < 0).sum(dim=1)
         counts.add_(torch.stack((bidders.sum(), (bidders == 1).sum())))
+        if ran is not None:
+            ran.add_(1 if seeded else bidders > 0)
         v1, j1, v2 = top2
         # Bid: raise the favourite object's price past the runner-up by eps.
         bids = v1 + prices.gather(1, j1) - v2 + eps
@@ -218,18 +228,23 @@ def auction_rounds(top2_fn, prices, eps, max_rounds: int,
 
     it = 0
     if seed_top2 is not None:
-        prices = body(prices, seed_top2)
+        prices = body(prices, seed_top2, seeded=True)
         it = 1
     if fixed_rounds:
         for _ in range(max(fixed_rounds - it, 0)):
             prices = body(prices, top2_fn(prices))
         rounds_executed += fixed_rounds
+        if return_rounds:
+            return assign, prices, torch.full((B,), fixed_rounds,
+                                              dtype=torch.int64, device=dev)
         return assign, prices
     while it < max_rounds and bool((assign < 0).any()):
         for _ in range(min(_CHECK_EVERY, max_rounds - it)):
             prices = body(prices, top2_fn(prices))
             it += 1
     rounds_executed += it
+    if return_rounds:
+        return assign, prices, ran
     return assign, prices
 
 
@@ -251,11 +266,15 @@ def factored_top2(x, c, is_real, bid_top2=bid_top2_ref):
 
 
 def auction_phase_ref(x, c, is_real, prices, eps, max_rounds: int,
-                      fixed_rounds: int = 0, skip=None, seed_top2=None):
+                      fixed_rounds: int = 0, skip=None, seed_top2=None,
+                      return_rounds: bool = False):
     """The plain version of the ``auction_phase`` kernel: the Python round
-    loop over the plain factored reduction (see ``kernels.auction_phase``)."""
-    return auction_rounds(factored_top2(x, c, is_real), prices, eps,
-                          max_rounds, fixed_rounds, skip, seed_top2)
+    loop over the plain factored reduction (see ``kernels.auction_phase``).
+    ``return_rounds`` also returns the (1, G) rounds of each group."""
+    out = auction_rounds(factored_top2(x, c, is_real), prices, eps,
+                         max_rounds, fixed_rounds, skip, seed_top2,
+                         return_rounds)
+    return (*out[:2], out[2][None]) if return_rounds else out
 
 
 def dense_top2(cost):
@@ -267,18 +286,25 @@ def dense_top2(cost):
 
 
 def auction_phase_dense_ref(cost, prices, eps, max_rounds: int,
-                            fixed_rounds: int = 0, skip=None, seed_top2=None):
+                            fixed_rounds: int = 0, skip=None, seed_top2=None,
+                            return_rounds: bool = False):
     """The plain version of the ``auction_phase_dense`` kernel: the Python
     round loop over the dense reduction (see ``kernels.auction_phase``),
     once for each of the P phases of the (P, G) schedule ``eps``.  Each
     phase starts with every row unassigned (but in the groups ``skip[p]``
     marks) and with the prices of the phase before; ``seed_top2`` is the
     first phase's first reduction.  Returns the last phase's
-    ``(assign, prices)``."""
+    ``(assign, prices)``, and with ``return_rounds`` the (P, G) rounds of
+    every phase and group (see :func:`auction_rounds`)."""
     top2_fn = dense_top2(cost)
+    rounds = []
     for p in range(eps.shape[0]):
-        assign, prices = auction_rounds(
+        out = auction_rounds(
             top2_fn, prices, eps[p], max_rounds, fixed_rounds,
             None if skip is None else skip[p],
-            seed_top2 if p == 0 else None)
+            seed_top2 if p == 0 else None, return_rounds)
+        assign, prices = out[:2]
+        rounds.extend(out[2:])
+    if return_rounds:
+        return assign, prices, torch.stack(rounds)
     return assign, prices

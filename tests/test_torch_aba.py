@@ -16,9 +16,11 @@ import torch
 
 import jax.numpy as jnp
 
+from repro.anticluster import AnticlusterEngine as JaxEngine
 from repro.anticluster import AnticlusterSpec as JaxSpec
 from repro.anticluster import _route as jax_route
 from repro.anticluster import anticluster as jax_anticluster
+from repro.core.aba import aba_core as jax_aba_core
 from repro.core.aba import aba_stream as jax_aba_stream
 from repro.core import objective as jax_obj
 from repro.core.objective import objective_centroid as jax_objective
@@ -219,44 +221,71 @@ def _out_of_slice(kw, title):
                         id=key + "=" + str(next(iter(kw.values())))[:12])
 
 
+def _layout(tele):
+    """{key: (shape, dtype name)} of a telemetry pytree, or None."""
+    if tele is None:
+        return None
+    return {key: (tuple(np.shape(v)), np.asarray(v).dtype.name)
+            for key, v in tele.items()}
+
+
 @pytest.mark.parametrize("kw,title", [
     _out_of_slice({"fairness": np.zeros(64, np.int32), "mesh": object()},
                   "Mesh route"),
     _out_of_slice({"mesh": object()}, "Mesh route"),
-    _out_of_slice({"telemetry": True}, "Consumers"),
+    # telemetry is ported: these run, with JAX's layout (None for scipy)
+    _out_of_slice({"telemetry": True}, None),
     # the greedy and scipy solvers are ported: with them, the fields still
     # out of the slice raise as before
     _out_of_slice({"solver": "greedy", "mesh": object()}, "Mesh route"),
-    _out_of_slice({"solver": "scipy", "telemetry": True}, "Consumers"),
+    _out_of_slice({"solver": "scipy", "telemetry": True}, None),
 ])
 def test_out_of_slice_fields_raise(kw, title):
-    """Each raises naming its ROADMAP Queue 1 item by a title that the
-    ROADMAP has (an item's title, not its number, which a re-anchor may
-    change)."""
-    assert any(t.startswith(title) for t in _queue1_titles()), title
+    """Each field out of the slice raises naming its ROADMAP Queue 1 item
+    by a title that the ROADMAP has (an item's title, not its number,
+    which a re-anchor may change); ``telemetry=True`` runs and gives JAX's
+    telemetry layout."""
     kw = {"k": 4, **kw}
+    x = _data(64, 4)
+    if title is None:
+        res = anticluster(x, device=CPU, **kw)
+        assert res.balanced
+        eng = AnticlusterEngine(AnticlusterSpec(**kw), device=CPU)
+        jeng = JaxEngine(JaxSpec(**kw))
+        eng.partition(x)
+        jeng.partition(x)
+        assert _layout(eng.last_telemetry) == _layout(jeng.last_telemetry)
+        assert (eng.last_telemetry is None) == (kw.get("solver") == "scipy")
+        return
+    assert any(t.startswith(title) for t in _queue1_titles()), title
     with pytest.raises(NotImplementedError,
                        match=re.escape(f"ROADMAP Queue 1: {title}")):
-        anticluster(_data(64, 4), device=CPU, **kw)
+        anticluster(x, device=CPU, **kw)
 
 
 def test_out_of_slice_core_arguments_and_engine_raise():
     x = _data(64, 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        AnticlusterEngine(AnticlusterSpec(k=4, telemetry=True), device=CPU)
-    titles = _queue1_titles()
-    for call, title in (
-            (lambda: aba_core(x[None], 4, telemetry=True, device=CPU),
-             "Remaining solvers"),
-            (lambda: aba_stream(x, 4, 32, telemetry=True, device=CPU),
-             "Remaining solvers"),
-            (lambda: AnticlusterEngine(AnticlusterSpec(k=4, telemetry=True),
-                                       device=CPU),
-             "Consumers")):
-        assert any(t.startswith(title) for t in titles), title
-        with pytest.raises(NotImplementedError,
-                           match=re.escape(f"ROADMAP Queue 1: {title}")):
-            call()
+    # telemetry is ported: the cores and the engine run with it and give
+    # JAX's layout; the cores still need return_state, as JAX's do
+    eng = AnticlusterEngine(AnticlusterSpec(k=4, telemetry=True), device=CPU)
+    jeng = JaxEngine(JaxSpec(k=4, telemetry=True))
+    for call, jax_call in (
+            (lambda: aba_core(x[None], 4, telemetry=True, return_state=True,
+                              device=CPU)[1]["telemetry"],
+             lambda: jax_aba_core(jnp.asarray(x)[None], 4, telemetry=True,
+                                  return_state=True)[1]["telemetry"]),
+            (lambda: aba_stream(x, 4, 32, telemetry=True, return_state=True,
+                                device=CPU)[1]["telemetry"],
+             lambda: jax_aba_stream(jnp.asarray(x), 4, 32, telemetry=True,
+                                    return_state=True)[1]["telemetry"]),
+            (lambda: (eng.partition(x), eng.last_telemetry)[1],
+             lambda: (jeng.partition(x), jeng.last_telemetry)[1])):
+        port = _layout(call())
+        assert port is not None and port == _layout(jax_call())
+    for core in (lambda: aba_core(x[None], 4, telemetry=True, device=CPU),
+                 lambda: aba_stream(x, 4, 32, telemetry=True, device=CPU)):
+        with pytest.raises(ValueError, match="return_state"):
+            core()
     # the engine is ported; a delta update of a categorical session is not
     # a local patch, and raises
     engine = AnticlusterEngine(AnticlusterSpec(

@@ -967,3 +967,159 @@ def test_cuda_dispatch_repartition_equals_repartition(cuda):
     res_r, st_r = eng.repartition(x2, state)
     assert torch.equal(res_d.labels, res_r.labels)
     assert torch.equal(st_d.prices[0], st_r.prices[0])
+
+
+def _loop_rounds(kw):
+    """The factored phase by the Python round loop over the CUDA bid_top2
+    kernel, with its exact per-group rounds, (1, G)."""
+    out = ref.auction_rounds(
+        ref.factored_top2(kw["x"], kw["c"], kw["is_real"], cuda_bid_top2),
+        kw["prices"], kw["eps"], kw["max_rounds"], kw["fixed_rounds"],
+        kw["skip"], kw["seed_top2"], return_rounds=True)
+    return out[0], out[1], out[2][None]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["cold", "warm", "fixed_rounds",
+                                  "max_rounds"])
+def test_cuda_phase_kernels_rounds_g_equal_the_plain_count(cuda, monkeypatch,
+                                                           case):
+    """The kernels' per-phase, per-group ``rounds_g`` equal the plain
+    twins' exact counts (the rounds that began with an unassigned row of
+    the group, the seeded round, ``fixed_rounds``), so their ``amax(1)``
+    is the telemetry's ``rounds``: the dense kernel on a G = 3 stack (with
+    a cold group beside two warm ones), and the factored one phase by
+    phase on a G = 3 stack."""
+    rng = np.random.default_rng(31)
+    G, n, d = 3, 96, 8
+    x = torch.from_numpy(rng.normal(size=(G, n, d)).astype(np.float32))
+    c = torch.from_numpy(rng.normal(size=(G, n, d)).astype(np.float32))
+    x, c = x.to(cuda), c.to(cuda)
+    cost = -2.0 * torch.einsum("gid,gjd->gij", x, c) \
+        + (c * c).sum(-1)[:, None, :]
+    cfg = {"fixed_rounds": asg.AuctionConfig(fixed_rounds=30),
+           "max_rounds": asg.AuctionConfig(max_rounds=9)}.get(
+               case, asg.AuctionConfig())
+    prices = None
+    if case == "warm":
+        _, prices = asg.auction_solve(cost, return_prices=True, device=cuda)
+        prices = prices.clone()
+        prices[0] = 0.0
+    calls = {"auction_phase_dense": [], "auction_phase": []}
+    for name in calls:
+        def recorded(*a, _inner=getattr(ops, name), _calls=calls[name],
+                     **kw):
+            _calls.append((a, {**kw, "return_rounds": True}))
+            return _inner(*a, **kw)
+        monkeypatch.setattr(ops, name, recorded)
+    _, _, st = asg.auction_solve(cost, cfg, prices=prices, return_stats=True,
+                                 device=cuda)
+    _, _, fst = asg.auction_solve_factored(x, c, config=cfg, prices=prices,
+                                           return_stats=True, device=cuda)
+    monkeypatch.undo()
+    (a, kw), = calls["auction_phase_dense"]
+    got = phase_kernel.auction_phase_dense(*a, **kw)
+    want = ref.auction_phase_dense_ref(*a, **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert torch.equal(st["rounds"].long(), got[2].amax(1))
+    if case == "warm":
+        assert bool(st["warm"][1:].all()) and not bool(st["warm"][0])
+    assert len(calls["auction_phase"]) == 4
+    rounds = []
+    for a, kw in calls["auction_phase"]:
+        got = phase_kernel.auction_phase(*a, **kw)
+        x_, c_, is_real, p, eps, max_rounds, fixed_rounds = a
+        want = ref.auction_rounds(
+            ref.factored_top2(x_, c_, is_real, cuda_bid_top2), p, eps,
+            max_rounds, fixed_rounds, kw["skip"], kw["seed_top2"],
+            return_rounds=True)
+        for g, w in zip(got, (*want[:2], want[2][None])):
+            assert torch.equal(g, w)
+        rounds.append(got[2])
+    assert torch.equal(fst["rounds"].long(), torch.cat(rounds).amax(1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [{}, {"chunk_size": 1024,
+                                     "solver": "auction_fused"}],
+                         ids=["flat", "stream"])
+def test_cuda_telemetry_rounds_equal_the_kernels_totals(cuda, kw):
+    """An engine with ``telemetry=True`` on the card: labels bitwise the
+    ``telemetry=False`` engine's, and the rounds its telemetry sums equal
+    the rounds the phase kernels counted on the card, cold and warm."""
+    rng = np.random.default_rng(32)
+    x = torch.from_numpy(rng.normal(size=(4096, 12)).astype(np.float32))
+    x = x.to(cuda)
+    eng = AnticlusterEngine(k=64, telemetry=True, device=cuda, **kw)
+    plain = AnticlusterEngine(k=64, device=cuda, **kw)
+    state = plain_state = None
+    for call in ("partition", "repartition", "repartition"):
+        phase_kernel.reset_totals()
+        if state is None:
+            res, state = eng.partition(x)
+        else:
+            res, state = eng.repartition(x, state)
+        rounds = int(eng.last_telemetry["rounds"].sum())
+        assert rounds > 0 and rounds == phase_kernel.totals()["rounds"], call
+        if plain_state is None:
+            want, plain_state = plain.partition(x)
+        else:
+            want, plain_state = plain.repartition(x, plain_state)
+        assert torch.equal(res.labels, want.labels), call
+
+
+@pytest.mark.cuda
+def test_cuda_sequencer_and_folds(cuda):
+    """The sequencer at epoch scale on the card (the stream route with
+    ``"auction_fused"``): exact batch sizes, the same schedule twice, a
+    warm epoch, a ragged ``grow``; then stratified folds."""
+    from repro_torch.data import ABABatchSequencer, aba_folds
+    rng = np.random.default_rng(33)
+    x = rng.normal(size=(65536, 8)).astype(np.float32)
+    seq = ABABatchSequencer(x, 512, device=cuda)
+    assert seq.result.route == "stream"
+    assert seq.result.solver == "auction_fused"
+    assert seq.batches.shape == (128, 512)
+    again = ABABatchSequencer(x, 512, device=cuda)
+    assert np.array_equal(seq.batches, again.batches)
+    batches = seq.epoch(1, features=x + 0.01 * rng.normal(size=x.shape)
+                        .astype(np.float32))
+    assert all(len(b) == 512 for b in batches)
+    seq.grow(rng.normal(size=(300, 8)).astype(np.float32))
+    sizes = {len(b) for b in seq.batches}
+    assert sizes == {65836 // 128, 65836 // 128 + 1}
+    cats = rng.integers(0, 3, 4096)
+    labels = aba_folds(x[:4096], 5, categories=cats, device=cuda)
+    for v in range(3):
+        cnt = np.bincount(labels[cats == v], minlength=5)
+        assert cnt.max() - cnt.min() <= 1
+
+
+@pytest.mark.cuda
+def test_cuda_router_burst_and_live_partition(cuda):
+    """The router on the card: a burst stacked on one lane, every ticket
+    balanced and within 1e-3 of its one-shot objective, its lanes on CUDA
+    devices; a live partition's update is one dense launch."""
+    from repro_torch.core.objective import objective_centroid
+    from repro_torch.serve import AnticlusterRouter
+    rng = np.random.default_rng(34)
+    xs = [torch.from_numpy(rng.normal(size=(int(m), 6)).astype(np.float32))
+          for m in rng.integers(700, 1024, 6)]
+    with AnticlusterRouter(k=16, plan=None, max_group=8) as r:
+        results = r.partition_many(xs)
+        m = r.metrics()
+        assert m.stacked_calls == 1 and m.devices == torch.cuda.device_count()
+        assert all(lane.device.type == "cuda" for lane in r._lanes.values())
+        for x, res in zip(xs, results):
+            assert res.balanced and res.labels.is_cuda
+            one = anticluster(x, k=16, plan=None, device=cuda)
+            got = float(objective_centroid(x.to(cuda), res.labels, 16))
+            want = float(objective_centroid(x.to(cuda), one.labels, 16))
+            assert abs(got - want) <= 1e-3 * abs(want)
+        r.open_partition("live", xs[0]).result(timeout=300)
+        n0 = _build.launches["auction_phase_dense"]
+        res = r.submit_update("live", added=xs[1][:10],
+                              removed=np.arange(10)).result(timeout=300)
+        assert res.updated and res.balanced
+        assert _build.launches["auction_phase_dense"] - n0 == 1

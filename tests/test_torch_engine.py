@@ -445,5 +445,22 @@ def test_new_style_registration_does_not_warn():
 
 
 def test_telemetry_spec_still_raises():
-    with pytest.raises(NotImplementedError, match="Consumers"):
-        AnticlusterEngine(AnticlusterSpec(k=4, telemetry=True), device=CPU)
+    """A telemetry spec with a mesh still raises for the mesh; without one
+    the engine runs and keeps JAX's telemetry layout (numpy, the stacked
+    per-batch stats), its labels those of a telemetry-free engine."""
+    with pytest.raises(NotImplementedError, match="Mesh route"):
+        AnticlusterSpec(k=4, telemetry=True, mesh=object())
+    x = _data(96, 4, 3)
+    eng = AnticlusterEngine(AnticlusterSpec(k=4, telemetry=True), device=CPU)
+    plain = AnticlusterEngine(AnticlusterSpec(k=4), device=CPU)
+    jeng = JaxEngine(k=4, telemetry=True)
+    res, _ = eng.partition(x)
+    assert torch.equal(res.labels, plain.partition(x)[0].labels)
+    jeng.partition(x)
+    tele, jtele = eng.last_telemetry, jeng.last_telemetry
+    assert sorted(tele) == sorted(jtele)
+    for key in tele:
+        assert isinstance(tele[key], np.ndarray)
+        assert tele[key].shape == jtele[key].shape, key
+        assert tele[key].dtype == jtele[key].dtype, key
+    assert plain.last_telemetry is None
