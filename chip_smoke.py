@@ -44,7 +44,10 @@ git-ignored ``build/``), then runs these phases, one or more lines each:
    the span's pair there against its plain version; each phase kernel's
    per-group ``rounds_g`` (the telemetry's rounds) equal to its plain
    twin's exact count there and on a G = 3 warm dense stack of that LAP;
-   then the
+   at phase 11's mesh shapes, the same factored checks on the first LAP
+   of shard 0 of the 2-shard mesh call (k_local = 128) and of the mesh
+   sequencer (k_local = 264), and the dense kernel with its ``rounds_g``
+   on the first LAP of the mesh router's request (n = 128); then the
    kernel entry point's
    ``cdist``, ``cdist_gather``, ``bid_top2_gather`` and ``ssm_scan`` at the
    shapes phase 5 gives them (``ssm_scan`` also with its expf count and
@@ -96,13 +99,14 @@ git-ignored ``build/``), then runs these phases, one or more lines each:
    first call (its LAPs counted by level) and a main call with the
    counters zeroed just before it and read just after: (a) k = 4096
    (plan (64, 64), dense), (b) the same with ``chunk_size="auto"`` (level 1
-   streamed, ``"auction_fused"``), (d) (a) with ``categories=``, (c)
-   k = 131072 (plan (256, 512); one call if the phase has passed
-   HIER_PHASE_BUDGET_S); the LAPs of each level and the kernels' launches a
-   LAP, exact balance, constraint (5) for (d), the objective above random,
-   a finite gap >= 0, the labels' sha256; (a) and (b) with 20 LAPs of each
-   level profiled (device launches a LAP at G = 1 and G = 64) and a call
-   profiled whole (each kernel's device time, the idle share); then (e)
+   streamed, ``"auction_fused"``), (d) (a) with ``categories=`` (one
+   call), (c) k = 131072 (plan (256, 512); one call if the phase has
+   passed HIER_PHASE_BUDGET_S); the LAPs of each level and the kernels'
+   launches a LAP, exact balance, constraint (5) for (d), the objective
+   above random, a finite gap >= 0, the labels' sha256; (a) and (b) with
+   20 LAPs of each level profiled (device launches a LAP at G = 1 and
+   G = 64) and a call profiled whole (each kernel's device time, the idle
+   share); then (e)
    ``kplus_moments=2`` on phase 3's rows at k = 256, its moment-2 spread
    below the same call's without k-plus;
 9. sessions at full size on phase 3's rows at k = 256
@@ -142,6 +146,22 @@ git-ignored ``build/``), then runs these phases, one or more lines each:
    rounds, the labels those without telemetry, no host read or wait in a
    LAP), device launches a LAP equal with tracing on and off, and
    ``obs.memory_profile`` of the flat and the stream call;
+11. the mesh route, the pipeline and the baselines on phase 3's rows: (a)
+   ``anticluster(x, k=256, mesh=...)`` on a 1-shard mesh (labels bitwise
+   phase 6's, and with ``chunk_size="auto"`` phase 3's) and on a 2-shard
+   mesh of the one card (126 840 rows and k_local = 128 a shard, each
+   shard streamed: labels bitwise the shards solved one by one plus the
+   offset, exact balance, each shard's labels in its own range, the
+   launches the shards' own), a mesh engine's ``partition`` (bitwise the
+   one-shot) and two warm ``repartition`` calls carrying a
+   ``ShardedABAState``, the sequencer (batch_size 480, k = 528), the folds
+   (16 384 rows) and a router lane with that mesh; (b) ``ABAPipeline(x,
+   batch_size=512)`` for three epochs on drifted features, each consumed
+   by a fixed device workload, labels and batches bitwise a sequencer's
+   epoch by epoch, with the time its dispatched solves had, its stalls
+   and the overlap; (c) at n = 16 384, k = 256, ABA's objective and time
+   on the card beside ``fast_anticlustering`` and ``random_partition`` on
+   the host;
 
 then one JSON line describing every kernel, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises, exits non-zero and
@@ -181,8 +201,10 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch import incremental, obs  # noqa: E402
-from repro_torch.anticluster import AnticlusterEngine, anticluster  # noqa: E402
+from repro_torch.anticluster import (AnticlusterEngine,  # noqa: E402
+                                     ShardedABAState, anticluster)
 from repro_torch.core import assignment as asg  # noqa: E402
+from repro_torch.core import baselines  # noqa: E402
 from repro_torch.core.aba import (_MASK_COST, _centrality,  # noqa: E402
                                   aba_core, aba_stream)
 from repro_torch.core.hierarchical import _regroup  # noqa: E402
@@ -190,7 +212,8 @@ from repro_torch.core.kplus import kplus_augment, moment_spread  # noqa: E402
 from repro_torch.core.objective import (  # noqa: E402
     balance_ok, diversity_per_cluster, objective_centroid)
 from repro_torch.data import (ABABatchSequencer, aba_folds,  # noqa: E402
-                              fold_partition, fold_splits, minibatch)
+                              fold_engine, fold_partition, fold_splits,
+                              minibatch)
 from repro_torch.data.synthetic import PRESETS, make  # noqa: E402
 import repro_torch.kernels as K  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
@@ -204,7 +227,9 @@ from repro_torch.kernels.ref import (  # noqa: E402
     bid_top2_gather_ref, bid_top2_ref, cdist_gather_ref, cdist_ref,
     gather_rows_ref, ssm_scan_chunk_ref, ssm_scan_ref)
 from repro_torch.kernels.ssm_scan import ssm_scan_chunk  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.serve import AnticlusterRouter  # noqa: E402
+from repro_torch.train import ABAPipeline  # noqa: E402
 
 # the module, not the function the package exports under its name
 bid_top2_module = importlib.import_module("repro_torch.kernels.bid_top2")
@@ -2194,8 +2219,9 @@ def hierarchical_routes(dev, card: str) -> dict:
     the dense solver), (b) the same with ``chunk_size="auto"`` (level 1
     streamed in 8192-row chunks, ``"auction_fused"``), (c) k = 131072
     (plan (256, 512)), (d) (a) with ``categories=`` the class codes of
-    ATTRIBUTE_COUNTS (constraint (5) exact); (a) and (b) also with their
-    levels' LAPs profiled and profiled whole.  Then (e) ``kplus_moments=2``
+    ATTRIBUTE_COUNTS (constraint (5) exact, one call); (a) and (b) also
+    with their levels' LAPs profiled and profiled whole.  Then (e)
+    ``kplus_moments=2``
     on phase 3's rows at k = 256 (the flat route, d = 22 -> 44): the
     moment-2 spread below that of the same call without k-plus."""
     x = hier_rows(dev)
@@ -2244,8 +2270,9 @@ def hierarchical_routes(dev, card: str) -> dict:
     check(out["b"]["launches"]["gather_rows"] == chunks,
           f"(b): {out['b']['launches']['gather_rows']} gather_rows launches, "
           f"expected {chunks}")
+    # one call: its labels and rounds are held equal to a second's by (a)
     run, res = hier_call(x, HIER_K, dev, ("hier", (64, 64), "auction"),
-                         categories=cls)
+                         once=True, categories=cls)
     check(stratified(res.labels.cpu().numpy(), cls, HIER_K),
           "(d): constraint (5) does not hold")
     report("d", run, "; constraint (5) exact")
@@ -3032,6 +3059,25 @@ def check_rounds_g(calls, what, dense=False) -> int:
     return len(calls)
 
 
+def first_lap(fn, name: str = "auction_phase", calls: int = 4) -> list:
+    """The first ``calls`` calls of ``ops.<name>`` that ``fn()`` makes (a
+    factored LAP's four phases, or a dense LAP's one launch), recorded by
+    :class:`PhaseRecorder`; ``fn`` is stopped at the next call."""
+    def keep(kw):
+        if len(rec.calls) == calls:
+            raise _FirstLap
+        return True
+
+    rec = PhaseRecorder(name, keep=keep)
+    try:
+        with rec:
+            fn()
+    except _FirstLap:
+        pass
+    check(len(rec.calls) == calls, f"{len(rec.calls)} {name} calls recorded")
+    return rec.calls
+
+
 def check_sequencer_lap(dev) -> dict:
     """Phase 2 at phase 10's sequencer shape (k = 495, the stream route,
     ``"auction_fused"``): the factored kernel bitwise the loop on every
@@ -3044,27 +3090,17 @@ def check_sequencer_lap(dev) -> dict:
     k = n // SEQ_BATCH
     x = torch.from_numpy(make("mixture", n, d, seed=0)[:k * SEQ_BATCH]
                          ).to(dev)
-
-    def first_lap(kw):
-        if len(rec.calls) == 4:
-            raise _FirstLap
-        return True
-
-    rec = PhaseRecorder(keep=first_lap)
-    try:
-        with rec:  # the sequencer's solve: chunk_size="auto" is 8192 rows
-            aba_stream(x, k, 8192, solver="auction_fused", device=dev)
-    except _FirstLap:
-        pass
-    check(len(rec.calls) == 4, f"{len(rec.calls)} phases recorded")
+    # the sequencer's solve: chunk_size="auto" is 8192 rows
+    calls = first_lap(lambda: aba_stream(x, k, 8192, solver="auction_fused",
+                                         device=dev))
     what = f"the sequencer's first LAP (n={k} d={d})"
-    check_phase_calls(rec.calls, what)
-    check_rounds_g(rec.calls, what)
-    err = check_span([rec.calls[0]["kw"]], what)
-    xs = rec.calls[0]["kw"]["x"][0]
-    cs = rec.calls[0]["kw"]["c"][0]
+    check_phase_calls(calls, what)
+    check_rounds_g(calls, what)
+    err = check_span([calls[0]["kw"]], what)
+    xs = calls[0]["kw"]["x"][0]
+    cs = calls[0]["kw"]["c"][0]
     cost = (-2.0 * xs @ cs.T + (cs * cs).sum(1)[None])[None].repeat(3, 1, 1)
-    warm = rec.calls[-1]["out"][1].repeat(3, 1)
+    warm = calls[-1]["out"][1].repeat(3, 1)
     warm[0] = 0.0  # one cold group beside two warm ones
     checked = 0
     for cfg in (asg.AuctionConfig(), asg.AuctionConfig(fixed_rounds=40),
@@ -3073,7 +3109,7 @@ def check_sequencer_lap(dev) -> dict:
             asg.auction_solve(cost, cfg, prices=warm, device=dev)
         checked += check_rounds_g(dense.calls, f"{what} as a G=3 dense "
                                   f"stack, {cfg}", dense=True)
-    rounds = [int(c["rounds"]) for c in rec.calls]
+    rounds = [int(c["rounds"]) for c in calls]
     log(f"auction_phase on {what}: 4 phases bitwise the every-round loop "
         f"over bid_top2, rounds {rounds}, rounds_g the plain twin's exact "
         f"count; auction_phase_dense rounds_g equal on {checked} G=3 warm "
@@ -3081,6 +3117,61 @@ def check_sequencer_lap(dev) -> dict:
         f"max_abs_err {err:.3e}")
     return {"k": k, "rounds": rounds, "span_err": err,
             "dense_launches_checked": checked}
+
+
+def check_mesh_laps(dev) -> dict:
+    """Phase 2 at phase 11's mesh shapes, on phase 3's rows and a 2-shard
+    mesh of the one card: the first LAP of shard 0 of the mesh call
+    ``anticluster(x, k=256, mesh=..., chunk_size="auto")`` (k_local = 128,
+    streamed) and of the mesh sequencer's partition (batch_size 480:
+    k_local = 264, streamed), each recorded inside the mesh route: the
+    factored kernel bitwise the every-round loop on every phase with equal
+    rounds, bids and single-bidder rounds, its ``rounds_g`` the plain twin's
+    exact count, the span's pair against its plain version; then the first
+    LAP of the router lane's request (MESH_ROUTER_ROWS rows, flat, n = 128):
+    the dense kernel bitwise the loop over ``ref.top2`` and its
+    ``rounds_g``."""
+    n, d, _ = PRESETS["diabetes"]
+    x = torch.from_numpy(make("mixture", n, d, seed=0)).to(dev)
+    mesh2 = make_host_mesh(2, 1, device=dev)
+    out = {}
+    for name, fn, k_local in (
+            ("two_shards", lambda: anticluster(x, k=MESH_K, mesh=mesh2,
+                                               chunk_size="auto", device=dev),
+             MESH_K // 2),
+            ("sequencer", lambda: ABABatchSequencer(x, MESH_SEQ_BATCH,
+                                                    mesh=mesh2, device=dev),
+             n // MESH_SEQ_BATCH // 2)):
+        calls = first_lap(fn)
+        shape = tuple(calls[0]["kw"]["x"].shape)
+        check(shape == (1, k_local, d),
+              f"the mesh {name}'s first LAP has x {shape}, not "
+              f"{(1, k_local, d)}")
+        what = f"the mesh {name}'s first LAP on shard 0 (n={k_local} d={d})"
+        check_phase_calls(calls, what)
+        check_rounds_g(calls, what)
+        err = check_span([calls[0]["kw"]], what)
+        rounds = [int(c["rounds"]) for c in calls]
+        log(f"auction_phase on {what}: 4 phases bitwise the every-round "
+            f"loop over bid_top2, rounds {rounds}, rounds_g the plain twin's "
+            f"exact count; span pair max_abs_err {err:.3e}")
+        out[name] = {"k_local": k_local, "rounds": rounds, "span_err": err}
+    xr = x[:MESH_ROUTER_ROWS]
+    dense = "auction_phase_dense"
+    calls = first_lap(lambda: anticluster(xr, k=MESH_K, mesh=mesh2,
+                                          device=dev), dense, 1)
+    k_local = MESH_K // 2
+    shape = tuple(calls[0]["kw"]["cost"].shape)
+    check(shape == (1, k_local, k_local),
+          f"the mesh router request's first LAP has cost {shape}")
+    what = f"the mesh router request's first LAP on shard 0 (n={k_local})"
+    check_phase_calls(calls, what, ref.auction_phase_dense_ref, dense)
+    check_rounds_g(calls, what, dense=True)
+    out["router"] = {"k_local": k_local, "rounds": int(calls[0]["rounds"])}
+    log(f"auction_phase_dense on {what}: all 4 phases in one launch bitwise "
+        f"the every-round loop over top2, {out['router']['rounds']} rounds, "
+        f"rounds_g the plain twin's exact count")
+    return out
 
 
 @contextlib.contextmanager
@@ -3490,6 +3581,308 @@ def consumers(dev, n: int, card: str, default: dict, stream: dict) -> dict:
             "d": observability_run(dev, n, card, default, stream)}
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the mesh route, the pipeline and the baselines
+# ---------------------------------------------------------------------------
+
+MESH_K = 256              # (a): k of the mesh calls, as phases 3 and 6
+MESH_DRIFT = (0.01, 13)   # (a), (b): the drifted features' scale and seed
+MESH_SEQ_BATCH = 480      # (a): k = 528 on the diabetes rows, even
+MESH_FOLD_ROWS = 16384    # (a): the folds' rows (5 folds a shard)
+MESH_ROUTER_ROWS = 16384  # (a): each router request's rows
+PIPE_EPOCHS = 3           # (b)
+PIPE_WIDTH = 8192         # (b): the training workload's two square layers
+BASELINE_N = 16384        # (c): the Table-4 comparison's rows
+
+
+def mesh_shards_one_by_one(x, k, shards, dev, **kw):
+    """Each shard's rows solved alone (the per-shard call of the mesh
+    route): (labels with the shard offsets, each shard's launches)."""
+    n_local, k_local = x.shape[0] // shards, k // shards
+    labels, used = [], []
+    for s in range(shards):
+        res, _s, u = user_call(x[s * n_local:(s + 1) * n_local], k_local,
+                               dev, **kw)
+        labels.append(res.labels + s * k_local)
+        used.append(u)
+    return torch.cat(labels), used
+
+
+def mesh_run(dev, x, card: str, default: dict, stream: dict) -> dict:
+    """(a): the mesh route on phase 3's rows at k = 256: a 1-shard mesh
+    (bitwise phase 6's flat labels, and with ``chunk_size="auto"`` phase
+    3's stream labels); a 2-shard mesh on the one card (k_local = 128,
+    126 840 rows a shard, each shard streams), bitwise its shards solved
+    one by one plus the offset, exact balance, locality, its launches equal
+    the shards'; a mesh engine's ``partition`` and two warm
+    ``repartition`` calls; the sequencer, the folds and a router lane with
+    that mesh."""
+    n = x.shape[0]
+    k = MESH_K
+    mesh1 = make_host_mesh(1, 1, device=dev)
+    mesh2 = make_host_mesh(2, 1, device=dev)
+    out = {}
+    for name, kw, want, kernels in (
+            ("flat", {}, default["labels_sha256"], ("auction_phase_dense",)),
+            ("stream", {"chunk_size": "auto"}, stream["labels_sha256"],
+             ("bid_top2", "auction_phase", "gather_rows"))):
+        user_call(x, k, dev, mesh=mesh1, **kw)  # a first call
+        res, seconds, used = user_call(x, k, dev, mesh=mesh1, **kw)
+        digest = hashlib.sha256(res.labels.cpu().numpy().tobytes()).hexdigest()
+        check(res.route == "mesh" and digest == want
+              and all(used[kn] > 0 for kn in kernels)
+              and used["plain_rounds"] == 0,
+              f"(a) 1-shard mesh {name}: route {res.route}, sha256 "
+              f"{digest[:16]} against {want[:16]}, launches {used}")
+        out[f"one_shard_{name}"] = {"seconds": seconds, "launches": used,
+                                    "labels_sha256": digest}
+        log(f"(a) 1-shard mesh, {name} ({res.solver}) on {card}: "
+            f"{seconds:.3f} s, labels bitwise phase "
+            f"{6 if name == 'flat' else 3}'s (sha256 {digest[:16]}), "
+            + " ".join(f"{kn} {used[kn]}" for kn in kernels))
+
+    kw = {"chunk_size": "auto"}
+    user_call(x, k, dev, mesh=mesh2, **kw)  # a first call
+    res, seconds, used = user_call(x, k, dev, mesh=mesh2, **kw)
+    parts, shard_used = mesh_shards_one_by_one(x, k, 2, dev, **kw)
+    check(res.route == "mesh" and res.plan == (2, k // 2)
+          and res.solver == "auction_fused"
+          and torch.equal(res.labels, parts),
+          f"(a) 2-shard mesh: route {res.route}, plan {res.plan}, "
+          f"{res.solver}, labels not the shards' one by one")
+    labels = res.labels.cpu().numpy()
+    n_local = n // 2
+    for s in range(2):
+        seg = labels[s * n_local:(s + 1) * n_local]
+        check(seg.min() >= s * k // 2 and seg.max() < (s + 1) * k // 2,
+              f"(a) shard {s}'s labels {seg.min()}..{seg.max()}")
+    balanced(res.labels, k)
+    for name in ("bid_top2", "auction_phase", "gather_rows"):
+        check(used[name] == sum(u[name] for u in shard_used) > 0,
+              f"(a) 2-shard {name} {used[name]} against the shards' "
+              f"{[u[name] for u in shard_used]}")
+    q = quality(x, res.labels, k)
+    out["two_shards"] = {
+        "seconds": seconds, "launches": used,
+        "launches_by_shard": shard_used, "ofv": q["ofv"],
+        "labels_sha256": digest_of(res.labels)}
+    log(f"(a) 2-shard mesh on one card (data axis 2, {n_local} rows and "
+        f"k_local {k // 2} a shard, stream / auction_fused): {seconds:.3f} "
+        f"s, labels bitwise the shards one by one plus the offset, shard s "
+        f"in [{k // 2} s, {k // 2} (s + 1)), sizes {q['sizes']}, objective "
+        f"{q['ofv']:.6e} (random {q['ofv_random']:.6e}); launches a shard "
+        + "; ".join(f"bid_top2 {u['bid_top2']} auction_phase "
+                    f"{u['auction_phase']} gather_rows {u['gather_rows']}"
+                    for u in shard_used))
+
+    scale, seed = MESH_DRIFT
+    noise = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        tuple(x.shape)).astype(np.float32)).to(dev)
+    eng = AnticlusterEngine(k=k, mesh=mesh2, device=dev, **kw)
+    (cold, state), cold_s, cold_used = session_call(eng.partition, x)
+    check(isinstance(state, ShardedABAState)
+          and torch.equal(cold.labels, res.labels)
+          and tuple(state.prices[0].shape) == (2, 1, k // 2),
+          "(a) the mesh engine's partition is not the one-shot's")
+    epochs = []
+    for e in (1, 2):
+        xe = x + scale * e * noise
+        (warm, state), warm_s, warm_used = session_call(eng.repartition,
+                                                        xe, state)
+        balanced(warm.labels, k)
+        ofv = float(objective_centroid(xe, warm.labels, k))
+        ofv_cold = float(objective_centroid(
+            xe, anticluster(xe, k=k, mesh=mesh2, device=dev, **kw).labels,
+            k))
+        check(abs(ofv - ofv_cold) <= 0.01 * abs(ofv_cold),
+              f"(a) warm repartition {e}: objective {ofv} against the cold "
+              f"call's {ofv_cold}")
+        epochs.append({"seconds": warm_s, "rounds": warm_used["rounds"],
+                       "launches": warm_used, "ofv": ofv,
+                       "ofv_cold": ofv_cold})
+    check(eng.compile_count == 1, f"(a) {eng.compile_count} closures")
+    out["engine"] = {"partition_s": cold_s, "rounds": cold_used["rounds"],
+                     "epochs": epochs}
+    log(f"(a) mesh engine (ShardedABAState, prices "
+        f"{tuple(state.prices[0].shape)}): partition "
+        f"{cold_s:.3f} s ({cold_used['rounds']} rounds), bitwise the "
+        f"one-shot; warm repartitions on x + {scale} e N(0, 1): "
+        + "; ".join(f"{ep['seconds']:.3f} s, {ep['rounds']} rounds, "
+                    f"objective {ep['ofv']:.6e} (cold {ep['ofv_cold']:.6e})"
+                    for ep in epochs))
+
+    seq, seq_s, seq_used = session_call(ABABatchSequencer, x, MESH_SEQ_BATCH,
+                                        mesh=mesh2, device=dev)
+    check(seq.engine.spec.mesh is mesh2 and seq.result.route == "mesh"
+          and seq.batches.shape == (seq.k, MESH_SEQ_BATCH),
+          f"(a) the mesh sequencer: {seq.result.route}, batches "
+          f"{np.shape(seq.batches)}")
+    batches, seq_e_s, _ = session_call(seq.epoch, 1, features=x + scale
+                                       * noise)
+    check(all(len(b) == MESH_SEQ_BATCH for b in batches)
+          and seq.engine.compile_count == 1,
+          "(a) the mesh sequencer's warm epoch")
+    xf = x[:MESH_FOLD_ROWS]
+    folds, fold_s, fold_used = session_call(
+        aba_folds, xf, 10, engine=fold_engine(10, mesh=mesh2, device=dev))
+    check(balance_ok(folds, 10)
+          and folds[:MESH_FOLD_ROWS // 2].max() < 5
+          and folds[MESH_FOLD_ROWS // 2:].min() >= 5,
+          "(a) the mesh folds: balance or locality")
+    reqs = [x[i * MESH_ROUTER_ROWS:(i + 1) * MESH_ROUTER_ROWS]
+            for i in range(4)]
+    router = AnticlusterRouter(k=k, mesh=mesh2, device=dev,
+                               background=False)
+    try:
+        served, router_s, router_used = session_call(router.partition_many,
+                                                     reqs)
+        metrics = router.metrics()
+    finally:
+        router.close()
+    one = anticluster(reqs[0], k=k, mesh=mesh2, device=dev)
+    check(torch.equal(served[0].labels, one.labels)
+          and all(r.balanced and r.route == "mesh" for r in served)
+          and metrics.solo_calls == 4 and metrics.stacked_calls == 0
+          and metrics.warm_calls == 3,
+          f"(a) the mesh router lane: {metrics}")
+    out["consumers"] = {
+        "sequencer_k": seq.k, "sequencer_partition_s": seq_s,
+        "sequencer_launches": seq_used, "sequencer_epoch_s": seq_e_s,
+        "folds_s": fold_s, "folds_launches": fold_used,
+        "router_s": router_s, "router_launches": router_used}
+    log(f"(a) with the 2-shard mesh: ABABatchSequencer(batch_size="
+        f"{MESH_SEQ_BATCH}) k={seq.k} partition {seq_s:.3f} s, warm epoch "
+        f"{seq_e_s:.3f} s; aba_folds(x[:{MESH_FOLD_ROWS}], 10) "
+        f"{fold_s:.3f} s (5 folds a shard, {fold_used['auction_phase']} "
+        f"auction_phase launches); a router lane served 4 requests of "
+        f"{MESH_ROUTER_ROWS} rows one at a time in {router_s:.3f} s (the "
+        f"first bitwise its one-shot, 3 warm)")
+    return out
+
+
+def train_workload(xd, w1, w2, batches):
+    """A fixed device workload over an epoch's batches: per batch, the
+    rows gathered on the card and two square layers, the loss read back
+    (a training step's shape, without gradients)."""
+    for idx in batches:
+        h = torch.relu(xd[torch.from_numpy(idx).to(xd.device)] @ w1)
+        float((h @ w2).square().mean())
+
+
+def pipeline_run(dev, x, card: str) -> dict:
+    """(b): ``ABAPipeline(x, batch_size=512)`` (k = 495, the stream route)
+    for three epochs on drifted features, each consumed by a fixed device
+    workload; labels and batch order bitwise an ``ABABatchSequencer``'s
+    epoch by epoch; the time the dispatched solve had (the
+    ``pipeline/epoch`` span), the ``pipeline/wait`` stall, and the overlap
+    against the sequencer's synchronous epochs plus the workload alone."""
+    scale, seed = MESH_DRIFT
+    noise = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        tuple(x.shape)).astype(np.float32)).to(dev)
+    feats = [x + scale * e * noise for e in range(PIPE_EPOCHS)]
+    gen = torch.Generator(device=dev).manual_seed(7)
+    w1 = torch.randn((x.shape[1], PIPE_WIDTH), device=dev, generator=gen)
+    w2 = torch.randn((PIPE_WIDTH, PIPE_WIDTH), device=dev,
+                     generator=gen) / PIPE_WIDTH ** 0.5
+    seq = ABABatchSequencer(x, SEQ_BATCH, device=dev)
+    want, sync_s = [], []
+    for e in range(PIPE_EPOCHS):
+        batches, seconds, _ = session_call(
+            seq.epoch, e, features=feats[e] if e else None)
+        want.append((seq.result.labels.clone(), batches))
+        if e:
+            sync_s.append(seconds)
+    train_workload(x, w1, w2, want[0][1])  # warm the workload's kernels
+    _, work_s, _ = session_call(train_workload, x, w1, w2, want[0][1])
+    pipe, build_s, _ = session_call(ABAPipeline, x, SEQ_BATCH, device=dev)
+    check(pipe.overlapped and pipe.result.route == "stream",
+          f"(b) the pipeline: overlapped {pipe.overlapped}, route "
+          f"{pipe.result.route}")
+    torch.cuda.synchronize()
+    with obs.tracing() as tr:
+        t0 = time.perf_counter()
+        for e, ep in enumerate(pipe.epochs(PIPE_EPOCHS,
+                                           features=lambda i: feats[i])):
+            labels, batches = want[e]
+            check(np.array_equal(pipe.labels, labels.cpu().numpy())
+                  and all(np.array_equal(a, b) for a, b in zip(ep, batches)),
+                  f"(b) epoch {e}: the pipeline's labels or batches are not "
+                  "the sequencer's")
+            train_workload(x, w1, w2, ep)
+        torch.cuda.synchronize()
+        pipe_s = time.perf_counter() - t0
+    pipe.engine.close()
+    spans = {name: [ev["dur"] for ev in tr.events if ev["name"] == name]
+             for name in ("pipeline/epoch", "pipeline/wait")}
+    overlap = PIPE_EPOCHS * work_s + sum(sync_s) - pipe_s
+    check(pipe.engine.compile_count == 1
+          and len(spans["pipeline/epoch"]) == PIPE_EPOCHS
+          and len(spans["pipeline/wait"]) == PIPE_EPOCHS - 1,
+          f"(b) spans {dict((k, len(v)) for k, v in spans.items())}")
+    log(f"(b) ABAPipeline(batch_size={SEQ_BATCH}) on {card}: k={pipe.k}, "
+        f"{PIPE_EPOCHS} epochs, labels and batches bitwise the sequencer's "
+        f"each epoch; the workload alone {work_s:.3f} s an epoch, the "
+        f"sequencer's warm epochs {[round(s, 3) for s in sync_s]} s; the "
+        f"pipeline {pipe_s:.3f} s; the dispatched solves had (pipeline/"
+        f"epoch) {[round(s, 3) for s in spans['pipeline/epoch']]} s and "
+        f"stalled (pipeline/wait) {[round(s, 3) for s in spans['pipeline/wait']]}"
+        f" s; overlap {overlap:.3f} s (the sequencer's solves plus the "
+        f"workload, one after the other, less the pipeline)")
+    return {"k": pipe.k, "build_s": build_s, "work_s": work_s,
+            "sync_epoch_s": sync_s, "pipeline_s": pipe_s,
+            "epoch_span_s": spans["pipeline/epoch"],
+            "wait_span_s": spans["pipeline/wait"], "overlap_s": overlap}
+
+
+def baselines_run(dev, x, card: str) -> dict:
+    """(c): the paper's Table-4 comparison at n = 16 384, k = 256: ABA on
+    the card beside ``fast_anticlustering`` (P-R5) and
+    ``random_partition`` on the host; each one's objective on the card
+    and its time."""
+    k = MESH_K
+    xb = x[:BASELINE_N]
+    user_call(xb, k, dev)  # a first call
+    res, aba_s, used = user_call(xb, k, dev)
+    xh = xb.cpu().numpy()
+    t0 = time.perf_counter()
+    fast = baselines.fast_anticlustering(xh, k, seed=0)
+    fast_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rand = baselines.random_partition(BASELINE_N, k, seed=0)
+    rand_s = time.perf_counter() - t0
+    ofv = {name: float(objective_centroid(
+        xb, torch.as_tensor(lab).to(dev).long(), k))
+        for name, lab in (("aba", res.labels), ("fast_anticlustering", fast),
+                          ("random_partition", rand))}
+    for name, lab in (("fast_anticlustering", fast),
+                      ("random_partition", rand)):
+        check(balance_ok(np.asarray(lab), k), f"(c) {name} unbalanced")
+    check(res.balanced and ofv["aba"] > ofv["random_partition"],
+          f"(c) objectives {ofv}")
+    log(f"(c) n={BASELINE_N} k={k}: ABA on {card} {aba_s * 1e3:.1f} ms "
+        f"({used['auction_phase_dense']} auction_phase_dense launches), "
+        f"objective {ofv['aba']:.6e}; fast_anticlustering (P-R5, host) "
+        f"{fast_s:.3f} s, {ofv['fast_anticlustering']:.6e}; "
+        f"random_partition (host) {rand_s * 1e3:.2f} ms, "
+        f"{ofv['random_partition']:.6e}")
+    return {"n": BASELINE_N, "k": k, "ofv": ofv,
+            "seconds": {"aba": aba_s, "fast_anticlustering": fast_s,
+                        "random_partition": rand_s},
+            "aba_launches": used}
+
+
+def mesh_pipeline_baselines(dev, n: int, card: str, default: dict,
+                            stream: dict) -> dict:
+    """Phase 11: the mesh route, the pipeline and the baselines."""
+    t_start = time.perf_counter()
+    d = PRESETS["diabetes"][1]
+    x = torch.from_numpy(make("mixture", n, d, seed=0)).to(dev)
+    out = {"a": mesh_run(dev, x, card, default, stream),
+           "b": pipeline_run(dev, x, card), "c": baselines_run(dev, x, card)}
+    out["seconds"] = time.perf_counter() - t_start
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=PRESETS["diabetes"][0],
@@ -3556,6 +3949,7 @@ def main():
     hier_checks = check_hierarchical_phases(dev)
     dense_row["rounds_timed_hier"] = hier_checks["rounds_timed"]
     hier_checks["sequencer_lap"] = check_sequencer_lap(dev)
+    hier_checks["mesh_laps"] = check_mesh_laps(dev)
     errs = check_entry_kernels(dev, torch.Generator().manual_seed(4))
     entry_rows = measure_entry_kernels(dev, errs)
     rows = solve_rows + [dense_row] + entry_rows
@@ -3606,6 +4000,22 @@ def main():
                 session_run["c"]["launches"][r["name"]]
     phase("phase 10: the consumers at full size")
     consumer_run = consumers(dev, args.n, smi, default_run, main_run)
+    phase("phase 11: the mesh route, the pipeline and the baselines")
+    mesh_run_ = mesh_pipeline_baselines(dev, args.n, smi, default_run,
+                                        main_run)
+    for r in rows:
+        if r["name"] in ("auction_phase_dense", "auction_phase", "bid_top2",
+                         "gather_rows"):
+            r["launches_phase11"] = {
+                "(a) 2-shard mesh": mesh_run_["a"]["two_shards"]["launches"][
+                    r["name"]],
+                "(a) 2-shard mesh by shard": [
+                    u[r["name"]] for u in
+                    mesh_run_["a"]["two_shards"]["launches_by_shard"]],
+                "(a) 1-shard mesh flat": mesh_run_["a"]["one_shard_flat"][
+                    "launches"][r["name"]],
+                "(a) 1-shard mesh stream": mesh_run_["a"]["one_shard_stream"][
+                    "launches"][r["name"]]}
     phase("done")
 
     log(json.dumps({"main_path": main_run, "against_plain": plain_run,
@@ -3614,7 +4024,8 @@ def main():
                     "constrained_routes": constrained_run,
                     "hierarchical_checks": hier_checks,
                     "hierarchical_routes": hier_run,
-                    "sessions": session_run, "consumers": consumer_run}))
+                    "sessions": session_run, "consumers": consumer_run,
+                    "mesh_pipeline_baselines": mesh_run_}))
     log(smi)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

@@ -19,22 +19,25 @@ are decided for the plan's first level).  Every route takes
 ``categories`` / ``fairness`` (Section 4.3, one or several attributes);
 all but ``"hier"`` take ``valid_mask`` (padding rows).
 ``kplus_moments > 1`` appends the k-plus moment features to flat
-unmasked input before any route.
+unmasked input before any route.  A ``mesh`` (a
+:class:`repro_torch.sharding.Mesh`) takes the ``"mesh"`` route: the
+data-parallel shards are the first hierarchy level, each solved on its
+mesh device by the flat, stream or hierarchical core
+(:mod:`repro_torch.core.sharded`); rows that do not divide by the shard
+count are padded with masked zero rows.
 
 :class:`AnticlusterEngine` is the session API for repeated same-shape
 solves: ``partition`` (the cold solve, bitwise ``anticluster``),
 ``repartition`` (every batch LAP warm-started from the carried
 :class:`ABAState` prices), ``dispatch_repartition`` (the same solve
 enqueued from a worker thread on a side CUDA stream) and ``update``
-(delta updates, :mod:`repro_torch.incremental`).  With
+(delta updates, :mod:`repro_torch.incremental`); with a mesh spec it
+carries a :class:`ShardedABAState` of per-shard prices and moments.  With
 ``AnticlusterSpec(telemetry=True)`` the engine keeps the solver's stats of
 its last solve in ``last_telemetry`` (numpy, read once at ``wait()``).
 The reference's spans and events (``anticluster``,
 ``engine/repartition``, ``stream/plan``, ``solver/phase``) are recorded
 when :mod:`repro_torch.obs` tracing is enabled.
-
-Not ported yet, and raising ``NotImplementedError`` with the title of the
-ROADMAP Queue 1 item that brings it: ``mesh`` ("Mesh route").
 """
 
 from __future__ import annotations
@@ -57,9 +60,12 @@ from repro_torch.core.hierarchical import (default_plan, hierarchical_core,
 from repro_torch.core.kplus import kplus_augment
 from repro_torch.core.objective import (cluster_sizes, diversity_per_cluster,
                                         dual_certificate, segment_ids)
+from repro_torch.core.sharded import sharded_core, sharded_price_shapes
+from repro_torch.sharding.specs import resolve_data_axes, shard_devices
 
 __all__ = ["AnticlusterSpec", "AnticlusterResult", "anticluster",
-           "ABAState", "AnticlusterEngine", "PendingRepartition"]
+           "ABAState", "ShardedABAState", "AnticlusterEngine",
+           "PendingRepartition"]
 
 # Streaming auto-selection, as in the JAX front door: from _AUTO_STREAM_MIN
 # rows on, chunk_size="auto" streams ~_AUTO_CHUNK_ROWS rows per chunk.
@@ -67,16 +73,10 @@ _AUTO_STREAM_MIN = 1 << 16   # 65536 rows
 _AUTO_CHUNK_ROWS = 1 << 13   # 8192 rows per chunk
 
 
-def _not_ported(feature: str, item: str):
-    """Raise for ``feature``, naming its ROADMAP Queue 1 item by title."""
-    raise NotImplementedError(f"{feature} is not ported to PyTorch yet "
-                              f"(ROADMAP Queue 1: {item})")
-
-
 @dataclasses.dataclass(frozen=True, eq=False)
 class AnticlusterSpec:
     """Frozen configuration for :func:`anticluster`: the fields and checks
-    of the JAX spec.  Values outside the ported slice raise."""
+    of the JAX spec.  ``mesh`` is a :class:`repro_torch.sharding.Mesh`."""
 
     k: int
     variant: str = "auto"
@@ -121,8 +121,6 @@ class AnticlusterSpec:
                 raise ValueError("categories= and fairness= are mutually "
                                  "exclusive")
             _fairness_attrs(self.fairness)  # validate shape and dtype
-        if self.mesh is not None:
-            _not_ported("mesh=", "Mesh route")
         get_solver(self.solver)  # unknown names and unported solvers raise
 
     def evolve(self, **changes) -> "AnticlusterSpec":
@@ -138,14 +136,21 @@ class AnticlusterSpec:
         return dataclasses.replace(self, **changes)
 
     def resolve_plan(self) -> tuple[int, ...]:
-        """The concrete hierarchy plan this spec dispatches to: ``(k,)``
-        for ``plan=None``, the tuple as given, or ``default_plan(k,
-        max_k)`` for ``"auto"``."""
+        """The concrete per-device hierarchy plan this spec dispatches to:
+        ``(k,)`` for ``plan=None``, the tuple as given, or ``default_plan(k,
+        max_k)`` for ``"auto"`` (of ``k / n_shards`` under a mesh)."""
         if self.plan is None:
             return (self.k,)
         if isinstance(self.plan, tuple):
             return self.plan
-        return default_plan(self.k, max_k=self.max_k)
+        k = self.k
+        if self.mesh is not None:
+            n_shards = _mesh_shards(self)
+            if k % n_shards:
+                raise ValueError(
+                    f"k={k} must be divisible by shard count {n_shards}")
+            k = k // n_shards
+        return default_plan(k, max_k=self.max_k)
 
     def resolve_chunk(self, n: int, k: int) -> int | None:
         """Concrete chunk size for ``n`` rows of a level with ``k``
@@ -164,10 +169,12 @@ class AnticlusterResult:
     """Labels plus the resolved route and quality statistics.
 
     The JAX result's fields, as tensors on the run's device, plus
-    ``route`` (``"flat"``, ``"stream"``, ``"stacked"`` or ``"hier"``).
-    ``dual_bound`` / ``gap`` are the LP-dual certificate from the auction's
-    prices (``spec.stats=True``); ``gap >= 0``, near zero when the
-    assignment step converged.  ``updated`` is True only for a result of
+    ``route`` (``"flat"``, ``"stream"``, ``"stacked"``, ``"hier"`` or
+    ``"mesh"``).  ``dual_bound`` / ``gap`` are the LP-dual certificate from
+    the auction's prices (``spec.stats=True``; None under a mesh, as in
+    JAX); ``gap >= 0``, near zero when the assignment step converged.  A
+    mesh result's ``plan`` leads with the shard count when there are
+    several shards.  ``updated`` is True only for a result of
     the incremental path of :meth:`AnticlusterEngine.update`.
     """
 
@@ -217,6 +224,63 @@ class ABAState:
     moment_sum: torch.Tensor
     moment_count: torch.Tensor
     prev_labels: torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedABAState:
+    """The carried state of a session on a mesh: :class:`ABAState`'s role,
+    per shard.
+
+    * ``prices``: per-shard, per-level auction prices; level l of the
+      per-shard plan is ``(n_shards, prod(plan[:l-1]), plan[l-1])``.  A
+      zeroed tuple is exactly the cold start (the one-shot mesh labels).
+    * ``moment_sum`` / ``moment_count``: ``(n_shards, d)`` per-shard feature
+      sums over valid rows and ``(n_shards,)`` valid-row counts (their sums
+      over the shard axis are the moments an :class:`ABAState` carries).
+    * ``prev_labels``: the previous global assignment, ``(n,)`` int32 over
+      the padded rows, ``-1`` before the first.
+
+    The tensors lie whole on the engine's device; block s of each leading
+    axis goes to shard s's mesh device at the solve
+    (:meth:`AnticlusterEngine.state_shardings`).
+    """
+
+    prices: tuple
+    moment_sum: torch.Tensor
+    moment_count: torch.Tensor
+    prev_labels: torch.Tensor
+
+
+def _mesh_shards(spec: AnticlusterSpec) -> int:
+    """Total data-parallel shard count of the spec's mesh (1 without one).
+
+    Validates ``spec.data_axes`` against the mesh: explicit axes absent from
+    the mesh raise (with the offending names) instead of being dropped.
+    """
+    if spec.mesh is None:
+        return 1
+    axes = resolve_data_axes(spec.mesh, spec.data_axes)
+    return math.prod(spec.mesh.shape[a] for a in axes)
+
+
+def _mesh_plan(spec: AnticlusterSpec, plan: tuple) -> tuple:
+    """A mesh result's plan: the shard count leads when there are several."""
+    n_shards = _mesh_shards(spec)
+    return ((n_shards,) + plan) if n_shards > 1 else plan
+
+
+def _mesh_pad_rows(spec: AnticlusterSpec, shape: tuple[int, ...],
+                   has_mask: bool) -> int:
+    """Zero rows the mesh route pads for ``n % n_shards != 0``.
+
+    The padding rides the per-call ``valid_mask`` path (the padding rows are
+    masked out and the result is sliced back to ``n``), so it applies only
+    when the caller brings no mask: with one, ``_route``'s divisibility
+    error stands (the two masks cannot compose).
+    """
+    if spec.mesh is None or len(shape) != 2 or has_mask:
+        return 0
+    return (-shape[0]) % _mesh_shards(spec)
 
 
 def _host(a) -> np.ndarray:
@@ -302,12 +366,12 @@ def _resolve_spec(spec, overrides: dict) -> AnticlusterSpec:
 def _route(spec: AnticlusterSpec, shape: tuple[int, ...],
            has_categories: bool, has_valid_mask: bool):
     """Static dispatch: ``(mode, plan, solver, chunk)`` with ``mode`` in
-    ``"stacked"`` | ``"hier"`` | ``"stream"`` | ``"flat"``, ``solver`` the
-    registry name after the at-scale upgrade, which categories keep off
-    (the quota mask cannot be factored, so the plain auction stays the
-    stratified default), and ``chunk`` the concrete row count of the
-    (first) level, or None.  The JAX function's rules and errors, without
-    the mesh."""
+    ``"mesh"`` | ``"stacked"`` | ``"hier"`` | ``"stream"`` | ``"flat"``,
+    ``solver`` the registry name after the at-scale upgrade, which
+    categories keep off (the quota mask cannot be factored, so the plain
+    auction stays the stratified default), and ``chunk`` the concrete row
+    count of the (first) level, or None; under a mesh both are decided for
+    one shard's rows.  The JAX function's rules and errors."""
     if len(shape) not in (2, 3):
         raise ValueError(f"x must be (n, d) or (G, M, D), got {shape}")
     plan = spec.resolve_plan()
@@ -328,11 +392,33 @@ def _route(spec: AnticlusterSpec, shape: tuple[int, ...],
         return spec.resolve_chunk(n_level, k_level) if streamable else None
 
     n = shape[0]
+    n_shards = _mesh_shards(spec)
     solver = spec.solver
     if spec.chunk_size == "auto" and solver == "auction" and streamable \
-            and not has_categories and chunk_for(n, plan[0]) is not None:
+            and not has_categories \
+            and chunk_for(n // n_shards, plan[0]) is not None:
         # at scale the matrix-free factored auction is the default engine
         solver = "auction_fused"
+    if spec.mesh is not None:
+        if len(shape) != 2:
+            raise NotImplementedError(
+                "mesh execution takes flat (n, d) data (shards are the "
+                "first hierarchy level); stack the groups yourself or drop "
+                "the mesh")
+        if spec.plan != "auto":
+            raise NotImplementedError(
+                'mesh execution resolves its per-shard plan from max_k; '
+                'use plan="auto"')
+        if n % n_shards:
+            raise ValueError(
+                f"n={n} rows must be divisible by the mesh shard count "
+                f"{n_shards} (pad the dataset and mark the padding with "
+                "valid_mask)")
+        if has_valid_mask and len(plan) > 1:
+            raise NotImplementedError(
+                f"valid_mask under a mesh needs a flat per-shard plan (got "
+                f"{plan}); raise max_k or drop the padding rows")
+        return "mesh", plan, solver, chunk_for(n // n_shards, plan[0])
     if len(shape) == 3:
         if len(plan) > 1:
             raise NotImplementedError(
@@ -358,10 +444,24 @@ def _call_core(x, spec: AnticlusterSpec, mode: str, plan, solver: str,
     mask, on ``x``'s device.  ``prices`` is the per-level tuple of an
     :class:`ABAState` (None: the cold start).  The state's ``"prices"`` is
     the per-level tuple (a 1-tuple but on the ``"hier"`` route), as in the
-    JAX front door.  ``telemetry`` (with ``return_state``) adds the
-    state's ``"telemetry"``: the solver's per-batch stats on the flat,
-    stream and stacked routes, None on ``"hier"`` (its per-level solves
+    JAX front door; on the ``"mesh"`` route ``prices`` are the per-shard
+    stacks of a :class:`ShardedABAState`, and the state carries the
+    per-shard ``"moment_sum"`` / ``"moment_count"`` instead of ``"mu"``.
+    ``telemetry`` (with ``return_state``) adds the state's ``"telemetry"``:
+    the solver's per-batch stats on the flat, stream and stacked routes,
+    None on ``"hier"`` and ``"mesh"`` (their per-level and per-shard solves
     have no single batch axis) and for solvers without a telemetry twin."""
+    if mode == "mesh":
+        out = sharded_core(
+            x, spec.k, spec.mesh, data_axes=spec.data_axes,
+            max_k=spec.max_k, variant=spec.variant, solver=solver,
+            auction_config=spec.auction_config, batched=spec.batched,
+            chunk_size=chunk, categories=cats, n_categories=n_categories,
+            fair_codes=codes, n_fair_codes=n_codes, valid_mask=vm,
+            prices=prices, return_state=return_state, device=x.device)
+        if return_state and telemetry:
+            out[1]["telemetry"] = None  # per-shard solves: no batch axis
+        return out
     kw = dict(variant=spec.variant, categories=cats,
               n_categories=n_categories, fair_codes=codes,
               n_fair_codes=n_codes, solver=solver,
@@ -486,17 +586,40 @@ def anticluster(x, spec: AnticlusterSpec | None = None, device=None,
     cats, codes = (None if t is None else t.to(dev) for t in (cats, codes))
     vm = (None if spec.valid_mask is None
           else _on(spec.valid_mask, dev, torch.bool))
-    mode, plan, solver, chunk = _route(spec, tuple(x.shape),
-                                       cats is not None, vm is not None)
-    with obs.span("anticluster", shape=tuple(x.shape), mode=mode,
+    n_rows = x.shape[0]
+    pad = _mesh_pad_rows(spec, tuple(x.shape), vm is not None)
+    x_solve, vm_solve, cats_solve, codes_solve = x, vm, cats, codes
+    if pad:
+        x_solve, vm_solve = _padded(x, pad)
+        # padding rows draw an arbitrary stratum (they are masked out)
+        cats_solve, codes_solve = (None if t is None else _padded(t, pad)[0]
+                                   for t in (cats, codes))
+    mode, plan, solver, chunk = _route(spec, tuple(x_solve.shape),
+                                       cats is not None,
+                                       vm_solve is not None)
+    want_state = spec.stats and mode != "mesh"
+    with obs.span("anticluster", shape=tuple(x_solve.shape), mode=mode,
                   solver=solver, k=spec.k):
-        out = _call_core(x, spec, mode, plan, solver, chunk, cats,
-                         n_categories, vm, codes, n_codes,
-                         return_state=spec.stats)
+        out = _call_core(x_solve, spec, mode, plan, solver, chunk,
+                         cats_solve, n_categories, vm_solve, codes_solve,
+                         n_codes, return_state=want_state)
         _finish_for_trace(dev)
-    labels, st = out if spec.stats else (out, None)
+    labels, st = out if want_state else (out, None)
+    if mode == "mesh":
+        plan = _mesh_plan(spec, plan)
+    if pad:
+        labels = labels[:n_rows]
     return _result(x, labels, None if st is None else st["prices"], spec,
                    mode, plan, solver, vm)
+
+
+def _padded(t: torch.Tensor, pad: int):
+    """``t`` with ``pad`` zero rows appended, and the valid mask of the
+    result (its own rows True, the padding False)."""
+    ext = torch.cat([t, t.new_zeros((pad, *t.shape[1:]))])
+    valid = torch.ones(ext.shape[0], dtype=torch.bool, device=t.device)
+    valid[t.shape[0]:] = False
+    return ext, valid
 
 
 def _finish_for_trace(dev: torch.device) -> None:
@@ -549,6 +672,14 @@ class AnticlusterEngine:
     thread per engine on a side CUDA stream, so the caller's thread is free
     while the host enqueues the solve's launches.
 
+    A spec with a ``mesh`` makes the session sharded: its state is a
+    :class:`ShardedABAState` (per-shard, per-level prices and per-shard
+    moments), each shard warm-starts from its own prices on its mesh
+    device, and a zeroed state gives the one-shot mesh labels bit for bit.
+    Rows that do not divide by the shard count are padded with masked zero
+    rows, sliced off the result; the state keeps the padded geometry.
+    ``update`` raises on a mesh session, as in JAX.
+
     ``device=None`` runs on the CUDA device (raising where there is none);
     ``device="cpu"`` runs the plain PyTorch path.  Not supported (use the
     one-shot :func:`anticluster`): ``kplus_moments > 1``,
@@ -558,6 +689,8 @@ class AnticlusterEngine:
     def __init__(self, spec: AnticlusterSpec | None = None, device=None,
                  **overrides):
         spec = _resolve_spec(spec, overrides)
+        if spec.mesh is not None:
+            _mesh_shards(spec)  # fail fast on bad data_axes / mesh
         if spec.kplus_moments > 1:
             raise NotImplementedError(
                 "kplus_moments augmentation is host-side; use the one-shot "
@@ -601,10 +734,28 @@ class AnticlusterEngine:
             self._routes[key] = routed
         return routed
 
-    def price_shapes(self, shape) -> tuple[tuple[int, ...], ...]:
-        """Per-level price shapes of the state carried for input ``shape``."""
+    def _solve_shape(self, shape: tuple[int, ...]):
+        """``(padded shape, pad)`` the solve runs on: a mesh session pads
+        ``n % n_shards != 0`` rows with ``pad`` masked zero rows
+        (``_mesh_pad_rows``); ``pad`` is 0 everywhere else."""
         shape = _shape(shape)
-        mode, plan, _solver, _chunk = self._routed(shape)
+        pad = _mesh_pad_rows(self.spec, shape, self._vm is not None)
+        if pad:
+            return (shape[0] + pad, shape[1]), pad
+        return shape, 0
+
+    def _routed_solve(self, shape):
+        """``_routed`` of the padded shape the solve runs on."""
+        shape, pad = self._solve_shape(shape)
+        return self._routed(shape, True if pad else None)
+
+    def price_shapes(self, shape) -> tuple[tuple[int, ...], ...]:
+        """Per-level price shapes of the state carried for input ``shape``;
+        a mesh session's gain a leading ``n_shards`` axis."""
+        shape = _shape(shape)
+        mode, plan, _solver, _chunk = self._routed_solve(shape)
+        if mode == "mesh":
+            return sharded_price_shapes(plan, _mesh_shards(self.spec))
         if mode == "stacked":
             return ((shape[0], self.spec.k),)
         if mode == "hier":
@@ -612,15 +763,30 @@ class AnticlusterEngine:
         return ((1, self.spec.k),)
 
     def state_shardings(self, x_or_shape):
-        """None: the port has no mesh sessions (``mesh=`` raises)."""
-        return None
+        """None for a single-device session.  For a mesh session, the shard
+        devices: block s of every :class:`ShardedABAState` leaf's leading
+        axis (rows ``[s * n / S, (s + 1) * n / S)`` of ``prev_labels``) is
+        used on the s-th.  The port's counterpart of JAX's ``NamedSharding``
+        layout; the tensors themselves stay whole on the engine's device."""
+        if self._routed_solve(_shape(x_or_shape))[0] != "mesh":
+            return None
+        return shard_devices(self.spec.mesh, resolve_data_axes(
+            self.spec.mesh, self.spec.data_axes))
 
-    def init_state(self, x_or_shape) -> ABAState:
-        """A zeroed (cold-start) state for ``x`` / its shape."""
+    def init_state(self, x_or_shape):
+        """A zeroed (cold-start) state for ``x`` / its shape: an
+        :class:`ABAState`, or a :class:`ShardedABAState` for a mesh spec."""
         shape = _shape(x_or_shape)
         dev = self.device
         prices = tuple(torch.zeros(s, dtype=DTYPE, device=dev)
                        for s in self.price_shapes(shape))
+        if self._routed_solve(shape)[0] == "mesh":
+            (n, d), _pad = self._solve_shape(shape)
+            S = _mesh_shards(self.spec)
+            return ShardedABAState(
+                prices, torch.zeros((S, d), device=dev),
+                torch.zeros((S,), device=dev),
+                torch.full((n,), -1, dtype=torch.int32, device=dev))
         if len(shape) == 3:
             G, M, D = shape
             return ABAState(prices, torch.zeros((G, D), device=dev),
@@ -653,7 +819,7 @@ class AnticlusterEngine:
         """Whether :meth:`dispatch_repartition` can overlap for this input:
         False iff the route's solver solves on the host
         (``Solver.host_callback``, e.g. ``"scipy"``)."""
-        _mode, _plan, solver, _chunk = self._routed(_shape(x_or_shape))
+        _mode, _plan, solver, _chunk = self._routed_solve(_shape(x_or_shape))
         return not get_solver(solver).host_callback
 
     def dispatch_repartition(self, x, state: ABAState, *, valid_mask=None):
@@ -665,9 +831,9 @@ class AnticlusterEngine:
         the same order).  Raises ``RuntimeError`` when
         :meth:`overlap_capable` is False."""
         if not self.overlap_capable(_shape(x)):
-            solver = self._routed(_shape(x))[2]
+            solver = self._routed_solve(_shape(x))[2]
             raise RuntimeError(
-                f"solver {solver!r} solves on the host and cannot be "
+                f"solver {solver!r} runs via a host callback and cannot be "
                 "dispatched asynchronously (the solve occupies the host "
                 "thread -- no overlap is possible); check "
                 "engine.overlap_capable(x) and use the synchronous "
@@ -713,12 +879,23 @@ class AnticlusterEngine:
                 raise ValueError(
                     f"valid_mask shape {tuple(vm.shape)} does not match the "
                     f"label shape {shape[:-1]} of input {shape}")
+        n_rows = shape[0]
+        pad = 0
+        if not per_call_mask:
+            shape, pad = self._solve_shape(shape)
+            if pad:
+                # mesh auto-pad: masked zero rows make n divisible by the
+                # shard count, on the per-call-mask closure
+                x, vm = _padded(x, pad)
+                per_call_mask = True
         mode, plan, solver, _chunk = self._routed(shape, vm is not None)
+        state_cls = ShardedABAState if mode == "mesh" else ABAState
         prices = None  # the cold start (partition)
         if state is not None:
-            if not isinstance(state, ABAState):
+            if not isinstance(state, state_cls):
                 raise TypeError(
-                    f"a single-device engine carries ABAState, got "
+                    f"a {'mesh' if mode == 'mesh' else 'single-device'} "
+                    f"engine carries {state_cls.__name__}, got "
                     f"{type(state).__name__} (build states with "
                     "engine.init_state / previous repartition calls)")
             expected = self.price_shapes(shape)
@@ -742,7 +919,8 @@ class AnticlusterEngine:
                              telemetry=spec.telemetry)
             if mode == "stream":
                 obs.event("stream/plan", shape=shape, chunk=_chunk)
-        pending = PendingRepartition(self, x, vm, mode, plan, solver, span)
+        pending = PendingRepartition(self, x, vm, mode, plan, solver, span,
+                                     n_rows if pad else None, state_cls)
         if not asynchronous:
             pending._out = fn(x, prices, vm)
             return pending
@@ -782,6 +960,12 @@ class AnticlusterEngine:
             shape, True if per_call_mask else None)
         cats, ncats = self._cats, self._n_categories
         codes, ncodes = self._codes, self._n_codes
+        if cats is not None and len(shape) == 2 and cats.shape[0] < shape[0]:
+            # mesh auto-pad: padding rows draw an arbitrary stratum (they
+            # are masked out, so the quotas over real rows are unaffected)
+            pad = shape[0] - cats.shape[0]
+            cats, codes = (None if t is None else _padded(t, pad)[0]
+                           for t in (cats, codes))
         self._built += 1
 
         def body(x, prices, vm):
@@ -793,6 +977,9 @@ class AnticlusterEngine:
             # carried state stays bounded over epochs
             new_prices = tuple(p - p.amax(dim=-1, keepdim=True)
                                for p in st["prices"])
+            if mode == "mesh":  # the per-shard moments, as the core gives
+                return (labels, new_prices, st["moment_sum"],
+                        st["moment_count"], st.get("telemetry"))
             if mode == "stacked":
                 cnt = (x.new_full((shape[0],), float(shape[1]), dtype=DTYPE)
                        if vm is None else vm.sum(dim=1, dtype=DTYPE))
@@ -818,11 +1005,14 @@ class PendingRepartition:
     ``engine/repartition`` span.
     """
 
-    def __init__(self, engine, x, vm, mode, plan, solver, span=None):
+    def __init__(self, engine, x, vm, mode, plan, solver, span=None,
+                 n_rows=None, state_cls=ABAState):
         self._engine = engine
         self._x, self._vm = x, vm
         self._mode, self._plan, self._solver = mode, plan, solver
         self._span = span
+        self._n_rows = n_rows  # the caller's rows of an auto-padded solve
+        self._state_cls = state_cls
         self._out = None
         self._future: concurrent.futures.Future | None = None
         self._done: tuple | None = None
@@ -836,7 +1026,7 @@ class PendingRepartition:
         end = None if self._future.exception() else self._future.result()[1]
         return end is None or end.query()
 
-    def wait(self) -> tuple[AnticlusterResult, ABAState]:
+    def wait(self) -> tuple[AnticlusterResult, Any]:
         """Sync, compute the statistics (per spec) and return ``(result,
         state)``."""
         if self._done is not None:
@@ -860,10 +1050,19 @@ class PendingRepartition:
             # its telemetry on the host
             engine.last_telemetry = {key: t.cpu().numpy()
                                      for key, t in tele.items()}
-        result = _result(self._x, labels, prices, engine.spec, self._mode,
-                         self._plan, self._solver, self._vm)
-        state = ABAState(prices=prices, moment_sum=msum, moment_count=mcnt,
-                         prev_labels=labels)
+        mesh = self._mode == "mesh"
+        # padding rows are masked in vm: the statistics are the unpadded
+        # run's; a mesh run has no certificate (its prices are per shard)
+        result = _result(self._x, labels, None if mesh else prices,
+                         engine.spec, self._mode,
+                         _mesh_plan(engine.spec, self._plan) if mesh
+                         else self._plan, self._solver, self._vm)
+        if self._n_rows is not None:
+            result = dataclasses.replace(result,
+                                         labels=labels[:self._n_rows])
+        # the state keeps the padded geometry (its labels' length)
+        state = self._state_cls(prices=prices, moment_sum=msum,
+                                moment_count=mcnt, prev_labels=labels)
         if self._span is not None:
             summary = obs.summarize_auction_telemetry(
                 engine.last_telemetry if tele is not None else None)

@@ -29,8 +29,12 @@ def fold_engine(n_folds: int, *, categories=None, max_k: int = 512,
 
     Reuse it across repeated ``aba_folds`` calls on same-shaped features
     (``aba_folds`` always runs the cold ``partition``, so fold labels stay
-    reproducible run to run).  A ``mesh`` raises (not ported).
-    ``device=None`` is the CUDA device; ``"cpu"`` the plain path.
+    reproducible run to run).  ``mesh`` builds the folds distributed (each
+    data-parallel shard solves its own rows; ``categories`` then stratify
+    per shard); ``n_folds`` must be divisible by the shard count or the
+    engine falls back to the single-device flat solve with a
+    ``RuntimeWarning``.  ``device=None`` is the CUDA device; ``"cpu"`` the
+    plain path.
     """
     from repro_torch.data.minibatch import _auto_or_flat_spec
     spec = _auto_or_flat_spec(n_folds, max_k, chunk_size, mesh=mesh,

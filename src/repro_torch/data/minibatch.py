@@ -17,8 +17,10 @@ launch and one ``auction_phase`` launch a phase.  The numpy parts
 (:func:`build_batch_schedule`, :func:`epoch_order`,
 :func:`random_sequencer_batches`) are the reference's, bit for bit.
 
-The sharded mode (``mesh=``) is not ported: it raises naming its ROADMAP
-Queue 1 item ("Mesh route"), as the spec does.
+With ``mesh=`` (a :class:`repro_torch.sharding.Mesh`) the engine is a
+sharded session: each data-parallel shard re-partitions its own rows from
+its own carried prices (:class:`repro_torch.anticluster.ShardedABAState`),
+the shards being the first level of the hierarchy.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import torch
 
 from repro_torch.anticluster import AnticlusterEngine, AnticlusterSpec
 from repro_torch.core.objective import diversity_per_cluster
+from repro_torch.sharding.specs import resolve_data_axes
 
 
 def _auto_or_flat_spec(k: int, max_k: int, chunk_size="auto", mesh=None,
@@ -41,8 +44,13 @@ def _auto_or_flat_spec(k: int, max_k: int, chunk_size="auto", mesh=None,
     chosen by the user, so a slow-but-correct flat solve beats a crash --
     but loudly.  ``chunk_size`` defaults to "auto": epoch-scale datasets
     stream the full-data level in fixed-size chunks; small datasets stay
-    dense.  A ``mesh`` raises (the spec's "Mesh route").
+    dense.  ``mesh`` distributes the solve (shard-local streaming composes);
+    a k that cannot be placed on the mesh (not divisible by the shard
+    count, or an unfactorable per-shard k) falls back to the local flat
+    solve, again loudly.
     """
+    if mesh is not None:
+        resolve_data_axes(mesh, data_axes)  # bad axes raise; no fallback
     spec = AnticlusterSpec(k=k, plan="auto", max_k=max_k,
                            chunk_size=chunk_size, mesh=mesh,
                            data_axes=data_axes)
@@ -50,11 +58,13 @@ def _auto_or_flat_spec(k: int, max_k: int, chunk_size="auto", mesh=None,
         spec.resolve_plan()
         return spec
     except ValueError:
+        where = ("placement on the mesh" if mesh is not None
+                 else f"hierarchical plan with factors <= {max_k}")
         warnings.warn(
-            f"k={k} has no hierarchical plan with factors <= {max_k}; "
-            "falling back to the flat single-level single-device solve "
-            "(slower at this k)", RuntimeWarning, stacklevel=3)
-        return spec.evolve(plan=None)
+            f"k={k} has no {where}; falling back to the flat single-level "
+            "single-device solve (slower at this k)",
+            RuntimeWarning, stacklevel=3)
+        return spec.evolve(plan=None, mesh=None)
 
 
 def build_batch_schedule(labels: np.ndarray, k: int):
@@ -114,8 +124,12 @@ class ABABatchSequencer:
       batch_size: examples per step; K = floor(N / batch_size) anticlusters.
       chunk_size: streaming execution for epoch-scale feature sets (see
         ``AnticlusterSpec.chunk_size``); "auto" engages only at scale.
-      mesh, data_axes: the reference's sharded mode; a ``mesh`` raises
-        (not ported).
+      mesh: optional :class:`repro_torch.sharding.Mesh` -- the engine
+        carries per-shard warm prices (``ShardedABAState``) across epochs,
+        so each data-parallel shard re-partitions its own rows.  K must be
+        divisible by the shard count (else a loud flat fallback).
+      data_axes: mesh axes sharding the rows ("auto": whichever of
+        ('pod', 'data') the mesh has; explicit absent axes raise).
       device: ``None`` runs on the CUDA device (raising where there is
         none); ``"cpu"`` runs the plain PyTorch path.
     """

@@ -205,8 +205,8 @@ def engine_update(engine: AnticlusterEngine, x, state: ABAState, *,
                   added=None, removed=None):
     """:meth:`AnticlusterEngine.update`: ``(result, new_x, new_state)``.
 
-    Flat, streamed and hierarchical category-free sessions only; stacked,
-    categorical and masked sessions raise ``NotImplementedError``
+    Flat, streamed and hierarchical category-free sessions only; mesh,
+    stacked, categorical and masked sessions raise ``NotImplementedError``
     (repartition instead).  Recorded as the ``engine/update`` span when
     :mod:`repro_torch.obs` tracing is enabled.
     """
@@ -226,6 +226,10 @@ def _engine_update(engine: AnticlusterEngine, x, state: ABAState, sp, *,
             "sessions update one group at a time")
     n, d = shape
     mode, plan, solver, _chunk = engine._routed(shape)
+    if mode == "mesh":
+        raise NotImplementedError(
+            "mesh sessions do not support delta updates yet; repartition "
+            "(sharded warm starts make it cheap)")
     if engine._cats is not None:
         raise NotImplementedError(
             "categorical/fairness quotas pin per-stratum balance, which a "

@@ -9,7 +9,8 @@ resolved only after its tensors are complete on the lane's stream, so a
 client thread never sees labels the card is still writing.  On the card
 every stacked and solo lane call runs ``auction_phase_dense`` (one launch
 a LAP at the group's G), a live partition's update one launch at G = B.
-The mesh lanes of the reference are not ported (the spec raises).
+A mesh spec serves each request on a warm sharded lane (the engine's own
+shard placement owns the mesh's devices), one request at a time.
 
 The production shape of the paper's repeated-workload story
 (:class:`AnticlusterRouter`): clients ``submit`` ``(n, d)`` feature
@@ -34,9 +35,10 @@ Admission groups requests three ways:
   group axis, padded to a power-of-two width by repeating the last
   request (same as the synchronous service) -- a fluctuating batch size
   maps onto a handful of lane shapes.
-* **Sequential lanes.**  Hierarchical-plan specs cannot stack (the group
-  axis needs a flat plan): their requests serve one-at-a-time on warm
-  solo lanes.  This is a *degraded* path -- it is surfaced by the
+* **Sequential lanes.**  Hierarchical-plan and mesh specs cannot stack
+  (the group axis needs a flat plan; the mesh uses its own placement
+  axis): their requests serve one-at-a-time on warm solo lanes.  For
+  hierarchical plans this is a *degraded* path -- it is surfaced by the
   ``degraded_sequential`` metric and a one-time ``RuntimeWarning`` instead
   of silently losing throughput.
 
@@ -74,7 +76,8 @@ import torch
 from repro_torch import obs
 from repro_torch._device import as_float, resolve_device
 from repro_torch.anticluster import (AnticlusterEngine, AnticlusterResult,
-                                     AnticlusterSpec, _resolve_spec)
+                                     AnticlusterSpec, _mesh_shards,
+                                     _resolve_spec)
 
 __all__ = ["AnticlusterRouter", "EnginePool", "Rejected", "ServiceMetrics",
            "Ticket"]
@@ -290,7 +293,9 @@ class EnginePool:
     successive *new* lanes go to the ``torch.cuda.device_count()`` devices
     round-robin -- a lane's inputs and state live on its device, so lanes
     solve on different cards without any cross-device chatter; on a CPU
-    router every lane is on the CPU.
+    router every lane is on the CPU.  Mesh specs pin no lane: the engine's
+    shards run on the mesh's devices, and its inputs and state live on the
+    router's device.
 
     ``lane()`` does not lock: the router calls it under its metrics lock,
     which is what lets ``AnticlusterRouter.metrics`` iterate ``lanes``
@@ -303,7 +308,8 @@ class EnginePool:
         dev = resolve_device(device)
         self._devices = ([torch.device("cuda", i)
                           for i in range(torch.cuda.device_count())]
-                         if dev.type == "cuda" else [dev])
+                         if dev.type == "cuda" and spec.mesh is None
+                         else [dev])
         self._next_device = 0
 
     @property
@@ -341,7 +347,8 @@ class AnticlusterRouter:
       spec: the :class:`AnticlusterSpec` every request is solved under
         (keyword ``overrides`` compose via ``AnticlusterSpec.evolve``).
         Specs with ``categories`` / ``valid_mask`` are per-dataset rather
-        than per-request concepts and are rejected.
+        than per-request concepts and are rejected; a ``mesh`` spec serves
+        requests one at a time on warm sharded lanes.
       max_group: cap on the stacked group axis per lane call; pending
         same-bucket requests beyond it wait for the next call.
       max_queue: bound on admitted-but-unserved requests; ``submit`` above
@@ -384,11 +391,13 @@ class AnticlusterRouter:
         self._clock = clock
         self._background = background
         self._plan = spec.resolve_plan()
-        # stacked (G, M, D) execution needs a flat per-request plan and a
+        # stacked (G, M, D) execution needs a flat per-request plan, no mesh
+        # (the shard axis is placement, the group axis is batching), and a
         # dense solve (an explicit int chunk_size bans stacked input)
-        self._stackable = (len(self._plan) == 1
+        self._stackable = (len(self._plan) == 1 and spec.mesh is None
                            and not isinstance(spec.chunk_size, int))
-        self._is_hier = len(self._plan) > 1
+        self._is_hier = len(self._plan) > 1 and spec.mesh is None
+        self._shards = _mesh_shards(spec)  # 1 when meshless
         self._pool = EnginePool(spec, self.device)
         self._queue: collections.deque[_Request] = collections.deque()
         self._cv = threading.Condition()
@@ -445,6 +454,20 @@ class AnticlusterRouter:
         if shape[0] < self.spec.k:
             raise ValueError(
                 f"request has n={shape[0]} rows < spec.k={self.spec.k}")
+        if self._shards > 1 and shape[0] % self._shards \
+                and len(self._plan) > 1:
+            # flat per-shard plans auto-pad uneven rows inside the engine
+            # (masked zero rows; see AnticlusterEngine._solve_shape), so
+            # only the composition the engine itself cannot mask -- a
+            # multi-level per-shard plan -- is rejected here, at admission:
+            # by the time a lane solves, the ticket is the only way out,
+            # and an async failure is a worse surface than a synchronous one
+            raise ValueError(
+                f"request has n={shape[0]} rows, not divisible by the "
+                f"mesh shard count {self._shards}, and the per-shard plan "
+                f"{self._plan} is hierarchical (mesh lanes can auto-pad "
+                "uneven rows only under a flat per-shard plan; raise "
+                "max_k or pad the request)")
         return as_float(x, self.device)
 
     def _admission(self, n: int, d: int) -> tuple[tuple, int]:
@@ -548,8 +571,12 @@ class AnticlusterRouter:
         ``open_partition`` raises ``ValueError`` immediately, not on the
         ticket); open and update ops on one name share the admission key
         ``("update", name)``, so the queue's FIFO order IS the partition's
-        op order.
+        op order.  Mesh specs have no delta path and raise here.
         """
+        if self.spec.mesh is not None:
+            raise NotImplementedError(
+                "mesh lanes do not support delta updates; submit() full "
+                "requests instead")
         xa = self._coerce(x)
         with self._cv:
             if name in self._live_names:

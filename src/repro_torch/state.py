@@ -8,7 +8,9 @@ These functions move such a state between the JAX package (whose
 arrays with ``np.asarray``) and the port's tensors, so that both packages
 can run the same warm solve: :func:`state_from_numpy` /
 :func:`state_to_numpy` as mappings, :func:`abastate_from_numpy` /
-:func:`abastate_to_numpy` as the engine's ``ABAState``, so that a JAX
+:func:`abastate_to_numpy` as the engine's ``ABAState``, and
+:func:`shardedstate_from_numpy` / :func:`shardedstate_to_numpy` as a mesh
+session's ``ShardedABAState`` (the same fields, per shard), so that a JAX
 session's state warm-starts a port session.
 
 A state is a mapping of leaf names to arrays, or a tuple of arrays for the
@@ -59,24 +61,43 @@ def state_to_numpy(state: dict) -> dict:
     return out
 
 
+def _engine_state(cls, state, device):
+    if not isinstance(state, dict):
+        state = {f.name: getattr(state, f.name)
+                 for f in dataclasses.fields(cls)}
+    t = state_from_numpy(state, device)
+    return cls(prices=tuple(t["prices"]),
+               moment_sum=t["moment_sum"].float(),
+               moment_count=t["moment_count"].float(),
+               prev_labels=t["prev_labels"])
+
+
 def abastate_from_numpy(state, device=None):
     """A state with the ``ABAState`` fields (the JAX dataclass, a mapping,
     any object with those attributes) -> the port's
     :class:`repro_torch.anticluster.ABAState` on ``device``."""
     from repro_torch.anticluster import ABAState
-
-    if not isinstance(state, dict):
-        state = {f.name: getattr(state, f.name)
-                 for f in dataclasses.fields(ABAState)}
-    t = state_from_numpy(state, device)
-    return ABAState(prices=tuple(t["prices"]),
-                    moment_sum=t["moment_sum"].float(),
-                    moment_count=t["moment_count"].float(),
-                    prev_labels=t["prev_labels"])
+    return _engine_state(ABAState, state, device)
 
 
 def abastate_to_numpy(state) -> dict:
-    """The port's ``ABAState`` -> a dict of its fields as numpy arrays
-    (``prices`` a tuple)."""
+    """The port's ``ABAState`` (or ``ShardedABAState``) -> a dict of its
+    fields as numpy arrays (``prices`` a tuple)."""
     return state_to_numpy({f.name: getattr(state, f.name)
                            for f in dataclasses.fields(state)})
+
+
+def shardedstate_from_numpy(state, device=None):
+    """A state with the ``ShardedABAState`` fields (JAX's, its leaves read
+    as numpy arrays, or a mapping) -> the port's
+    :class:`repro_torch.anticluster.ShardedABAState` on ``device``: per-level
+    prices ``(S, G_l, k_l)``, ``moment_sum`` ``(S, d)``, ``moment_count``
+    ``(S,)`` and ``prev_labels`` ``(n,)``."""
+    from repro_torch.anticluster import ShardedABAState
+    return _engine_state(ShardedABAState, state, device)
+
+
+def shardedstate_to_numpy(state) -> dict:
+    """The port's ``ShardedABAState`` -> a dict of its fields as numpy
+    arrays (``prices`` a tuple), the layout of JAX's leaves."""
+    return abastate_to_numpy(state)

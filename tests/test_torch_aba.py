@@ -7,9 +7,6 @@ port, the streaming core with ``chunk_size >= n`` gives the dense core's
 labels bit for bit.
 """
 
-import re
-from pathlib import Path
-
 import numpy as np
 import pytest
 import torch
@@ -32,6 +29,7 @@ from repro_torch.core.aba import aba_core, aba_stream, interleave_permutation
 from repro_torch.core import objective as obj
 from repro_torch.core.objective import balance_ok, objective_centroid
 from repro_torch.data.synthetic import make
+from repro_torch.launch.mesh import make_host_mesh
 
 CPU = "cpu"
 
@@ -208,17 +206,9 @@ def test_default_device_is_cuda():
             aba_stream(x, 4, 32)
 
 
-def _queue1_titles():
-    """The bold titles of ROADMAP.md's Queue 1 items."""
-    text = (Path(__file__).resolve().parents[1] / "ROADMAP.md").read_text()
-    queue = text.split("### Queue 1", 1)[1].split("\n### ", 1)[0]
-    return re.findall(r"^\d+\. \*\*(.+?)\*\*", queue, flags=re.M)
-
-
-def _out_of_slice(kw, title):
+def _out_of_slice(kw):
     key = next(iter(kw))
-    return pytest.param(kw, title,
-                        id=key + "=" + str(next(iter(kw.values())))[:12])
+    return pytest.param(kw, id=key + "=" + str(next(iter(kw.values())))[:12])
 
 
 def _layout(tele):
@@ -229,38 +219,49 @@ def _layout(tele):
             for key, v in tele.items()}
 
 
-@pytest.mark.parametrize("kw,title", [
-    _out_of_slice({"fairness": np.zeros(64, np.int32), "mesh": object()},
-                  "Mesh route"),
-    _out_of_slice({"mesh": object()}, "Mesh route"),
+def _jax_mesh1():
+    import jax
+    from jax.sharding import Mesh
+    return Mesh(np.asarray(jax.devices()[:1]).reshape(1, 1),
+                ("data", "model"))
+
+
+@pytest.mark.parametrize("kw", [
+    # the mesh route is ported: the object() stands for a 1-shard mesh,
+    # the port's against JAX's 1-device mesh
+    _out_of_slice({"fairness": np.zeros(64, np.int32), "mesh": object()}),
+    _out_of_slice({"mesh": object()}),
     # telemetry is ported: these run, with JAX's layout (None for scipy)
-    _out_of_slice({"telemetry": True}, None),
-    # the greedy and scipy solvers are ported: with them, the fields still
-    # out of the slice raise as before
-    _out_of_slice({"solver": "greedy", "mesh": object()}, "Mesh route"),
-    _out_of_slice({"solver": "scipy", "telemetry": True}, None),
+    _out_of_slice({"telemetry": True}),
+    # the greedy and scipy solvers are ported, with a mesh too
+    _out_of_slice({"solver": "greedy", "mesh": object()}),
+    _out_of_slice({"solver": "scipy", "telemetry": True}),
 ])
-def test_out_of_slice_fields_raise(kw, title):
-    """Each field out of the slice raises naming its ROADMAP Queue 1 item
-    by a title that the ROADMAP has (an item's title, not its number,
-    which a re-anchor may change); ``telemetry=True`` runs and gives JAX's
-    telemetry layout."""
+def test_out_of_slice_fields_raise(kw):
+    """The fields that were once out of the slice now run: a ``mesh`` on
+    the port's 1-shard mesh (route ``"mesh"``, JAX's plan, exact balance,
+    the objective within 1e-3 relative of JAX's 1-device mesh), and
+    ``telemetry=True`` with JAX's telemetry layout."""
     kw = {"k": 4, **kw}
     x = _data(64, 4)
-    if title is None:
-        res = anticluster(x, device=CPU, **kw)
-        assert res.balanced
-        eng = AnticlusterEngine(AnticlusterSpec(**kw), device=CPU)
-        jeng = JaxEngine(JaxSpec(**kw))
-        eng.partition(x)
-        jeng.partition(x)
-        assert _layout(eng.last_telemetry) == _layout(jeng.last_telemetry)
-        assert (eng.last_telemetry is None) == (kw.get("solver") == "scipy")
+    if "mesh" in kw:
+        res = anticluster(x, device=CPU, **{**kw, "mesh": make_host_mesh(
+            1, 1, device=CPU)})
+        ref = jax_anticluster(jnp.asarray(x), **{**kw, "mesh": _jax_mesh1()})
+        assert res.route == "mesh" and res.plan == ref.plan
+        assert res.balanced and balance_ok(res.labels.numpy(), 4)
+        want = _objective(x, np.array(ref.labels), 4)
+        assert abs(_objective(x, res.labels.numpy(), 4) - want) \
+            <= 1e-3 * abs(want)
         return
-    assert any(t.startswith(title) for t in _queue1_titles()), title
-    with pytest.raises(NotImplementedError,
-                       match=re.escape(f"ROADMAP Queue 1: {title}")):
-        anticluster(x, device=CPU, **kw)
+    res = anticluster(x, device=CPU, **kw)
+    assert res.balanced
+    eng = AnticlusterEngine(AnticlusterSpec(**kw), device=CPU)
+    jeng = JaxEngine(JaxSpec(**kw))
+    eng.partition(x)
+    jeng.partition(x)
+    assert _layout(eng.last_telemetry) == _layout(jeng.last_telemetry)
+    assert (eng.last_telemetry is None) == (kw.get("solver") == "scipy")
 
 
 def test_out_of_slice_core_arguments_and_engine_raise():

@@ -1123,3 +1123,74 @@ def test_cuda_router_burst_and_live_partition(cuda):
                               removed=np.arange(10)).result(timeout=300)
         assert res.updated and res.balanced
         assert _build.launches["auction_phase_dense"] - n0 == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw,kernel", [
+    ({}, "auction_phase_dense"),
+    ({"chunk_size": 2048, "solver": "auction_fused"}, "auction_phase")])
+def test_cuda_two_shard_mesh_equals_its_shard_solves(cuda, kw, kernel):
+    """A 2-shard mesh with both shards on the card: labels bitwise the two
+    shards solved one by one plus the offset, each shard's labels in its
+    own range, exact balance; the shards' LAPs launch the phase kernel."""
+    from repro_torch.launch.mesh import make_host_mesh
+    rng = np.random.default_rng(40)
+    x = torch.from_numpy(rng.normal(size=(8192, 22)).astype(np.float32))
+    mesh = make_host_mesh(2, 1, device=cuda)
+    n0 = _build.launches[kernel]
+    res = anticluster(x, k=64, mesh=mesh, device=cuda, **kw)
+    launched = _build.launches[kernel] - n0
+    assert res.route == "mesh" and res.plan == (2, 32) and res.balanced
+    assert launched >= 2 * (4096 // 32 - 1)
+    labels = res.labels.cpu().numpy()
+    for s in range(2):
+        rows = slice(s * 4096, (s + 1) * 4096)
+        part = anticluster(x[rows], k=32, device=cuda, **kw)
+        assert np.array_equal(labels[rows],
+                              s * 32 + part.labels.cpu().numpy())
+        assert labels[rows].min() >= s * 32 and labels[rows].max() < s * 32 + 32
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_engine_zeroed_state_equals_oneshot(cuda):
+    """A 2-shard mesh engine on the card: ``partition`` and a zeroed
+    ``ShardedABAState`` give the one-shot mesh labels bitwise; a warm
+    repartition keeps exact balance with per-shard prices."""
+    from repro_torch.anticluster import ShardedABAState
+    from repro_torch.launch.mesh import make_host_mesh
+    rng = np.random.default_rng(41)
+    x = torch.from_numpy(rng.normal(size=(4097, 16)).astype(np.float32))
+    mesh = make_host_mesh(2, 1, device=cuda)
+    one = anticluster(x, k=32, mesh=mesh, device=cuda)
+    eng = AnticlusterEngine(k=32, mesh=mesh, device=cuda)
+    res, state = eng.partition(x)
+    assert isinstance(state, ShardedABAState)
+    assert state.prices[0].shape == (2, 1, 16)
+    assert torch.equal(res.labels, one.labels)
+    res0, _ = eng.repartition(x, eng.init_state(x))
+    assert torch.equal(res0.labels, one.labels)
+    res1, state = eng.repartition(x + 0.05, state)
+    assert res1.balanced and res1.labels.shape == (4097,)
+    assert eng.compile_count == 1
+
+
+@pytest.mark.cuda
+def test_cuda_pipeline_equals_sequencer(cuda):
+    """``ABAPipeline`` on the card: each epoch's labels and batches bitwise
+    an ``ABABatchSequencer``'s on the same drifted features, the solves
+    dispatched from the engine's worker thread."""
+    from repro_torch.data import ABABatchSequencer
+    from repro_torch.train import ABAPipeline
+    rng = np.random.default_rng(42)
+    x = rng.normal(size=(8192, 12)).astype(np.float32)
+    drift = [x + 0.01 * e * rng.normal(size=x.shape).astype(np.float32)
+             for e in range(3)]
+    seq = ABABatchSequencer(x, 128, seed=4, device=cuda)
+    pipe = ABAPipeline(x, 128, seed=4, device=cuda)
+    assert pipe.overlapped
+    for e, ep in enumerate(pipe.epochs(3, features=lambda i: drift[i])):
+        batches = seq.epoch(e, features=drift[e] if e else None)
+        assert np.array_equal(pipe.labels, seq.result.labels.cpu().numpy())
+        assert all(np.array_equal(a, b) for a, b in zip(ep, batches))
+    assert pipe.engine.compile_count == 1
+    pipe.engine.close()

@@ -10,7 +10,6 @@ mismatches, the unfactorable-k fallback, ``mesh=``) raise as the
 reference's do.
 """
 
-import re
 import warnings
 
 import numpy as np
@@ -29,6 +28,7 @@ from repro_torch.core.objective import (balance_ok, diversity_per_cluster,
 from repro_torch.data import (ABABatchSequencer, aba_folds, fold_engine,
                               fold_partition, fold_splits, synthetic)
 from repro_torch.data import minibatch as mb
+from repro_torch.launch.mesh import make_host_mesh
 
 CPU = "cpu"
 
@@ -179,13 +179,30 @@ def test_unfactorable_k_falls_back_to_flat_loudly():
 
 
 def test_mesh_raises_naming_the_mesh_route():
-    for call in (lambda: mb._auto_or_flat_spec(4, 512, mesh=object()),
-                 lambda: ABABatchSequencer(_data(64, 3), 16, mesh=object(),
-                                           device=CPU),
-                 lambda: fold_engine(4, mesh=object(), device=CPU)):
-        with pytest.raises(NotImplementedError,
-                           match=re.escape("ROADMAP Queue 1: Mesh route")):
-            call()
+    """The mesh route is ported: the spec helper, the sequencer and the
+    folds take a 1-shard port mesh and hold to JAX's 1-device mesh (the
+    same plan; exact balance and the objective within 1e-3 relative)."""
+    import jax
+    from jax.sharding import Mesh
+    jmesh = Mesh(np.asarray(jax.devices()[:1]).reshape(1, 1),
+                 ("data", "model"))
+    mesh = make_host_mesh(1, 1, device=CPU)
+    spec = mb._auto_or_flat_spec(4, 512, mesh=mesh)
+    assert spec.mesh is mesh
+    assert spec.resolve_plan() == \
+        jax_mb._auto_or_flat_spec(4, 512, mesh=jmesh).resolve_plan()
+    x = _data(64, 3)
+    seq = ABABatchSequencer(x, 16, mesh=mesh, device=CPU)
+    jseq = jax_mb.ABABatchSequencer(x, 16, mesh=jmesh)
+    assert seq.result.route == "mesh" and seq.result.plan == jseq.result.plan
+    folds = aba_folds(x, 4, engine=fold_engine(4, mesh=mesh, device=CPU))
+    jfolds = jax_folds.aba_folds(x, 4, engine=jax_folds.fold_engine(
+        4, mesh=jmesh))
+    for labels, ref in ((seq.result.labels.numpy(), jseq.result.labels),
+                        (folds, jfolds)):
+        ref = np.array(ref)
+        assert balance_ok(labels, 4)
+        assert _close(_objective(x, labels, 4), _jax_objective(x, ref, 4))
 
 
 # ---------------------------------------------------------------------------

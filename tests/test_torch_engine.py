@@ -445,12 +445,25 @@ def test_new_style_registration_does_not_warn():
 
 
 def test_telemetry_spec_still_raises():
-    """A telemetry spec with a mesh still raises for the mesh; without one
-    the engine runs and keeps JAX's telemetry layout (numpy, the stacked
-    per-batch stats), its labels those of a telemetry-free engine."""
-    with pytest.raises(NotImplementedError, match="Mesh route"):
-        AnticlusterSpec(k=4, telemetry=True, mesh=object())
+    """A telemetry spec with a mesh runs now (the mesh route is ported):
+    on a 1-shard port mesh, as on JAX's 1-device mesh, the engine keeps no
+    telemetry (per-shard solves have no batch axis) and its labels are
+    those of the same spec without telemetry.  Without a mesh the engine
+    keeps JAX's telemetry layout (numpy, the stacked per-batch stats), its
+    labels those of a telemetry-free engine."""
+    from jax.sharding import Mesh
+    from repro_torch.launch.mesh import make_host_mesh
     x = _data(96, 4, 3)
+    mesh = make_host_mesh(1, 1, device=CPU)
+    meng = AnticlusterEngine(AnticlusterSpec(k=4, telemetry=True, mesh=mesh),
+                             device=CPU)
+    jmeng = JaxEngine(k=4, telemetry=True, mesh=Mesh(
+        np.asarray(jax.devices()[:1]).reshape(1, 1), ("data", "model")))
+    mres, _ = meng.partition(x)
+    jmeng.partition(x)
+    assert meng.last_telemetry is None and jmeng.last_telemetry is None
+    assert mres.route == "mesh" and torch.equal(
+        mres.labels, anticluster(x, k=4, mesh=mesh, device=CPU).labels)
     eng = AnticlusterEngine(AnticlusterSpec(k=4, telemetry=True), device=CPU)
     plain = AnticlusterEngine(AnticlusterSpec(k=4), device=CPU)
     jeng = JaxEngine(k=4, telemetry=True)

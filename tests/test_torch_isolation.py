@@ -39,7 +39,10 @@ def test_no_jax_or_reference_imports(path):
 
 def test_import_pulls_in_neither_jax_nor_repro():
     code = ("import sys, repro_torch, repro_torch.core.aba, "
-            "repro_torch.kernels.ops, repro_torch.data.synthetic\n"
+            "repro_torch.kernels.ops, repro_torch.data.synthetic, "
+            "repro_torch.core.baselines, repro_torch.core.sharded, "
+            "repro_torch.sharding, repro_torch.launch, repro_torch.train, "
+            "repro_torch.serve\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "assert not bad, bad\n")
