@@ -97,16 +97,17 @@ git-ignored ``build/``), then runs these phases, one or more lines each:
 8. the hierarchical route (paper Section 4.4) on the Table-10 rows of
    ``benchmarks/table10_scale.py`` (n = 2^20, d = 32, low rank), each a
    first call (its LAPs counted by level) and a main call with the
-   counters zeroed just before it and read just after: (a) k = 4096
+   counters zeroed just before it and read just after (for (a) and (b)
+   one main call that counts, then one profiled whole): (a) k = 4096
    (plan (64, 64), dense), (b) the same with ``chunk_size="auto"`` (level 1
    streamed, ``"auction_fused"``), (d) (a) with ``categories=`` (one
    call), (c) k = 131072 (plan (256, 512); one call if the phase has
    passed HIER_PHASE_BUDGET_S); the LAPs of each level and the kernels'
    launches a LAP, exact balance, constraint (5) for (d), the objective
    above random, a finite gap >= 0, the labels' sha256; (a) and (b) with
-   20 LAPs of each level profiled (device launches a LAP at G = 1 and
-   G = 64) and a call profiled whole (each kernel's device time, the idle
-   share); then (e)
+   20 LAPs of each level profiled inside the main call (device launches a
+   LAP at G = 1 and G = 64) and a second call profiled whole (each
+   kernel's device time, the idle share); then (e)
    ``kplus_moments=2`` on phase 3's rows at k = 256, its moment-2 spread
    below the same call's without k-plus;
 9. sessions at full size on phase 3's rows at k = 256
@@ -162,6 +163,24 @@ git-ignored ``build/``), then runs these phases, one or more lines each:
    and the overlap; (c) at n = 16 384, k = 256, ABA's objective and time
    on the card beside ``fast_anticlustering`` and ``random_partition`` on
    the host;
+12. the model stack: falcon-mamba-7b at full width and depth (64 layers,
+   7 272 665 088 parameters, random weights drawn on the card from a
+   seed) served by ``Generator``: (a) ``init_params`` with its count,
+   bytes and peak memory; (b) ``generate`` on 2 seeded prompts of 2 048
+   tokens with 64 greedy steps: the prefill's time and tokens/s, the
+   decode steps' tokens/s, ``ssm_scan`` 64 launches in the prefill and
+   none in decode, a profiled prefill and decode step by kernel with
+   their idle shares; (c) the same prefill under ``ops.forced_path("ref")``
+   (no launch): each layer's final h and the last logits within twice
+   bfloat16's own spread (the distance of the plain path from the prefill
+   in float32 compute), 16 greedy tokens equal up to the first step whose
+   top-2 margin is under that tolerance; in float32 compute, at S = 256,
+   the two paths within 1e-4 of the largest h and logit, and 16 greedy
+   tokens likewise; (d) 16 greedy steps again equal, 16 sampled steps
+   (``temperature=1.0``) in range and unlike greedy; (e) at S = 256 the
+   first decode step's logits
+   against ``forward`` on the extended sequence, within twice bfloat16's
+   spread;
 
 then one JSON line describing every kernel, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises, exits non-zero and
@@ -228,6 +247,9 @@ from repro_torch.kernels.ref import (  # noqa: E402
     gather_rows_ref, ssm_scan_chunk_ref, ssm_scan_ref)
 from repro_torch.kernels.ssm_scan import ssm_scan_chunk  # noqa: E402
 from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
+from repro_torch.models import registry as model_registry  # noqa: E402
+from repro_torch.models import transformer as MT  # noqa: E402
+from repro_torch.serve import Generator  # noqa: E402
 from repro_torch.serve import AnticlusterRouter  # noqa: E402
 from repro_torch.train import ABAPipeline  # noqa: E402
 
@@ -2140,30 +2162,48 @@ class LevelLaps:
 
 def hier_call(x, k, dev, expect, windows=False, once=False, **kw):
     """One call of phase 8 as a user makes it, as ``(run, result)``: a
-    first call with its LAPs
-    counted by level (:class:`LevelLaps`), then the main call with the
-    counters zeroed just before it and read just after; checks the route,
-    plan and solver, the LAPs of each level and the kernels' launches a
-    LAP, equal labels and rounds in both, exact balance, the objective
-    above a seeded random partition and a finite gap >= 0.  With ``once``
-    the first call is the main call.  With ``windows`` a third call
-    profiles WINDOW_LAPS LAPs in the middle of level 1 and of level 2
-    (device launches a LAP at G = 1 and at G = plan[0]: no copy
-    between host and card, no wait) and a fourth is profiled whole."""
+    first call with its LAPs counted by level (:class:`LevelLaps`), then
+    the main call with the counters zeroed just before it and read just
+    after; checks the route, plan and solver, the LAPs of each level and
+    the kernels' launches a LAP, equal labels and rounds in both, exact
+    balance, the objective above a seeded random partition and a finite
+    gap >= 0.  With ``once`` the first call is the main call.  With
+    ``windows`` the main call carries the level counters too and profiles
+    WINDOW_LAPS LAPs in the middle of level 1 and of level 2 (device
+    launches a LAP at G = 1 and at G = plan[0]: no copy between host and
+    card, no wait; its time includes the two windows' synchronizes and
+    profiler), and the second call is the one profiled whole."""
     route, plan, solver = expect
-    with LevelLaps() as levels:
-        first, first_s, first_used = user_call(x, k, dev, **kw)
-    res, main_s, used = ((first, first_s, first_used) if once
-                         else user_call(x, k, dev, **kw))
-    check(res.route == route and res.plan == plan and res.solver == solver,
-          f"route {res.route} plan {res.plan} solver {res.solver}, expected "
-          f"{expect}")
     n = x.shape[0]
     laps, m = {}, n
     for li, k_l in enumerate(plan):
         groups = math.prod(plan[:li])
         laps[groups] = -(-m // k_l) - 1
         m = -(-m // k_l)
+    field = "factored" if solver == "auction_fused" else "solve"
+    l1, half = laps[1], WINDOW_LAPS // 2
+    with contextlib.ExitStack() as stack:
+        levels = stack.enter_context(LevelLaps())
+        if windows:
+            w1, w2 = (stack.enter_context(LapWindow(
+                solver, field, at, WINDOW_LAPS)) for at in (
+                    l1 // 2 - half, l1 + laps[plan[0]] // 2 - half))
+        first, first_s, first_used = user_call(x, k, dev, **kw)
+    if windows:
+        second = []
+        torch.cuda.synchronize()
+        reset_counts()
+        whole = call_kernel_ms(x, k, dev, "auction_phase_kernel", call=(
+            lambda: second.append(anticluster(x, k=k, device=dev, **kw))))
+        whole["idle_share"] = 1.0 - whole["device_ms"] / (first_s * 1e3)
+        (res, main_s, used), (first, first_s, first_used) = (
+            (first, first_s, first_used), (second[0], None, counts()))
+    else:
+        res, main_s, used = ((first, first_s, first_used) if once
+                             else user_call(x, k, dev, **kw))
+    check(res.route == route and res.plan == plan and res.solver == solver,
+          f"route {res.route} plan {res.plan} solver {res.solver}, expected "
+          f"{expect}")
     per_lap = levels.per_lap()
     want_launches = ({"bid_top2": 1.0, "auction_phase": 4.0}
                      if solver == "auction_fused"
@@ -2191,12 +2231,6 @@ def hier_call(x, k, dev, expect, windows=False, once=False, **kw):
            "per_level": per_lap, "gap": gap, **q, "once": once,
            "labels_sha256": digest}
     if windows:
-        field = "factored" if solver == "auction_fused" else "solve"
-        l1, half = laps[1], WINDOW_LAPS // 2
-        with LapWindow(solver, field, l1 // 2 - half, WINDOW_LAPS) as w1, \
-                LapWindow(solver, field, l1 + laps[plan[0]] // 2 - half,
-                          WINDOW_LAPS) as w2:
-            anticluster(x, k=k, device=dev, **kw)
         run["windows"] = {}
         for G, w in ((1, w1), (plan[0], w2)):
             split = w.split("auction_phase_kernel")
@@ -2206,8 +2240,6 @@ def hier_call(x, k, dev, expect, windows=False, once=False, **kw):
                   f"G={G}: a LAP reads back from the card, uploads to it or "
                   f"waits for it: {split}")
             run["windows"][G] = split
-        whole = call_kernel_ms(x, k, dev, "auction_phase_kernel", **kw)
-        whole["idle_share"] = 1.0 - whole["device_ms"] / (main_s * 1e3)
         run["call_profile"] = whole
     return run, res
 
@@ -2234,9 +2266,11 @@ def hierarchical_routes(dev, card: str) -> dict:
             f"G={G}: {v['laps']} LAPs, " + ", ".join(
                 f"{kn} {c:g}" for kn, c in v.items() if kn != "laps")
             + " a LAP" for G, v in run["per_level"].items())
+        other = ("a second call profiled whole" if run["first_s"] is None
+                 else f"first call {run['first_s']:.3f} s")
         log(f"({name}) on {card}: route={run['route']} plan={run['plan']} "
-            f"solver={run['solver']} {run['main_s']:.3f} s (first call "
-            f"{run['first_s']:.3f} s); launches {run['launches']} ({per}); "
+            f"solver={run['solver']} {run['main_s']:.3f} s ({other}); "
+            f"launches {run['launches']} ({per}); "
             f"rounds {run['rounds']}, bids {run['bids']}, single-bidder "
             f"rounds {run['single_bidder_rounds']}; sizes "
             f"{run['sizes'][0]}..{run['sizes'][1]}; ofv {run['ofv']:.6e} > "
@@ -3883,6 +3917,325 @@ def mesh_pipeline_baselines(dev, n: int, card: str, default: dict,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the model stack, falcon-mamba-7b serving
+# ---------------------------------------------------------------------------
+
+MODEL_ARCH = "falcon-mamba-7b"
+MODEL_PARAMS = 7_272_665_088  # its ModelConfig, all 64 layers
+MODEL_LAYERS = 64
+PROMPTS = (2, 2048)  # B, S: the ssm_scan row's shape
+DECODE_STEPS = 64
+F32_STEPS = 16  # (c), (d): greedy steps compared, and steps sampled
+SHORT_PROMPT = 256  # (e): the first decode step against forward
+# The kernel path against the plain path at full width.  In bfloat16
+# compute the two differ first by the scan's ~1e-6, which moves a bfloat16
+# ulp of y here and there; over 64 layers the moves grow to the size of
+# bfloat16's own rounding error (PERF.md, phase 12).  So a bfloat16 value
+# is held within SPREAD_FACTOR times bfloat16's spread measured in the same
+# run, the plain path's distance from the same prefill in float32 compute:
+# each path lies within the spread of the float32 model, so within twice
+# it of the other.  In float32 compute the two paths are held to the
+# scan's own contract, F32_RTOL of the largest value.
+SPREAD_FACTOR = 2.0
+F32_RTOL = 1e-4
+
+
+class StageClock:
+    """Within the block ``transformer.prefill`` and ``decode_step``, as
+    ``Generator`` calls them, are watched: the prefill timed between two
+    synchronizes, with its ``ssm_scan`` launches; each decode step's
+    launches counted, without a synchronize (the steps queue as they do
+    unwatched)."""
+
+    def __enter__(self):
+        self.inner = (MT.prefill, MT.decode_step)
+        self.decode_launches, self.steps = 0, 0
+
+        def prefill(*args, **kw):
+            torch.cuda.synchronize()
+            n0, t0 = _build.launches["ssm_scan"], time.perf_counter()
+            out = self.inner[0](*args, **kw)
+            torch.cuda.synchronize()
+            self.prefill_end = time.perf_counter()
+            self.prefill_s = self.prefill_end - t0
+            self.prefill_launches = _build.launches["ssm_scan"] - n0
+            return out
+
+        def decode_step(*args, **kw):
+            n0 = _build.launches["ssm_scan"]
+            out = self.inner[1](*args, **kw)
+            self.decode_launches += _build.launches["ssm_scan"] - n0
+            self.steps += 1
+            return out
+
+        MT.prefill, MT.decode_step = prefill, decode_step
+        return self
+
+    def __exit__(self, *exc):
+        MT.prefill, MT.decode_step = self.inner
+
+
+def greedy_margins(cfg, model, logits, cache, kv_len, steps):
+    """Generator's greedy loop from a prefill's (logits, cache), with each
+    token's top-2 margin: (tokens (B, steps), margins (B, steps))."""
+    toks, margins = [], []
+    for step in range(steps):
+        top = logits[:, -1].topk(2, dim=-1).values
+        margins.append(top[:, 0] - top[:, 1])
+        toks.append(logits[:, -1:].argmax(-1))
+        if step + 1 < steps:
+            logits, cache = MT.decode_step(cfg, model, cache, kv_len + step,
+                                           toks[-1])
+    return (torch.cat(toks, 1).int().cpu().numpy(),
+            torch.stack(margins, 1).cpu().numpy())
+
+
+def first_steps(margins, tol, tokens, want) -> tuple:
+    """Per row: the first step whose top-2 margin is under ``tol``, and the
+    first step whose token differs from ``want``'s (the steps if none)."""
+    steps = margins.shape[1]
+    return ([int(np.argmax(m < tol)) if (m < tol).any() else steps
+             for m in margins],
+            [int(np.argmax(t != w)) if (t != w).any() else steps
+             for t, w in zip(tokens, want)])
+
+
+def layer_errors(h, want, norm: bool) -> list:
+    """Each layer's ||h - want|| / ||want|| (``norm``), or max |h - want|
+    over max |want|; h and want are (layers, B, di, ds)."""
+    if norm:
+        return ((h - want).flatten(1).norm(dim=1)
+                / want.flatten(1).norm(dim=1)).tolist()
+    return ((h - want).flatten(1).abs().amax(1)
+            / want.flatten(1).abs().amax(1)).tolist()
+
+
+def model_stack(dev, card: str) -> dict:
+    """Phase 12: falcon-mamba-7b at full width and depth on the card."""
+    t_start = time.perf_counter()
+    cfg = model_registry.get_config(MODEL_ARCH)
+    b, s = PROMPTS
+    torch.cuda.empty_cache()
+    live = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    # (a) the parameters, drawn on the card
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = MT.init_params(cfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    count = sum(p.numel() for p in model.parameters())
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    check(count == MODEL_PARAMS == MT.n_params(cfg)
+          and cfg.n_layers == len(model.blocks) == MODEL_LAYERS
+          and all(p.device.type == dev.type for p in model.parameters()),
+          f"{MODEL_ARCH}: {count} parameters, {cfg.n_layers} layers")
+    a = {"params": count, "bytes": nbytes, "init_s": init_s,
+         "live_before_bytes": live,
+         "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    log(f"(a) {MODEL_ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"d_inner {cfg.d_inner}, d_state {cfg.ssm.d_state}, vocab "
+        f"{cfg.vocab_size}: {count} parameters ({nbytes / 2**30:.2f} GiB "
+        f"{cfg.param_dtype}, compute {cfg.compute_dtype}) drawn on the card "
+        f"in {init_s:.3f} s; max_memory_allocated "
+        f"{a['max_memory_allocated'] / 2**30:.2f} GiB ({live / 2**20:.1f} "
+        f"MiB live before)")
+
+    # (b) Generator.generate as a user calls it
+    prompts = np.random.default_rng(12).integers(0, cfg.vocab_size, PROMPTS)
+    max_len = s + DECODE_STEPS
+    server = Generator(cfg, model, max_len=max_len, device=dev)
+    server.generate(prompts, 2)  # warm-up at full size: cuBLAS, allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with StageClock() as clock:
+        t0 = time.perf_counter()
+        tokens = server.generate(prompts, DECODE_STEPS)
+        t_end = time.perf_counter()
+    used = counts()
+    check(tokens.shape == (b, DECODE_STEPS)
+          and bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
+          f"generate gave {tokens.shape} tokens or ones out of range")
+    check(clock.prefill_launches == cfg.n_layers == used["ssm_scan"]
+          and clock.decode_launches == 0
+          and clock.steps == DECODE_STEPS - 1
+          and not any(used[k] for k in _build.launches if k != "ssm_scan"),
+          f"ssm_scan launched {clock.prefill_launches} times in the prefill "
+          f"and {clock.decode_launches} in {clock.steps} decode steps; "
+          f"all launches {used}")
+    decode_s = t_end - clock.prefill_end
+    bb = {"wall_s": t_end - t0, "prefill_s": clock.prefill_s,
+          "prefill_tokens_per_s": b * s / clock.prefill_s,
+          "decode_s": decode_s, "decode_steps": clock.steps,
+          "decode_ms_per_step": decode_s / clock.steps * 1e3,
+          "decode_tokens_per_s": b * clock.steps / decode_s,
+          "ssm_scan_prefill": clock.prefill_launches,
+          "ssm_scan_decode": clock.decode_launches,
+          "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    tp = torch.from_numpy(prompts).to(dev)
+    prof = call_kernel_ms(None, None, dev, "ssm_scan",
+                          call=lambda: MT.prefill(cfg, model, tp, max_len))
+    bb["profiled_prefill"] = prof
+    bb["idle_share"] = (1.0 - prof["device_ms"] / 1e3 / clock.prefill_s
+                        if prof["device_ms"] else None)
+    log(f"(b) Generator.generate(B={b}, S={s}, {DECODE_STEPS} greedy steps) "
+        f"on {card}: {bb['wall_s']:.3f} s; prefill {clock.prefill_s:.4f} s "
+        f"({bb['prefill_tokens_per_s']:.0f} tokens/s), ssm_scan launched "
+        f"{clock.prefill_launches} times; {clock.steps} decode steps "
+        f"{decode_s:.3f} s ({bb['decode_ms_per_step']:.2f} ms a step, "
+        f"{bb['decode_tokens_per_s']:.1f} tokens/s), ssm_scan launched "
+        f"{clock.decode_launches} times; peak "
+        f"{bb['max_memory_allocated'] / 2**30:.2f} GiB")
+    log(f"  a profiled prefill: device {prof['device_ms']:.2f} ms in "
+        f"{prof['launches']} launches, ssm_scan {prof['kernel_ms']:.2f} ms "
+        f"in {prof['kernel_launches']} (idle share {bb['idle_share']}); by "
+        f"kernel: " + "; ".join(f"{k} {v['ms']:.2f} ms/{v['launches']}"
+                                for k, v in prof["kernels"].items()))
+
+    # (c) the same prefill through the plain scan, in bfloat16 and float32
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    short = tp[:, :SHORT_PROMPT]
+    logits_k, cache_k = MT.prefill(cfg, model, tp, max_len)
+    logits_32, cache_32 = MT.prefill(cfg32, model, tp, max_len)
+    one = call_kernel_ms(None, None, dev, "ssm_scan", call=lambda: (
+        MT.decode_step(cfg, model, cache_k, s, logits_k.argmax(-1))))
+    bb["profiled_decode_step"] = one
+    bb["decode_idle_share"] = (1.0 - one["device_ms"]
+                               / bb["decode_ms_per_step"]
+                               if one["device_ms"] else None)
+    log(f"  a profiled decode step: device {one['device_ms']:.2f} ms in "
+        f"{one['launches']} launches against {bb['decode_ms_per_step']:.2f} "
+        f"ms a step unprofiled (idle share {bb['decode_idle_share']}); by "
+        f"kernel: " + "; ".join(f"{k} {v['ms']:.2f} ms/{v['launches']}"
+                                for k, v in one["kernels"].items()))
+    reset_counts()
+    with ops.forced_path("ref"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits_p, cache_p = MT.prefill(cfg, model, tp, max_len)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        plain_tokens, margins = greedy_margins(cfg, model, logits_p, cache_p,
+                                               s, F32_STEPS)
+        logits_p32, cache_p32 = MT.prefill(cfg32, model, short, max_len)
+        plain_32, margins_32 = greedy_margins(cfg32, model, logits_p32,
+                                              cache_p32, SHORT_PROMPT,
+                                              F32_STEPS)
+        inside = counts()
+    logits_k32, cache_k32 = MT.prefill(cfg32, model, short, max_len)
+    tokens_32, _ = greedy_margins(cfg32, model, logits_k32, cache_k32,
+                                  SHORT_PROMPT, F32_STEPS)
+    h_k, h_p, h_32 = (c["L0"]["h"] for c in (cache_k, cache_p, cache_32))
+    h_err, h_spread = layer_errors(h_k, h_p, True), layer_errors(h_p, h_32,
+                                                                 True)
+    h_err32 = layer_errors(cache_k32["L0"]["h"], cache_p32["L0"]["h"], False)
+    logit_err = (logits_k - logits_p).abs().max().item()
+    logit_spread = (logits_p - logits_32).abs().max().item()
+    logit_err32 = ((logits_k32 - logits_p32).abs().max()
+                   / logits_p32.abs().max()).item()
+    logit_tol = SPREAD_FACTOR * logit_spread
+    # per row: the first step whose plain top-2 margin is under logit_tol,
+    # and the first step whose tokens differ
+    upto, same = first_steps(margins, logit_tol, tokens[:, :F32_STEPS],
+                             plain_tokens)
+    upto32, same32 = first_steps(margins_32, F32_RTOL * logits_p32.abs()
+                                 .max().item(), tokens_32, plain_32)
+    conv = [torch.equal(a, b) for a, b in zip(cache_k["L0"]["conv"],
+                                              cache_p["L0"]["conv"])]
+    ratio = [e / sp if sp else float(e > 0) * math.inf
+             for e, sp in zip(h_err, h_spread)]
+    worst = int(np.argmax(ratio))
+    c = {"plain_prefill_s": plain_s, "launches": inside,
+         "h_rel_err_by_layer": h_err, "h_bf16_spread_by_layer": h_spread,
+         "h_ratio_by_layer": ratio,
+         "h_rel_err_f32_by_layer": h_err32, "logits_max_abs_err": logit_err,
+         "logits_bf16_spread": logit_spread,
+         "logits_rel_err_f32": logit_err32,
+         "logits_scale": logits_p.abs().max().item(),
+         "conv_bitwise_layers": conv,
+         "tokens_equal_steps": same, "first_small_margin_step": upto,
+         "margins_min": margins.min(1).tolist(),
+         "f32_tokens_equal_steps": same32,
+         "f32_first_small_margin_step": upto32,
+         "spread_factor": SPREAD_FACTOR, "f32_rtol": F32_RTOL}
+    log(f"(c) the plain scan (forced_path('ref')): prefill {plain_s:.3f} s, "
+        f"{sum(inside[k] for k in _build.launches)} kernel launches.  "
+        f"bfloat16: the last layer's final h within {h_err[-1]:.3e} (norm) "
+        f"of the plain path's, bfloat16's spread {h_spread[-1]:.3e} (largest "
+        f"ratio {ratio[worst]:.3f}, layer {worst}; tolerance "
+        f"{SPREAD_FACTOR}); last logits within {logit_err:.4e}, spread "
+        f"{logit_spread:.4e} (max |logit| {c['logits_scale']:.3f}); conv "
+        f"bitwise in the first {(conv + [False]).index(False)} layers; "
+        f"greedy tokens equal for {same} steps of {F32_STEPS} by row, "
+        f"the plain path's first top-2 margin under {logit_tol:.4f} at step "
+        f"{upto} (smallest {c['margins_min']}).  float32: final h within "
+        f"{max(h_err32):.3e} of max |h|, last logits within "
+        f"{logit_err32:.3e} of max |logit| (tolerance {F32_RTOL}) at S="
+        f"{SHORT_PROMPT}; greedy tokens equal for {same32} steps of "
+        f"{F32_STEPS}, the first margin under the tolerance at step "
+        f"{upto32}")
+    check(not any(inside[k] for k in _build.launches),
+          f"kernels launched under the forced plain path: {inside}")
+    check(ratio[worst] <= SPREAD_FACTOR,
+          f"bfloat16: final h of layer {worst} differs from the plain path "
+          f"by {h_err[worst]:.3e}, over {SPREAD_FACTOR} x bfloat16's spread "
+          f"{h_spread[worst]:.3e}")
+    check(logit_err <= logit_tol, f"bfloat16: last logits differ from the "
+          f"plain path by {logit_err} > {logit_tol}")
+    check(conv[0], "the first layer's conv window differs from the plain "
+          "path's (it precedes every scan)")
+    check(all(sm >= u for sm, u in zip(same + same32, upto + upto32)),
+          f"greedy tokens differ from the plain path's at steps {same} "
+          f"(float32 {same32}), before the first steps {upto} ({upto32}) "
+          f"whose top-2 margin is under the tolerance")
+    check(max(h_err32) <= F32_RTOL and logit_err32 <= F32_RTOL,
+          f"float32: final h within {max(h_err32)}, logits within "
+          f"{logit_err32} of the plain path's > {F32_RTOL}")
+    del logits_k, cache_k, logits_p, cache_p, logits_32, cache_32
+    del logits_p32, cache_p32, logits_k32, cache_k32
+
+    # (d) greedy is deterministic, sampling differs from it
+    again = server.generate(prompts, F32_STEPS)
+    sampled = server.generate(prompts, F32_STEPS, temperature=1.0, seed=1)
+    check(np.array_equal(again, tokens[:, :F32_STEPS]),
+          "greedy tokens differ between runs")
+    check(bool(((sampled >= 0) & (sampled < cfg.vocab_size)).all())
+          and not np.array_equal(sampled, tokens[:, :F32_STEPS]),
+          "temperature=1.0, seed=1: tokens out of range or equal to greedy")
+    d = {"greedy_equal": True, "sampled_differs_steps": int(
+        (sampled != tokens[:, :F32_STEPS]).any(0).sum())}
+    log(f"(d) greedy twice: equal tokens; temperature=1.0 seed=1: tokens in "
+        f"range, other than greedy at "
+        f"{d['sampled_differs_steps']} of {F32_STEPS} steps")
+
+    # (e) the first decode step against forward on the extended sequence
+    lp, cache = MT.prefill(cfg, model, short, SHORT_PROMPT + 1)
+    nxt = lp.argmax(-1)
+    step, _ = MT.decode_step(cfg, model, cache, SHORT_PROMPT, nxt)
+    ext = torch.cat([short, nxt], 1)
+    full = MT.forward(cfg, model, ext)[:, -1]
+    full32 = MT.forward(cfg32, model, ext)[:, -1]
+    e_err = (step[:, 0] - full).abs().max().item()
+    e_bf16 = (full - full32).abs().max().item()
+    e = {"max_abs_err": e_err, "bf16_spread": e_bf16,
+         "prefill_vs_forward": (lp[:, 0] - MT.forward(cfg, model, short)[
+             :, -1]).abs().max().item()}
+    log(f"(e) S={SHORT_PROMPT}: the first decode step's logits within "
+        f"{e_err:.4e} of forward on the extended sequence (bfloat16's "
+        f"spread, forward against float32 compute, {e_bf16:.4e}; tolerance "
+        f"{SPREAD_FACTOR} x it); the prefill's last logits within "
+        f"{e['prefill_vs_forward']:.4e} of forward's")
+    check(e_err <= SPREAD_FACTOR * e_bf16, f"(e) the decode step's logits "
+          f"differ from forward's by {e_err} > {SPREAD_FACTOR} x {e_bf16}")
+    del model, server
+    torch.cuda.empty_cache()
+    return {"a": a, "b": bb, "c": c, "d": d, "e": e,
+            "seconds": time.perf_counter() - t_start}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=PRESETS["diabetes"][0],
@@ -4016,6 +4369,21 @@ def main():
                     "launches"][r["name"]],
                 "(a) 1-shard mesh stream": mesh_run_["a"]["one_shard_stream"][
                     "launches"][r["name"]]}
+    phase("phase 12: the model stack: falcon-mamba-7b serving")
+    model_run = model_stack(dev, smi)
+    for r in rows:
+        if r["name"] == "ssm_scan":
+            r["launches_phase5"] = r["launches"]
+            r["launches"] = model_run["b"]["ssm_scan_prefill"]
+            r["launches_in"] = ("phase 12: Generator.generate on "
+                                f"{MODEL_ARCH}, one a Mamba layer per prefill")
+            r["launches_phase12"] = {
+                "prefill": model_run["b"]["ssm_scan_prefill"],
+                "decode steps": model_run["b"]["ssm_scan_decode"]}
+            prof = model_run["b"]["profiled_prefill"]
+            r["model_device_ms"] = (
+                prof["kernel_ms"] / prof["kernel_launches"]
+                if prof["kernel_launches"] else None)
     phase("done")
 
     log(json.dumps({"main_path": main_run, "against_plain": plain_run,
@@ -4025,7 +4393,8 @@ def main():
                     "hierarchical_checks": hier_checks,
                     "hierarchical_routes": hier_run,
                     "sessions": session_run, "consumers": consumer_run,
-                    "mesh_pipeline_baselines": mesh_run_}))
+                    "mesh_pipeline_baselines": mesh_run_,
+                    "model_stack": model_run}))
     log(smi)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

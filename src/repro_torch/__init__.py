@@ -15,8 +15,11 @@ consumers: ``repro_torch.data`` (the mini-batch sequencer, K-fold
 cross-validation), ``repro_torch.train`` (the overlapped mini-batch
 pipeline), ``repro_torch.serve`` (the serving router) and
 ``repro_torch.obs`` (tracing, solver telemetry, memory profiles).  The
-paper's baselines are host code in ``repro_torch.core.baselines``.  Entry points run on the
-CUDA device unless ``device="cpu"`` is passed.  The front door is
+paper's baselines are host code in ``repro_torch.core.baselines``.  The
+model stack serves the SSM family (``repro_torch.models``: the configs of
+the ten architectures, falcon-mamba-7b's model, whose prefill runs the
+``ssm_scan`` kernel; ``repro_torch.serve.Generator``).  Entry points run
+on the CUDA device unless ``device="cpu"`` is passed.  The front door is
 ``from repro_torch.anticluster import anticluster``, as in the JAX package.
 """
 

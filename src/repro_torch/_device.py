@@ -6,9 +6,11 @@ CUDA device is present the entry point raises unless the caller asked for
 the kernel wrappers run their plain PyTorch versions; on a CUDA device they
 launch the hand-written kernels or raise.
 
-All arithmetic is float32.  TF32 is switched off for matmuls and cuDNN: a
-TF32 product keeps about three decimal digits, which flips the auction's
-top-2 argmaxes against the float32 reference.
+The ABA path's arithmetic is float32; a model follows its config
+(``compute_dtype``, bfloat16 at full width; the SSM scan is float32).
+TF32 is switched off for matmuls and cuDNN: a TF32 product keeps about
+three decimal digits, which flips the auction's top-2 argmaxes against the
+float32 reference.
 """
 
 from __future__ import annotations

@@ -1,0 +1,16 @@
+"""qwen2-vl-7b [vlm]: 28L d_model=3584 28H (GQA kv=4) d_ff=18944
+vocab=152064 -- M-RoPE, dynamic resolution.  Vision frontend is a STUB:
+input_specs() provides precomputed patch embeddings.  [arXiv:2409.12191]"""
+from repro_torch.models.config import LayerSpec, ModelConfig
+
+
+def config() -> ModelConfig:
+    return ModelConfig(
+        name="qwen2-vl-7b", family="vlm",
+        n_layers=28, d_model=3584, n_heads=28, n_kv_heads=4,
+        d_ff=18944, vocab_size=152064, head_dim=128,
+        qkv_bias=True, rope_theta=1_000_000.0,
+        mrope_sections=(16, 24, 24),  # head_dim/2 = 64 freq pairs
+        frontend="vision", mlp_act="silu",
+        pattern=(LayerSpec(mixer="attn", mlp="dense"),),
+    )

@@ -5,7 +5,9 @@ a CUDA tensor takes the hand-written kernel (``"cuda"``), a CPU tensor the
 plain PyTorch version (``"ref"``).  The :func:`forced_path` context selects
 the plain version on the card too; it exists so that ``chip_smoke.py`` can
 run the whole path against the plain versions, the counterpart of JAX's
-``force=``.
+``force=``.  The wrappers under the dispatchers take their plain version
+only for a CPU tensor, where the rule gives ``"ref"`` too; on a CUDA tensor
+they launch their kernel or raise.
 
 ``bid_top2_span`` is the factored auction's two span bids (x at zero
 prices, -x at ``2 ||c||^2``) in one launch.  ``auction_phase`` runs one
@@ -23,6 +25,10 @@ loop ``ref.auction_rounds``, over ``bid_top2_ref`` or over ``ref.top2`` of
 kernel above it, the reference's dispatch table.  (The reference's jnp path
 wraps a negative index the numpy way instead of clipping it; its Pallas
 kernels clip, and so does every path here.)
+
+``ssm_scan`` is the selective scan the Mamba block's prefill runs (the
+counterpart of ``ssm_scan_pallas``): one launch over the whole sequence on
+the card, the step-by-step ``ref.ssm_scan_ref`` on the plain path.
 """
 
 from __future__ import annotations
@@ -41,7 +47,8 @@ from repro_torch.kernels.cdist import cdist as _cdist
 from repro_torch.kernels.ref import (auction_phase_dense_ref,
                                      auction_phase_ref, bid_top2_ref,
                                      bid_top2_span_ref, cdist_ref,
-                                     gather_rows_ref)
+                                     gather_rows_ref, ssm_scan_ref)
+from repro_torch.kernels.ssm_scan import ssm_scan as _ssm_scan
 
 _GATHER_FUSE_MAX_D = 512  # the reference's full-row limit of the fused kernels
 
@@ -160,3 +167,12 @@ def auction_phase_dense(cost: torch.Tensor, prices, eps, max_rounds: int,
                                        return_rounds)
     return _auction_phase_dense(cost, prices, eps, max_rounds, fixed_rounds,
                                 skip, seed_top2, return_rounds)
+
+
+def ssm_scan(dt: torch.Tensor, b_in, c_out, x_in, a_mat):
+    """The selective scan from ``h0 = 0``: dt, x_in (B, S, di); b_in, c_out
+    (B, S, ds); a_mat (di, ds) -> (y (B, S, di), h_final (B, di, ds)), all
+    float32 (see ``kernels.ssm_scan.ssm_scan``)."""
+    if resolve_path(dt) == "ref":
+        return ssm_scan_ref(dt, b_in, c_out, x_in, a_mat)
+    return _ssm_scan(dt, b_in, c_out, x_in, a_mat)

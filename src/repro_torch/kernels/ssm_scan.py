@@ -6,7 +6,8 @@ Counterparts of ``repro/kernels/ssm_scan.py``: :func:`ssm_scan_chunk` of
 ``h0 = 0``).  Each is one kernel launch over the whole sequence; the TPU's
 ``chunk`` and ``bdi`` blockings have no counterpart.  A CUDA tensor launches
 the kernel (or raises); a CPU tensor runs the plain version in
-``repro_torch.kernels.ref``.  Launches are counted in
+``repro_torch.kernels.ref``.  Paths dispatch through ``ops.ssm_scan``,
+which also honours ``ops.forced_path("ref")``.  Launches are counted in
 ``_build.launches["ssm_scan"]``.
 """
 

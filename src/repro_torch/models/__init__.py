@@ -1,0 +1,13 @@
+"""The model stack of the port (counterpart of ``repro.models``): the
+configs and registry of the ten architectures, and the SSM family's model
+(falcon-mamba-7b) whose Mamba prefill runs the ``ssm_scan`` kernel.  The
+attention, MoE and MLA families, the front ends and training are later
+slices (``ROADMAP.md`` Queue 1 item 1)."""
+
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.convert import params_from_jax
+from repro_torch.models.registry import ALIASES, ARCHS, get_config
+from repro_torch.models.transformer import Model, init_params
+
+__all__ = ["ALIASES", "ARCHS", "Model", "ModelConfig", "get_config",
+           "init_params", "params_from_jax"]

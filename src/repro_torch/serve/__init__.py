@@ -1,11 +1,12 @@
 """The serving tier of the port: the async :class:`AnticlusterRouter` and
-its synchronous facade :class:`AnticlusterService` (the reference's
-``Generator``, a model server, belongs to the model stack and is not
-ported)."""
+its synchronous facade :class:`AnticlusterService`, and the model server
+:class:`Generator` (``generate.py``, the reference's batched generation
+engine)."""
 
+from repro_torch.serve.generate import Generator
 from repro_torch.serve.router import (AnticlusterRouter, EnginePool, Rejected,
                                       ServiceMetrics, Ticket)
 from repro_torch.serve.anticluster_service import AnticlusterService
 
 __all__ = ["AnticlusterRouter", "AnticlusterService", "EnginePool",
-           "Rejected", "ServiceMetrics", "Ticket"]
+           "Generator", "Rejected", "ServiceMetrics", "Ticket"]

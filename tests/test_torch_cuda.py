@@ -29,6 +29,10 @@ from repro_torch.kernels.ref import (bid_top2_gather_ref, bid_top2_ref,
                                      gather_rows_ref, ssm_scan_chunk_ref,
                                      ssm_scan_ref)
 from repro_torch.kernels.ssm_scan import ssm_scan_chunk
+from repro_torch.models import registry as model_registry
+from repro_torch.models import transformer as MT
+from repro_torch.models.mamba import Mamba, mamba_defs
+from repro_torch.serve import Generator
 
 
 @pytest.fixture
@@ -1194,3 +1198,96 @@ def test_cuda_pipeline_equals_sequencer(cuda):
         assert all(np.array_equal(a, b) for a, b in zip(ep, batches))
     assert pipe.engine.compile_count == 1
     pipe.engine.close()
+
+
+# ---------------------------------------------------------------------------
+# the model stack: falcon-mamba-7b's Mamba layers and Generator
+# ---------------------------------------------------------------------------
+
+def _falcon(reduced=True, **over):
+    return model_registry.get_config("falcon-mamba-7b", reduced=reduced,
+                                     **over)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("full", [False, True])
+def test_cuda_mamba_layer_prefill_equals_forced_plain_path(cuda, full):
+    """One Mamba layer's prefill through the ssm_scan kernel (one launch)
+    against the same layer under ``forced_path("ref")`` (none): conv_buf
+    bitwise, h within the scan's rtol / atol 1e-4; out within 1e-4 in
+    float32 (reduced), and at full width (d_inner 8192, bfloat16, B = 2,
+    S = 2048) within two bfloat16 ulps at its scale, 2**-7 max |out|: the
+    kernel's y and the plain scan's differ near 1e-6, which can move
+    y.to(bfloat16) by one ulp."""
+    cfg = _falcon(reduced=not full)
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    layer = Mamba(cfg, device=cuda)
+    defs = mamba_defs(cfg)
+    for name, p in layer.named_parameters():
+        MT._init_leaf(name, defs[name], p, gen)
+    seq = 2048 if full else 64
+    x = torch.randn((2, seq, cfg.d_model), generator=gen, device=cuda).to(
+        getattr(torch, cfg.compute_dtype))
+    out, (conv, h) = _counted("ssm_scan", layer, x)
+    n0 = dict(_build.launches)
+    with ops.forced_path("ref"):
+        out_p, (conv_p, h_p) = layer(x)
+    assert _build.launches == n0
+    assert torch.equal(conv, conv_p) and conv.dtype == x.dtype
+    torch.testing.assert_close(h, h_p, rtol=1e-4, atol=1e-4)
+    if full:
+        assert out.dtype == torch.bfloat16
+        err = (out.float() - out_p.float()).abs().max().item()
+        assert err <= 2.0 ** -7 * out_p.float().abs().max().item(), err
+    else:
+        torch.testing.assert_close(out, out_p, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_ssm_scan_launches_once_a_layer_per_prefill(cuda):
+    """A 4-layer reduced model: one ssm_scan launch a Mamba layer in the
+    prefill, none in a decode step; the prefill's logits and cache within
+    1e-4 of the forced plain path's."""
+    cfg = _falcon(n_layers=4)
+    model = MT.init_params(cfg, device=cuda, generator=torch.Generator(
+        device=cuda).manual_seed(0))
+    tokens = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (2, 40))).to(cuda)
+    n0 = _build.launches["ssm_scan"]
+    logits, cache = MT.prefill(cfg, model, tokens, 48)
+    assert _build.launches["ssm_scan"] == n0 + 4
+    with ops.forced_path("ref"):
+        want, want_cache = MT.prefill(cfg, model, tokens, 48)
+    torch.testing.assert_close(logits, want, rtol=1e-4, atol=1e-4)
+    for name in ("conv", "h"):
+        torch.testing.assert_close(cache["L0"][name], want_cache["L0"][name],
+                                   rtol=1e-4, atol=1e-4)
+    tok = logits.argmax(-1)
+    for step in range(3):
+        logits, cache = MT.decode_step(cfg, model, cache, 40 + step, tok)
+        tok = logits.argmax(-1)
+    assert _build.launches["ssm_scan"] == n0 + 4
+
+
+@pytest.mark.cuda
+def test_cuda_generate_reduced_equals_forced_plain_path(cuda):
+    """``Generator.generate`` on the card: greedy tokens equal the forced
+    plain path's, with one ssm_scan launch a layer (the prefill's); sampled
+    tokens in range and equal for equal seeds (P9)."""
+    cfg = _falcon()
+    model = MT.init_params(cfg, device=cuda, generator=torch.Generator(
+        device=cuda).manual_seed(0))
+    server = Generator(cfg, model, max_len=64, device=cuda)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (3, 24))
+    n0 = _build.launches["ssm_scan"]
+    got = server.generate(prompts, 8)
+    assert _build.launches["ssm_scan"] == n0 + cfg.n_layers
+    with ops.forced_path("ref"):
+        want = server.generate(prompts, 8)
+    assert _build.launches["ssm_scan"] == n0 + cfg.n_layers
+    np.testing.assert_array_equal(got, want)
+    sampled = server.generate(prompts, 8, temperature=1.0, seed=1)
+    assert (sampled >= 0).all() and (sampled < cfg.vocab_size).all()
+    np.testing.assert_array_equal(
+        sampled, server.generate(prompts, 8, temperature=1.0, seed=1))
+    assert not np.array_equal(sampled, got)

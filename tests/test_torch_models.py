@@ -1,0 +1,386 @@
+"""The port's model stack (``repro_torch.models``) against the JAX reference
+(``repro.models``) on the CPU.
+
+The configs and the registry field for field; ``model_defs`` name for name
+and shape for shape (falcon-mamba-7b: 7 272 665 088 parameters, counted
+without allocating); ``init_params``' constants and scales (its draws are
+the port's own, departure P8); one Mamba layer's prefill and decode step on
+the same numpy weights; and the reduced falcon-mamba-7b through
+``params_from_jax``: ``forward``, ``prefill`` and three ``decode_step``s
+within rtol and atol 1e-4 (the reference's own bar in
+``test_mamba_chunked_scan_equivalence``), at S = 32 and 30 and
+``scan_chunk`` 1 and 8.  Every draw comes from a ``default_rng`` or a
+``PRNGKey`` of the test's own.  The model on the card is in
+``tests/test_torch_cuda.py``.
+"""
+
+import dataclasses
+import math
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from repro.models import mamba as jax_mamba
+from repro.models import registry as jax_registry
+from repro.models import transformer as JT
+
+from repro_torch.kernels import _build, ops
+from repro_torch.kernels.ref import ssm_scan_ref
+from repro_torch.models import registry
+from repro_torch.models import transformer as T
+from repro_torch.models.convert import params_from_jax
+from repro_torch.models.mamba import Mamba, mamba_defs
+
+CPU = "cpu"
+FALCON = "falcon-mamba-7b"
+FALCON_PARAMS = 7_272_665_088
+TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def _configs(arch=FALCON, scan_chunk=None, **over):
+    """The port's and the reference's config of ``arch``, reduced."""
+    out = []
+    for reg in (registry, jax_registry):
+        cfg = reg.get_config(arch, reduced=True, **over)
+        if scan_chunk is not None:
+            cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(
+                cfg.ssm, scan_chunk=scan_chunk))
+        out.append(cfg)
+    return out
+
+
+def _reference_model(jcfg, cfg, seed=0):
+    params = JT.init_params(jcfg, jax.random.PRNGKey(seed))
+    return params, params_from_jax(cfg, jax.tree.map(np.asarray, params),
+                                   device=CPU)
+
+
+def _close(got, want, **tol):
+    np.testing.assert_allclose(got.detach().float().numpy(),
+                               np.asarray(want, np.float32), **(tol or TOL))
+
+
+# ---------------------------------------------------------------------------
+# configs and parameter metadata
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("reduced", [False, True])
+@pytest.mark.parametrize("arch", jax_registry.ARCHS)
+def test_get_config_equals_reference(arch, reduced):
+    got = registry.get_config(arch, reduced=reduced)
+    want = jax_registry.get_config(arch, reduced=reduced)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    for prop in ("n_blocks", "padded_vocab", "dt_rank", "d_inner"):
+        assert getattr(got, prop) == getattr(want, prop), prop
+
+
+@pytest.mark.parametrize("alias", sorted(jax_registry.ALIASES))
+def test_aliases_and_overrides_equal_reference(alias):
+    assert registry.ARCHS == jax_registry.ARCHS
+    assert registry.ALIASES == jax_registry.ALIASES
+    got = registry.get_config(alias, reduced=True, vocab_size=251)
+    want = jax_registry.get_config(alias, reduced=True, vocab_size=251)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert got.padded_vocab == 256
+
+
+def test_unknown_arch_raises_key_error():
+    for reg in (registry, jax_registry):
+        with pytest.raises(KeyError, match="unknown arch"):
+            reg.get_config("llama-9000")
+
+
+@pytest.mark.parametrize("reduced", [False, True])
+def test_model_defs_equal_reference(reduced):
+    cfg = registry.get_config(FALCON, reduced=reduced)
+    jcfg = jax_registry.get_config(FALCON, reduced=reduced)
+    got = {path: tuple(pd) for path, pd in
+           T.flatten_defs(T.model_defs(cfg)).items()}
+    want = {path: (tuple(pd.shape), tuple(pd.axes), pd.fan_in) for path, pd
+            in JT._flatten_with_path(JT.model_defs(jcfg))}
+    assert got == want
+    count = sum(math.prod(s) for s, _, _ in want.values())
+    assert T.n_params(cfg) == count
+    if not reduced:
+        assert count == FALCON_PARAMS
+        assert (cfg.n_layers, cfg.d_model, cfg.d_inner) == (64, 4096, 8192)
+
+
+def test_cache_layout_equals_reference():
+    for reduced in (False, True):
+        cfg = registry.get_config(FALCON, reduced=reduced)
+        jcfg = jax_registry.get_config(FALCON, reduced=reduced)
+        got = T.init_cache(cfg, 2, 40, device=CPU)
+        want = JT.abstract_cache(jcfg, 2, 40)
+        assert set(got) == set(want) == {"L0"}
+        for name, t in got["L0"].items():
+            w = want["L0"][name]
+            assert tuple(t.shape) == tuple(w.shape), name
+            assert str(t.dtype).split(".")[1] == str(w.dtype), name
+            assert not t.any()
+
+
+# ---------------------------------------------------------------------------
+# initialisation (P8)
+# ---------------------------------------------------------------------------
+
+def test_init_params_constants_equal_reference_and_scales():
+    """a_log, d_skip, dt_b and the zeros are the reference's values; every
+    drawn weight has mean ~0 and std ~1/sqrt(fan_in) (the draws are the
+    port's own: P8); the same seed gives the same weights."""
+    cfg, jcfg = _configs()
+    model = T.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                          device=CPU)
+    want = {path: np.asarray(a) for path, a in JT._flatten_with_path(
+        JT.init_params(jcfg, jax.random.PRNGKey(0)))}
+    defs = T.flatten_defs(T.model_defs(cfg))
+    drawn = 0
+    for path, block, p in model.leaves():
+        ref = want[path] if block is None else want[path][block]
+        fan_in = defs[path].fan_in
+        if path.endswith(("a_log", "d_skip", "dt_b", "conv_b", "ln1",
+                          "final_norm")):
+            assert torch.equal(p, torch.tensor(ref)), path
+        else:
+            drawn += 1
+            scale = 1.0 / math.sqrt(fan_in)
+            assert abs(p.std().item() / scale - 1) < 0.1, path
+            assert abs(p.mean().item()) < 0.1 * scale, path
+    assert drawn == 2 + 5 * cfg.n_blocks  # embed, unembed; 5 a layer
+    again = T.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                          device=CPU)
+    other = T.init_params(cfg, generator=torch.Generator().manual_seed(1),
+                          device=CPU)
+    assert torch.equal(again.embed, model.embed)
+    assert not torch.equal(other.embed, model.embed)
+
+
+@pytest.mark.parametrize("arch", [a for a in jax_registry.ARCHS
+                                  if a != "falcon_mamba_7b"])
+def test_other_architectures_are_not_ported_yet(arch):
+    cfg = registry.get_config(arch, reduced=True)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
+        T.init_params(cfg, generator=torch.Generator(), device=CPU)
+
+
+def test_front_ends_are_not_ported_yet():
+    cfg, _ = _configs()
+    model = T.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                          device=CPU)
+    tokens = torch.zeros((1, 4), dtype=torch.long)
+    for kw in ({"extra_embeds": torch.zeros(1, 2, cfg.d_model)},
+               {"enc_frames": torch.zeros(1, 2, cfg.d_model)}):
+        for fn in (T.forward, lambda *a, **k: T.prefill(*a, 8, **k)):
+            with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
+                fn(cfg, model, tokens, **kw)
+
+
+def test_default_device_raises_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    cfg, jcfg = _configs()
+    tree = jax.tree.map(np.asarray,
+                        JT.init_params(jcfg, jax.random.PRNGKey(0)))
+    for call in (lambda: T.init_params(cfg, generator=torch.Generator()),
+                 lambda: params_from_jax(cfg, tree),
+                 lambda: T.init_cache(cfg, 2, 8)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+
+
+def test_params_from_jax_checks_names_and_shapes():
+    cfg, jcfg = _configs()
+    tree = jax.tree.map(np.asarray,
+                        JT.init_params(jcfg, jax.random.PRNGKey(0)))
+    bad = dict(tree, unembed=tree["unembed"][:, :8])
+    with pytest.raises(ValueError, match="unembed"):
+        params_from_jax(cfg, bad, device=CPU)
+    missing = {k: v for k, v in tree.items() if k != "final_norm"}
+    with pytest.raises(ValueError, match="final_norm"):
+        params_from_jax(cfg, missing, device=CPU)
+
+
+# ---------------------------------------------------------------------------
+# one Mamba layer, the scan's dispatch
+# ---------------------------------------------------------------------------
+
+def _mamba_weights(cfg, rng):
+    out = {}
+    for name, pd in mamba_defs(cfg).items():
+        scale = 1.0 / math.sqrt(pd.fan_in) if pd.fan_in else 0.1
+        out[name] = (rng.normal(size=pd.shape) * scale).astype(np.float32)
+    out["a_log"] = np.log(rng.uniform(0.5, 8.0, size=out["a_log"].shape)
+                          ).astype(np.float32)
+    out["dt_b"] = rng.uniform(-5.0, -2.0, size=out["dt_b"].shape
+                              ).astype(np.float32)
+    return out
+
+
+@pytest.mark.parametrize("seq", [32, 30, 2, 1])
+def test_mamba_layer_prefill_and_decode_equal_reference(seq):
+    """``Mamba`` against ``mamba_apply`` on the same numpy weights: the
+    prefill's out, conv_buf and h, then a decode step from that state (S
+    below d_conv - 1 leaves zeros in the conv window)."""
+    cfg, jcfg = _configs()
+    rng = np.random.default_rng(seq)
+    w = _mamba_weights(cfg, rng)
+    layer = Mamba(cfg, device=CPU)
+    with torch.no_grad():
+        for name, a in w.items():
+            getattr(layer, name).copy_(torch.from_numpy(a))
+    jw = {k: jnp.asarray(v) for k, v in w.items()}
+    x = rng.normal(size=(2, seq, cfg.d_model)).astype(np.float32)
+    out, (conv, h) = layer(torch.from_numpy(x))
+    jout, (jconv, jh) = jax_mamba.mamba_apply(jcfg, jw, jnp.asarray(x))
+    for got, want in ((out, jout), (conv, jconv), (h, jh)):
+        assert tuple(got.shape) == want.shape
+        _close(got, want)
+    x1 = rng.normal(size=(2, 1, cfg.d_model)).astype(np.float32)
+    out, (conv, h) = layer(torch.from_numpy(x1), state=(conv, h))
+    jout, (jconv, jh) = jax_mamba.mamba_apply(jcfg, jw, jnp.asarray(x1),
+                                              state=(jconv, jh))
+    for got, want in ((out, jout), (conv, jconv), (h, jh)):
+        _close(got, want)
+
+
+def test_ssm_scan_dispatch_honours_forced_path(monkeypatch):
+    """``ops.ssm_scan`` takes the kernel's wrapper where ``resolve_path``
+    says "cuda" (here a tensor that claims to be on the card) and the
+    plain scan under ``forced_path("ref")``."""
+    rng = np.random.default_rng(7)
+    args = [torch.from_numpy(a.astype(np.float32)) for a in (
+        rng.uniform(0, 0.1, (2, 9, 8)), rng.normal(size=(2, 9, 4)),
+        rng.normal(size=(2, 9, 4)), rng.normal(size=(2, 9, 8)),
+        -rng.uniform(0.5, 4, (8, 4)))]
+    want = ssm_scan_ref(*args)
+    calls = []
+    monkeypatch.setattr(ops, "_ssm_scan", lambda *a: calls.append(a) or "k")
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
+    assert ops.resolve_path(args[0]) == "cuda"
+    assert ops.ssm_scan(*args) == "k" and len(calls) == 1
+    with ops.forced_path("ref"):
+        assert ops.resolve_path(args[0]) == "ref"
+        got = ops.ssm_scan(*args)
+    monkeypatch.undo()
+    assert len(calls) == 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_prefill_scans_once_a_layer_and_decode_never(monkeypatch):
+    cfg, _ = _configs()
+    model = T.init_params(cfg, generator=torch.Generator().manual_seed(3),
+                          device=CPU)
+    real, calls = ops.ssm_scan, []
+
+    def spy(*args):
+        calls.append(tuple(args[0].shape))
+        return real(*args)
+
+    monkeypatch.setattr(ops, "ssm_scan", spy)
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 12)))
+    launches = dict(_build.launches)
+    logits, cache = T.prefill(cfg, model, tokens, 16)
+    assert calls == [(2, 12, cfg.d_inner)] * cfg.n_layers
+    T.decode_step(cfg, model, cache, 12, logits.argmax(-1))
+    assert len(calls) == cfg.n_layers
+    assert _build.launches == launches  # the CPU runs no kernel
+
+
+# ---------------------------------------------------------------------------
+# the model through params_from_jax
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("scan_chunk", [1, 8])
+@pytest.mark.parametrize("seq", [32, 30])
+def test_model_equals_reference(seq, scan_chunk):
+    """forward, prefill (logits, conv, h) and three decode steps of the
+    reduced falcon-mamba-7b, each within rtol / atol 1e-4 of the
+    reference's on its own parameters; S = 30 makes the reference's scan
+    fall back to chunk 1."""
+    cfg, jcfg = _configs(scan_chunk=scan_chunk)
+    params, model = _reference_model(jcfg, cfg)
+    tokens = np.random.default_rng(seq).integers(
+        0, cfg.vocab_size, (2, seq)).astype(np.int32)
+    t_tokens = torch.from_numpy(tokens).long()
+    logits = T.forward(cfg, model, t_tokens)
+    assert tuple(logits.shape) == (2, seq, cfg.padded_vocab)
+    _close(logits, JT.forward(jcfg, params, jnp.asarray(tokens)))
+    lp, cache = T.prefill(cfg, model, t_tokens, seq + 4)
+    jlp, jcache = JT.prefill(jcfg, params, jnp.asarray(tokens), seq + 4)
+    _close(lp, jlp)
+    for name in ("conv", "h"):
+        _close(cache["L0"][name], jcache["L0"][name])
+    nxt = np.asarray(jnp.argmax(jlp, axis=-1)).astype(np.int32)
+    for step in range(3):
+        lp, cache = T.decode_step(cfg, model, cache, seq + step,
+                                  torch.from_numpy(nxt).long())
+        jlp, jcache = JT.decode_step(jcfg, params, jcache,
+                                     jnp.int32(seq + step), jnp.asarray(nxt))
+        _close(lp, jlp)
+        for name in ("conv", "h"):
+            _close(cache["L0"][name], jcache["L0"][name])
+        nxt = np.asarray(jnp.argmax(jlp, axis=-1)).astype(np.int32)
+
+
+@pytest.mark.parametrize("over", [
+    {"tie_embeddings": True}, {"scale_embed": True},
+    {"logit_softcap": 30.0}, {"norm": "layernorm"}])
+def test_config_options_equal_reference(over):
+    """The stack's other switches on the Mamba model, each against the
+    reference on the same parameters (norm weights drawn, not zero, so
+    that layernorm's ``w`` and ``b`` count)."""
+    cfg, jcfg = _configs(**over)
+    params = JT.init_params(jcfg, jax.random.PRNGKey(4))
+    rng = np.random.default_rng(4)
+    tree = jax.tree.map(np.asarray, params)
+    flat = dict(JT._flatten_with_path(tree))
+    for path, a in flat.items():
+        if "norm" in path or path.split("/")[-1].startswith("ln"):
+            a = rng.normal(size=a.shape).astype(np.float32)
+            node = tree
+            for key in path.split("/")[:-1]:
+                node = node[key]
+            node[path.split("/")[-1]] = a
+    model = params_from_jax(cfg, tree, device=CPU)
+    tokens = rng.integers(0, cfg.vocab_size, (2, 16)).astype(np.int32)
+    want = JT.forward(jcfg, jax.tree.map(jnp.asarray, tree),
+                      jnp.asarray(tokens))
+    _close(T.forward(cfg, model, torch.from_numpy(tokens).long()), want)
+
+
+def test_vocab_padding_masked_equal_reference():
+    cfg, jcfg = _configs(vocab_size=251)
+    assert cfg.padded_vocab == 256
+    params, model = _reference_model(jcfg, cfg)
+    tokens = np.random.default_rng(5).integers(0, 251, (2, 16))
+    logits = T.forward(cfg, model, torch.from_numpy(tokens))
+    want = np.asarray(JT.forward(jcfg, params, jnp.asarray(tokens)))
+    assert bool((logits[..., 251:] < -1e29).all())
+    _close(logits[..., :251], want[..., :251])
+    np.testing.assert_array_equal(logits[..., 251:].numpy(), want[..., 251:])
+
+
+def test_prefill_decode_consistency():
+    """The port's own: prefill's last logits equal forward's, and a decode
+    step equals forward on the extended sequence (the reference's test and
+    tolerances, ``tests/test_models.py::test_prefill_decode_consistency``)."""
+    cfg, _ = _configs()
+    model = T.init_params(cfg, generator=torch.Generator().manual_seed(1),
+                          device=CPU)
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 32)))
+    logits = T.forward(cfg, model, tokens)
+    lp, cache = T.prefill(cfg, model, tokens, 36)
+    np.testing.assert_allclose(lp[:, 0].numpy(), logits[:, -1].numpy(),
+                               rtol=2e-2, atol=3e-2)
+    nxt = logits[:, -1:].argmax(-1)
+    l2, _ = T.decode_step(cfg, model, cache, 32, nxt)
+    lref = T.forward(cfg, model, torch.cat([tokens, nxt], dim=1))
+    np.testing.assert_allclose(l2[:, 0].numpy(), lref[:, -1].numpy(),
+                               rtol=3e-2, atol=5e-2)
