@@ -181,6 +181,26 @@ git-ignored ``build/``), then runs these phases, one or more lines each:
    first decode step's logits
    against ``forward`` on the extended sequence, within twice bfloat16's
    spread;
+13. the model stack: the dense attention family at full width and depth,
+   random weights drawn on the card from a seed, served by ``Generator``
+   (no kernel of the repo runs: the reference's attention is plain
+   ``jnp``; every row of the kernels line counts 0 launches here).
+   gemma2-2b (26 layers, 2 614 341 888 parameters; GQA 8/4, head_dim
+   256, softcaps, local layers with a 4 096-token window, post-block
+   norms, GeGLU, tied embeddings): (a) ``init_params`` with its count;
+   (b) ``generate`` on 2 seeded prompts of 6 144 tokens (the window binds
+   from position 4 096 on) with 64 greedy steps: the prefill's time and
+   tokens/s, the decode steps' ms and tokens/s, a profiled prefill and
+   decode step with their idle shares and device ms by kernel, the peak
+   memory; (c) ``flash_attention`` on layer 0's q, k and v in float32
+   against a full softmax over materialised, masked scores, windowed and
+   global with the softcap, within 1e-4 of max |out|; (d) the first
+   decode step's logits against ``forward`` on the extended sequence,
+   and the prefill's last logits against ``forward``'s, within twice
+   bfloat16's own spread; (e) greedy twice equal, 16 sampled steps in
+   range and unlike greedy.  qwen2.5-14b (48 layers, 14 770 033 664
+   parameters; q, k, v biases, theta 1e6, untied): (f) the same (a), (b)
+   on 2 prompts of 2 048 tokens with 16 steps, and (d);
 
 then one JSON line describing every kernel, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises, exits non-zero and
@@ -247,6 +267,7 @@ from repro_torch.kernels.ref import (  # noqa: E402
     gather_rows_ref, ssm_scan_chunk_ref, ssm_scan_ref)
 from repro_torch.kernels.ssm_scan import ssm_scan_chunk  # noqa: E402
 from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
+from repro_torch.models import layers as ML  # noqa: E402
 from repro_torch.models import registry as model_registry  # noqa: E402
 from repro_torch.models import transformer as MT  # noqa: E402
 from repro_torch.serve import Generator  # noqa: E402
@@ -4236,6 +4257,268 @@ def model_stack(dev, card: str) -> dict:
             "seconds": time.perf_counter() - t_start}
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the model stack, the dense attention family serving
+# ---------------------------------------------------------------------------
+
+DENSE_ARCH = "gemma2-2b"
+DENSE_PARAMS = 2_614_341_888   # its ModelConfig, all 26 layers
+DENSE_PROMPTS = (2, 6144)      # B, S: past the local layers' 4 096 window
+DENSE_STEPS = 64
+DENSE_SAMPLED_STEPS = 16       # (e)
+BIG_ARCH = "qwen2.5-14b"
+BIG_PARAMS = 14_770_033_664    # its ModelConfig, all 48 layers
+BIG_PROMPTS = (2, 2048)
+BIG_STEPS = 16
+FLASH_RTOL = 1e-4  # (c): flash_attention against full softmax, of max |out|
+
+
+def full_softmax(q, k, v, *, window=0, softcap=0.0):
+    """Attention through materialised, masked float32 scores (B, KV, G, S,
+    S): flash_attention's plain yardstick."""
+    b, s, h, hd = q.shape
+    kv = k.shape[2]
+    qg = q.float().reshape(b, s, kv, h // kv, hd)
+    scores = torch.einsum("bqkgh,bskh->bkgqs", qg, k.float()) / hd ** 0.5
+    scores = ML._softcap(scores, softcap)
+    pos = torch.arange(s, device=q.device)
+    mask = pos[None, :] <= pos[:, None]
+    if window:
+        mask &= pos[None, :] > pos[:, None] - window
+    p = torch.softmax(torch.where(mask, scores, -1e30), dim=-1)
+    return torch.einsum("bkgqs,bskh->bqkgh", p, v.float()).reshape(
+        b, s, h, hd)
+
+
+def draw_model(dev, arch: str, want: int, what: str):
+    """``init_params`` on the card from seed 0, with its count checked
+    against ``want`` and ``n_params``: (cfg, model, log dict)."""
+    cfg = model_registry.get_config(arch)
+    torch.cuda.empty_cache()
+    live = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = MT.init_params(cfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    count = sum(p.numel() for p in model.parameters())
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    check(count == want == MT.n_params(cfg)
+          and cfg.n_layers == len(model.blocks) * len(cfg.pattern)
+          and all(p.device.type == dev.type for p in model.parameters()),
+          f"{arch}: {count} parameters, {cfg.n_layers} layers")
+    a = {"params": count, "bytes": nbytes, "init_s": init_s,
+         "live_before_bytes": live,
+         "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    log(f"({what}) {arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}, windows "
+        f"{[sp.sliding_window for sp in cfg.pattern]}: {count} parameters "
+        f"({nbytes / 2**30:.2f} GiB {cfg.param_dtype}, compute "
+        f"{cfg.compute_dtype}) drawn on the card in {init_s:.3f} s; "
+        f"max_memory_allocated {a['max_memory_allocated'] / 2**30:.2f} GiB "
+        f"({live / 2**20:.1f} MiB live before)")
+    return cfg, model, a
+
+
+def serve_timed(cfg, model, dev, prompts, steps: int, card: str,
+                what: str) -> tuple:
+    """``Generator.generate`` as a user calls it, after one warm-up call:
+    the prefill's wall and tokens/s, the decode steps' ms and tokens/s, no
+    launch of the repo's kernels, the peak memory; then a profiled prefill
+    and a profiled decode step with their idle shares and device ms by
+    kernel.  Returns (server, tokens, log dict)."""
+    b, s = prompts.shape
+    max_len = s + steps
+    server = Generator(cfg, model, max_len=max_len, device=dev)
+    server.generate(prompts, 2)  # warm-up at full size: cuBLAS, allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with StageClock() as clock:
+        t0 = time.perf_counter()
+        tokens = server.generate(prompts, steps)
+        t_end = time.perf_counter()
+    used = counts()
+    check(tokens.shape == (b, steps)
+          and bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
+          f"generate gave {tokens.shape} tokens or ones out of range")
+    check(clock.steps == steps - 1
+          and not any(used[k] for k in _build.launches),
+          f"{clock.steps} decode steps; the repo's kernels launched {used}")
+    decode_s = t_end - clock.prefill_end
+    bb = {"wall_s": t_end - t0, "prefill_s": clock.prefill_s,
+          "prefill_tokens_per_s": b * s / clock.prefill_s,
+          "decode_s": decode_s, "decode_steps": clock.steps,
+          "decode_ms_per_step": decode_s / clock.steps * 1e3,
+          "decode_tokens_per_s": b * clock.steps / decode_s,
+          "kernel_launches": {k: used[k] for k in _build.launches},
+          "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    tp = torch.from_numpy(prompts).to(dev)
+    prof = call_kernel_ms(None, None, dev, "flash", call=lambda: (
+        MT.prefill(cfg, model, tp, max_len)))
+    logits, cache = MT.prefill(cfg, model, tp, max_len)
+    one = call_kernel_ms(None, None, dev, "flash", call=lambda: (
+        MT.decode_step(cfg, model, cache, s, logits.argmax(-1))))
+    del logits, cache
+    bb["profiled_prefill"], bb["profiled_decode_step"] = prof, one
+    bb["idle_share"] = (1.0 - prof["device_ms"] / 1e3 / clock.prefill_s
+                        if prof["device_ms"] else None)
+    bb["decode_idle_share"] = (1.0 - one["device_ms"]
+                               / bb["decode_ms_per_step"]
+                               if one["device_ms"] else None)
+    log(f"({what}) Generator.generate(B={b}, S={s}, {steps} greedy steps) on "
+        f"{card}: {bb['wall_s']:.3f} s; prefill {clock.prefill_s:.4f} s "
+        f"({bb['prefill_tokens_per_s']:.0f} tokens/s); {clock.steps} decode "
+        f"steps {decode_s:.3f} s ({bb['decode_ms_per_step']:.2f} ms a step, "
+        f"{bb['decode_tokens_per_s']:.1f} tokens/s); launches of the repo's "
+        f"kernels {sum(bb['kernel_launches'].values())}; peak "
+        f"{bb['max_memory_allocated'] / 2**30:.2f} GiB")
+    for name, run, share in (("prefill", prof, bb["idle_share"]),
+                             ("decode step", one, bb["decode_idle_share"])):
+        log(f"  a profiled {name}: device {run['device_ms']:.2f} ms in "
+            f"{run['launches']} launches (idle share {share}); by kernel: "
+            + "; ".join(f"{k} {v['ms']:.2f} ms/{v['launches']}"
+                        for k, v in run["kernels"].items()))
+    return server, tokens, bb
+
+
+def last_logits(cfg, model, tokens):
+    """``forward``'s logits at the last position only: (B, 1, V)."""
+    return MT.logits_from_hidden(cfg, model, MT.forward_hidden(
+        cfg, model, tokens)[:, -1:])
+
+
+def decode_against_forward(cfg, model, tp, what: str) -> dict:
+    """The first decode step after the prefill of ``tp`` against
+    ``forward`` on the extended sequence, and the prefill's last logits
+    against ``forward``'s, each within SPREAD_FACTOR times bfloat16's own
+    spread: ``forward`` in bfloat16 against float32 compute on the
+    extended sequence, in this run."""
+    s = tp.shape[1]
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    lp, cache = MT.prefill(cfg, model, tp, s + 1)
+    nxt = lp.argmax(-1)
+    step, _ = MT.decode_step(cfg, model, cache, s, nxt)
+    del cache
+    ext = torch.cat([tp, nxt], 1)
+    full = last_logits(cfg, model, ext)
+    full32 = last_logits(cfg32, model, ext)
+    d = {"max_abs_err": (step - full).abs().max().item(),
+         "bf16_spread": (full - full32).abs().max().item(),
+         "prefill_vs_forward": (lp - last_logits(cfg, model, tp))
+         .abs().max().item(),
+         "logits_scale": full32.abs().max().item(),
+         "spread_factor": SPREAD_FACTOR}
+    tol = SPREAD_FACTOR * d["bf16_spread"]
+    log(f"({what}) S={s}: the first decode step's logits within "
+        f"{d['max_abs_err']:.4e} of forward on the extended sequence "
+        f"(bfloat16's spread, forward against float32 compute, "
+        f"{d['bf16_spread']:.4e}; tolerance {SPREAD_FACTOR} x it; max "
+        f"|logit| {d['logits_scale']:.3f}); the prefill's last logits "
+        f"within {d['prefill_vs_forward']:.4e} of forward's")
+    check(d["max_abs_err"] <= tol and d["prefill_vs_forward"] <= tol,
+          f"({what}) the decode step's logits differ from forward's by "
+          f"{d['max_abs_err']}, the prefill's by {d['prefill_vs_forward']}; "
+          f"tolerance {tol}")
+    return d
+
+
+def flash_against_full(cfg, model, tp) -> dict:
+    """(c): ``flash_attention`` on layer 0's q, k and v (the first local
+    layer's, float32 compute) against ``full_softmax``, windowed and
+    global, with the softcap; within FLASH_RTOL of max |out|; each timed."""
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    layer = model.blocks[0]["L0"]
+    h = MT._norm(cfg32, layer, "ln1", MT.embed_tokens(cfg32, model, tp))
+    q, k, v = ML.attn_qkv(cfg32, layer.attn, h, MT._positions_default(tp))
+    del h
+    out, got = {}, {}
+    for name, window in (("windowed", layer.spec.sliding_window),
+                         ("global", 0)):
+        kw = dict(window=window, softcap=cfg.attn_softcap)
+        got[name] = ML.flash_attention(q, k, v, chunk_q=cfg.attn_chunk_q,
+                                       chunk_kv=cfg.attn_chunk_kv, **kw)
+        want = full_softmax(q, k, v, **kw)
+        err = (got[name] - want).abs().max().item()
+        scale = want.abs().max().item()
+        del want
+        out[name] = {"window": window, "max_abs_err": err, "scale": scale,
+                     "flash_ms": time_ms(lambda: ML.flash_attention(
+                         q, k, v, chunk_q=cfg.attn_chunk_q,
+                         chunk_kv=cfg.attn_chunk_kv, **kw), 3, 1),
+                     "full_ms": time_ms(lambda: full_softmax(q, k, v, **kw),
+                                        3, 1)}
+    # the rows past the window, where it binds: the two outputs differ
+    w = layer.spec.sliding_window
+    out["window_moves"] = (got["windowed"][:, w:] - got["global"][:, w:]
+                           ).abs().max().item()
+    del got
+    log(f"(c) flash_attention on layer 0's q {tuple(q.shape)}, k, v "
+        f"{tuple(k.shape)} in float32, softcap {cfg.attn_softcap}, chunks "
+        f"{cfg.attn_chunk_q} / {cfg.attn_chunk_kv}, against full softmax: "
+        + "; ".join(f"{n} (window {r['window']}) within {r['max_abs_err']:.3e}"
+                    f" of max |out| {r['scale']:.4f}, {r['flash_ms']:.2f} ms "
+                    f"against {r['full_ms']:.2f} ms"
+                    for n, r in out.items() if n != "window_moves")
+        + f"; tolerance {FLASH_RTOL}; past position {w} the windowed output "
+        f"differs from the global one by up to {out['window_moves']:.4f}")
+    for n in ("windowed", "global"):
+        r = out[n]
+        check(r["max_abs_err"] <= FLASH_RTOL * r["scale"],
+              f"(c) flash_attention {n}: {r['max_abs_err']} > {FLASH_RTOL} "
+              f"x {r['scale']}")
+    check(out["window_moves"] > FLASH_RTOL * out["global"]["scale"],
+          f"(c) the window of {w} changes no output past position {w}")
+    return out
+
+
+def dense_stack(dev, card: str) -> dict:
+    """Phase 13: gemma2-2b, then qwen2.5-14b, at full width and depth."""
+    t_start = time.perf_counter()
+    out = {"live_at_start_bytes": torch.cuda.memory_allocated()}
+    cfg, model, out["a"] = draw_model(dev, DENSE_ARCH, DENSE_PARAMS, "a")
+    prompts = np.random.default_rng(13).integers(0, cfg.vocab_size,
+                                                 DENSE_PROMPTS)
+    server, tokens, out["b"] = serve_timed(cfg, model, dev, prompts,
+                                           DENSE_STEPS, card, "b")
+    tp = torch.from_numpy(prompts).to(dev)
+    out["c"] = flash_against_full(cfg, model, tp)
+    out["d"] = decode_against_forward(cfg, model, tp, "d")
+    again = server.generate(prompts, DENSE_SAMPLED_STEPS)
+    sampled = server.generate(prompts, DENSE_SAMPLED_STEPS, temperature=1.0,
+                              seed=1)
+    greedy = tokens[:, :DENSE_SAMPLED_STEPS]
+    check(np.array_equal(again, greedy), "greedy tokens differ between runs")
+    check(bool(((sampled >= 0) & (sampled < cfg.vocab_size)).all())
+          and not np.array_equal(sampled, greedy),
+          "temperature=1.0, seed=1: tokens out of range or equal to greedy")
+    out["e"] = {"greedy_equal": True, "sampled_differs_steps": int(
+        (sampled != greedy).any(0).sum())}
+    log(f"(e) greedy twice: equal tokens; temperature=1.0 seed=1: tokens in "
+        f"range, other than greedy at {out['e']['sampled_differs_steps']} of "
+        f"{DENSE_SAMPLED_STEPS} steps")
+    del model, server, tp
+    torch.cuda.empty_cache()
+    out["gemma2_s"] = time.perf_counter() - t_start
+
+    cfg, model, f = draw_model(dev, BIG_ARCH, BIG_PARAMS, "f")
+    prompts = np.random.default_rng(14).integers(0, cfg.vocab_size,
+                                                 BIG_PROMPTS)
+    server, _, f["b"] = serve_timed(cfg, model, dev, prompts, BIG_STEPS, card,
+                                    "f")
+    f["d"] = decode_against_forward(cfg, model,
+                                    torch.from_numpy(prompts).to(dev), "f")
+    out["f"] = f
+    del model, server
+    torch.cuda.empty_cache()
+    out["live_at_end_bytes"] = torch.cuda.memory_allocated()
+    out["seconds"] = time.perf_counter() - t_start
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=PRESETS["diabetes"][0],
@@ -4384,6 +4667,15 @@ def main():
             r["model_device_ms"] = (
                 prof["kernel_ms"] / prof["kernel_launches"]
                 if prof["kernel_launches"] else None)
+    log(f"after phase 12: {torch.cuda.memory_allocated() / 2**20:.1f} MiB "
+        f"still allocated")
+    phase("phase 13: the model stack: the dense attention family serving")
+    dense_run = dense_stack(dev, smi)
+    for r in rows:
+        r["launches_phase13"] = {
+            arch: run["b"]["kernel_launches"][r["name"]]
+            for arch, run in ((DENSE_ARCH, dense_run),
+                              (BIG_ARCH, dense_run["f"]))}
     phase("done")
 
     log(json.dumps({"main_path": main_run, "against_plain": plain_run,
@@ -4394,7 +4686,7 @@ def main():
                     "hierarchical_routes": hier_run,
                     "sessions": session_run, "consumers": consumer_run,
                     "mesh_pipeline_baselines": mesh_run_,
-                    "model_stack": model_run}))
+                    "model_stack": model_run, "dense_stack": dense_run}))
     log(smi)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

@@ -1,8 +1,10 @@
 """The model stack of the port (counterpart of ``repro.models``): the
-configs and registry of the ten architectures, and the SSM family's model
-(falcon-mamba-7b) whose Mamba prefill runs the ``ssm_scan`` kernel.  The
-attention, MoE and MLA families, the front ends and training are later
-slices (``ROADMAP.md`` Queue 1 item 1)."""
+configs and registry of the ten architectures, the SSM family's model
+(falcon-mamba-7b), whose Mamba prefill runs the ``ssm_scan`` kernel, and
+the dense attention family's (smollm-360m, gemma2-2b, gemma-7b,
+qwen2.5-14b), whose attention and MLP are plain torch as the reference's
+are plain ``jnp``.  The MoE and MLA families, the front ends and training
+are later slices (``ROADMAP.md`` Queue 1 item 1)."""
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.convert import params_from_jax

@@ -2,16 +2,20 @@
 and the three execution modes (forward, prefill, decode) over the blocks.
 
 Counterpart of ``repro/models/transformer.py`` for the SSM family
-(``mixer="mamba"``, ``mlp="none"``: falcon-mamba-7b).  ``model_defs`` is the
+(``mixer="mamba"``: falcon-mamba-7b) and the dense attention family
+(``mixer="attn"``, ``mlp="dense"``, gemma2's post-block norms:
+smollm-360m, gemma2-2b, gemma-7b, qwen2.5-14b).  ``model_defs`` is the
 reference's metadata, blocks stacked on a leading ``n_blocks`` axis, and
 the single source of the names and shapes; :class:`Model` holds block
 ``b``'s slice of each stacked leaf in ``blocks[b]["L{i}"]`` under the same
 name, and runs the blocks in a Python loop where the reference scans them.
-The decode cache keeps the reference's stacked layout.  Weights are cast to
-``cfg.compute_dtype`` at use, as the reference does; the SSM state and the
-scan stay float32.  Every other mixer and MLP, the encoder and the
-modality front ends raise ``NotImplementedError``: they are later slices of
-the port (``ROADMAP.md`` Queue 1 item 1).
+The decode cache keeps the reference's stacked layout: attention's k and v
+(``(n_blocks, B, max_len, KV, hd)``, the compute dtype) and the Mamba
+state.  Weights are cast to ``cfg.compute_dtype`` at use, as the reference
+does; the SSM state, the scan and attention's scores stay float32.  MLA,
+MoE, cross-attention, the encoder, M-RoPE and the modality front ends
+raise ``NotImplementedError``: they are later slices of the port
+(``ROADMAP.md`` Queue 1 item 1).
 """
 
 from __future__ import annotations
@@ -26,14 +30,6 @@ from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
 from repro_torch.models.config import LayerSpec, ModelConfig
 
-
-def _unported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: the port's model stack serves the SSM "
-        f"family (mixer 'mamba', mlp 'none'); the rest is ROADMAP.md Queue 1 "
-        f"item 1")
-
-
 # ---------------------------------------------------------------------------
 # parameter metadata
 # ---------------------------------------------------------------------------
@@ -45,15 +41,25 @@ def _add_norm(cfg, d: dict, name: str):
 
 
 def _layer_defs(cfg: ModelConfig, spec: LayerSpec) -> dict:
-    if spec.mixer != "mamba":
-        raise _unported(f"mixer {spec.mixer!r}")
-    if spec.mlp != "none":
-        raise _unported(f"mlp {spec.mlp!r}")
-    if spec.cross_attn or cfg.post_block_norm:
-        raise _unported("cross-attention and post-block norms")
     d = {}
     _add_norm(cfg, d, "ln1")
-    d["attn"] = M.mamba_defs(cfg)
+    if spec.mixer == "attn":
+        d["attn"] = L.attn_defs(cfg)
+    elif spec.mixer == "mamba":
+        d["attn"] = M.mamba_defs(cfg)
+    else:
+        raise L.unported(f"mixer {spec.mixer!r}")
+    if cfg.post_block_norm:
+        _add_norm(cfg, d, "ln1_post")
+    if spec.cross_attn:
+        raise L.unported("cross-attention (cross_attn)")
+    if spec.mlp != "none":
+        if spec.mlp != "dense":
+            raise L.unported(f"mlp {spec.mlp!r}")
+        _add_norm(cfg, d, "ln2")
+        d["mlp"] = L.mlp_defs(cfg)
+        if cfg.post_block_norm:
+            _add_norm(cfg, d, "ln2_post")
     return d
 
 
@@ -65,7 +71,9 @@ def _stack(defs: dict, n: int) -> dict:
 
 def model_defs(cfg: ModelConfig) -> dict:
     if cfg.enc_layers:
-        raise _unported("the encoder (enc_layers)")
+        raise L.unported("the encoder (enc_layers)")
+    if cfg.mrope_sections:
+        raise L.unported("M-RoPE (mrope_sections: qwen2-vl)")
     d_model, v = cfg.d_model, cfg.padded_vocab
     if cfg.embed_shard == "dmodel":
         if cfg.tie_embeddings:
@@ -108,15 +116,21 @@ def n_params(cfg: ModelConfig) -> int:
 # ---------------------------------------------------------------------------
 
 class Layer(nn.Module):
-    """One position of the block pattern: ``ln1`` and the mixer, under the
-    reference's name ``attn``."""
+    """One position of the block pattern: its norms, the mixer under the
+    reference's name ``attn`` (:class:`layers.Attention` or
+    :class:`mamba.Mamba`) and, for a dense MLP, ``mlp``."""
 
     def __init__(self, cfg, spec: LayerSpec, *, device, dtype):
         super().__init__()
+        self.spec = spec
         defs = _layer_defs(cfg, spec)
-        L.register(self, {k: v for k, v in defs.items() if k != "attn"},
+        L.register(self, {k: v for k, v in defs.items()
+                          if k not in ("attn", "mlp")},
                    device=device, dtype=dtype)
-        self.attn = M.Mamba(cfg, device=device, dtype=dtype)
+        mixer = L.Attention if spec.mixer == "attn" else M.Mamba
+        self.attn = mixer(cfg, device=device, dtype=dtype)
+        if "mlp" in defs:
+            self.mlp = L.MLP(cfg, device=device, dtype=dtype)
 
 
 class Model(nn.Module):
@@ -204,46 +218,73 @@ def _norm(cfg, module, key, x):
                         getattr(module, key + "_b", None))
 
 
-def _apply_layer(cfg, layer: Layer, x, *, mode="train", cache=None):
-    """One layer; returns (x, new_cache_entry)."""
+def _apply_layer(cfg, layer: Layer, x, positions, *, mode="train",
+                 cache=None, kv_len=None):
+    """One layer.  ``cache`` is the layer's slice of the stacked cache:
+    ``mode="prefill"`` writes the layer's entry into it (attention's RoPE'd
+    k and v at positions ``0 .. S - 1``, the Mamba state), ``mode="decode"``
+    reads and advances it in place."""
+    spec = layer.spec
     h = _norm(cfg, layer, "ln1", x)
-    st = (cache["conv"], cache["h"]) if mode == "decode" else None
-    y, st_new = layer.attn(h, state=st)
-    new_cache = ({"conv": st_new[0], "h": st_new[1]}
-                 if mode in ("decode", "prefill") else {})
-    return x + y, new_cache
+    if spec.mixer == "attn":
+        if mode == "decode":
+            y, _ = layer.attn(h, positions, spec=spec,
+                              cache=(cache["k"], cache["v"]), kv_len=kv_len)
+        else:
+            # the reference projects k and v again for the cache
+            # (``_fresh_kv``): the same products, so the same values
+            y, (k, v) = layer.attn(h, positions, spec=spec)
+            if mode == "prefill":
+                cache["k"][:, :k.shape[1]] = k
+                cache["v"][:, :v.shape[1]] = v
+    else:
+        st = (cache["conv"], cache["h"]) if mode == "decode" else None
+        y, st_new = layer.attn(h, state=st)
+        if mode != "train":
+            cache["conv"].copy_(st_new[0])
+            cache["h"].copy_(st_new[1])
+    if cfg.post_block_norm:
+        y = _norm(cfg, layer, "ln1_post", y)
+    x = x + y
+    if spec.mlp != "none":
+        y = layer.mlp(_norm(cfg, layer, "ln2", x))
+        if cfg.post_block_norm:
+            y = _norm(cfg, layer, "ln2_post", y)
+        x = x + y
+    return x
 
 
-def _run_blocks(cfg, model: Model, x, *, mode="train", cache_blocks=None):
-    """The blocks in order; with ``mode`` "prefill" or "decode" also the
-    new cache, stacked on a leading ``n_blocks`` axis (``cache_blocks``,
-    the decode cache, in the same layout)."""
-    entries = []
+def _run_blocks(cfg, model: Model, x, positions, *, mode="train",
+                cache=None, kv_len=None):
+    """The blocks in order.  With ``cache`` (``cache_defs``' stacked
+    layout), block ``b``'s layers write their entries into index ``b`` of
+    it, in place."""
     for b, block in enumerate(model.blocks):
-        e = {}
         for key, layer in block.items():
-            bc = (None if cache_blocks is None else
-                  {n: t[b] for n, t in cache_blocks[key].items()})
-            x, e[key] = _apply_layer(cfg, layer, x, mode=mode, cache=bc)
-        entries.append(e)
-    if mode == "train":
-        return x, None
-    return x, {key: {n: torch.stack([e[key][n] for e in entries])
-                     for n in entry}
-               for key, entry in entries[0].items()}
+            x = _apply_layer(
+                cfg, layer, x, positions, mode=mode, kv_len=kv_len,
+                cache=None if cache is None else {
+                    n: t[b] for n, t in cache[key].items()})
+    return x
+
+
+def _positions_default(tokens):
+    b, s = tokens.shape[:2]
+    return torch.arange(s, device=tokens.device).expand(b, s)
 
 
 def _front_ends(extra_embeds, enc_frames):
     if extra_embeds is not None or enc_frames is not None:
-        raise _unported("extra_embeds / enc_frames (the vision and audio "
-                        "front ends)")
+        raise L.unported("extra_embeds / enc_frames (the vision and audio "
+                         "front ends)")
 
 
 def forward_hidden(cfg, model: Model, tokens, *, extra_embeds=None,
                    enc_frames=None):
     """Token stream -> final hidden states (B, S, D)."""
     _front_ends(extra_embeds, enc_frames)
-    x, _ = _run_blocks(cfg, model, embed_tokens(cfg, model, tokens))
+    x = _run_blocks(cfg, model, embed_tokens(cfg, model, tokens),
+                    _positions_default(tokens))
     return _norm(cfg, model, "final_norm", x)
 
 
@@ -270,21 +311,28 @@ def forward(cfg, model: Model, tokens, **kw):
 
 def cache_defs(cfg: ModelConfig, batch: int, max_len: int) -> dict:
     """Shape and sharding metadata of the decode cache, stacked per pattern
-    position; the SSM cache does not grow with ``max_len``."""
+    position: attention's k and v ``(B, max_len, KV, hd)``; the SSM cache,
+    which does not grow with ``max_len``."""
+    kv, hd = cfg.n_kv_heads, cfg.head_dim
     out = {}
     for i, spec in enumerate(cfg.pattern):
         _layer_defs(cfg, spec)
-        out[f"L{i}"] = {
-            "conv": L.PD((batch, cfg.ssm.d_conv - 1, cfg.d_inner),
-                         ("dp", None, "tp")),
-            "h": L.PD((batch, cfg.d_inner, cfg.ssm.d_state),
-                      ("dp", "tp", None))}
+        if spec.mixer == "attn":
+            out[f"L{i}"] = {
+                n: L.PD((batch, max_len, kv, hd), ("dp", "sp", None, None))
+                for n in ("k", "v")}
+        else:
+            out[f"L{i}"] = {
+                "conv": L.PD((batch, cfg.ssm.d_conv - 1, cfg.d_inner),
+                             ("dp", None, "tp")),
+                "h": L.PD((batch, cfg.d_inner, cfg.ssm.d_state),
+                          ("dp", "tp", None))}
     return _stack(out, cfg.n_blocks)
 
 
 def init_cache(cfg, batch: int, max_len: int, *, device=None) -> dict:
-    """Zeros in ``cache_defs``' layout: ``h`` float32, ``conv`` in the
-    compute dtype."""
+    """Zeros in ``cache_defs``' layout: the SSM state ``h`` float32, the
+    rest in the compute dtype."""
     dev = resolve_device(device)
     return {key: {n: torch.zeros(pd.shape, device=dev, dtype=(
         torch.float32 if n == "h" else _cdt(cfg))) for n, pd in e.items()}
@@ -292,21 +340,33 @@ def init_cache(cfg, batch: int, max_len: int, *, device=None) -> dict:
 
 
 def decode_step(cfg, model: Model, cache, kv_len, tokens):
-    """One token for every sequence.  tokens: (B, 1).  Returns (logits,
-    cache).  ``kv_len``, the tokens seen so far, places attention's next
-    key; the SSM state needs no position."""
-    x, new_cache = _run_blocks(cfg, model, embed_tokens(cfg, model, tokens),
-                               mode="decode", cache_blocks=cache)
+    """One token for every sequence.  tokens: (B, 1); ``kv_len`` (an int:
+    the tokens seen so far) is its position, where attention writes its
+    key.  Returns (logits, cache): the cache passed in is not changed, the
+    step writes into its own copy.  Positions are always ``kv_len`` (the
+    reference's default; M-RoPE positions come with qwen2-vl)."""
+    kv_len = int(kv_len)
+    b = tokens.shape[0]
+    new = {key: {n: t.clone() for n, t in e.items()}
+           for key, e in cache.items()}
+    positions = torch.full((b, 1), kv_len, device=tokens.device)
+    x = _run_blocks(cfg, model, embed_tokens(cfg, model, tokens), positions,
+                    mode="decode", cache=new, kv_len=kv_len)
     return logits_from_hidden(cfg, model, _norm(cfg, model, "final_norm",
-                                                x)), new_cache
+                                                x)), new
 
 
 def prefill(cfg, model: Model, tokens, max_len: int, *, enc_frames=None,
             extra_embeds=None):
     """Process the prompt, build the cache.  Returns (last-pos logits,
-    cache); ``max_len`` sizes attention's cache, not the SSM state."""
+    cache); ``max_len`` sizes attention's cache (zeros past the prompt),
+    not the SSM state."""
     _front_ends(extra_embeds, enc_frames)
-    x, cache = _run_blocks(cfg, model, embed_tokens(cfg, model, tokens),
-                           mode="prefill")
+    b, s = tokens.shape
+    if s > max_len:
+        raise ValueError(f"{s} prompt tokens do not fit max_len {max_len}")
+    cache = init_cache(cfg, b, max_len, device=tokens.device)
+    x = _run_blocks(cfg, model, embed_tokens(cfg, model, tokens),
+                    _positions_default(tokens), mode="prefill", cache=cache)
     h = _norm(cfg, model, "final_norm", x[:, -1:])
     return logits_from_hidden(cfg, model, h), cache

@@ -1,11 +1,14 @@
 """Batched generation engine: prefill once, then decode steps.
 
 Counterpart of ``repro/serve/generate.py``.  Static-batch serving (all
-requests share a step clock).  The prefill runs every Mamba layer's scan
-through ``ops.ssm_scan`` (one kernel launch a layer on the card); the
-decode steps are plain torch.  Sampling: greedy, or with ``temperature >
-0`` from a ``torch.Generator`` on the model's device seeded by ``seed``
-(departure P9: not ``jax.random.categorical``'s bits).
+requests share a step clock), for every model the stack builds: the SSM
+family, whose prefill runs every Mamba layer's scan through
+``ops.ssm_scan`` (one kernel launch a layer on the card), and the dense
+attention family, whose prefill fills the KV cache that each decode step
+extends at ``kv_len`` (plain torch: the reference's attention has no
+Pallas kernel).  The decode steps are plain torch.  Sampling: greedy, or
+with ``temperature > 0`` from a ``torch.Generator`` on the model's device
+seeded by ``seed`` (departure P9: not ``jax.random.categorical``'s bits).
 """
 
 from __future__ import annotations

@@ -7,6 +7,8 @@ machine with only PyTorch and the CUDA toolkit:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -29,6 +31,7 @@ from repro_torch.kernels.ref import (bid_top2_gather_ref, bid_top2_ref,
                                      gather_rows_ref, ssm_scan_chunk_ref,
                                      ssm_scan_ref)
 from repro_torch.kernels.ssm_scan import ssm_scan_chunk
+from repro_torch.models import layers as L
 from repro_torch.models import registry as model_registry
 from repro_torch.models import transformer as MT
 from repro_torch.models.mamba import Mamba, mamba_defs
@@ -1290,4 +1293,98 @@ def test_cuda_generate_reduced_equals_forced_plain_path(cuda):
     assert (sampled >= 0).all() and (sampled < cfg.vocab_size).all()
     np.testing.assert_array_equal(
         sampled, server.generate(prompts, 8, temperature=1.0, seed=1))
+    assert not np.array_equal(sampled, got)
+
+
+# ---------------------------------------------------------------------------
+# the model stack: the dense attention family
+# ---------------------------------------------------------------------------
+
+def _full_softmax(q, k, v, *, window=0, softcap=0.0):
+    """Attention through materialised, masked float32 scores."""
+    b, s, h, hd = q.shape
+    kv = k.shape[2]
+    qg = q.float().reshape(b, s, kv, h // kv, hd)
+    scores = torch.einsum("bqkgh,bskh->bkgqs", qg, k.float()) / hd ** 0.5
+    scores = L._softcap(scores, softcap)
+    pos = torch.arange(s, device=q.device)
+    mask = pos[None, :] <= pos[:, None]
+    if window:
+        mask &= pos[None, :] > pos[:, None] - window
+    p = torch.softmax(torch.where(mask, scores, -1e30), dim=-1)
+    return torch.einsum("bkgqs,bskh->bqkgh", p, v.float()).reshape(
+        b, s, h, hd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_equals_full_softmax(cuda, dtype):
+    """gemma2's head shape (8 heads over 4, hd 256) at S = 1 000 with the
+    reduced chunks of 128 / 256 (padded blocks), the softcap 50, windowed
+    and global: float32 within 1e-4 of max |out|, bfloat16 within two
+    bfloat16 ulps at that scale."""
+    gen = torch.Generator(device=cuda).manual_seed(21)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda).to(dtype)
+               for shape in ((2, 1000, 8, 256), (2, 1000, 4, 256),
+                             (2, 1000, 4, 256)))
+    for window in (0, 300):
+        got = L.flash_attention(q, k, v, window=window, softcap=50.0,
+                                chunk_q=128, chunk_kv=256)
+        want = _full_softmax(q, k, v, window=window, softcap=50.0)
+        assert got.dtype == dtype
+        err = (got.float() - want).abs().max().item()
+        scale = want.abs().max().item()
+        assert err <= (1e-4 if dtype == torch.float32 else 2.0 ** -7) * scale
+
+
+def _gemma2_local(window=8, **over):
+    cfg = model_registry.get_config("gemma2-2b", reduced=True, **over)
+    return dataclasses.replace(cfg, pattern=tuple(
+        dataclasses.replace(s, sliding_window=window) for s in cfg.pattern))
+
+
+@pytest.mark.cuda
+def test_cuda_dense_model_equals_cpu(cuda):
+    """A reduced gemma2 with a window of 8 on every layer, in float32, on
+    the card against the same weights on the CPU: prefill, three decode
+    steps and forward within 1e-4; no kernel of the repo launches."""
+    cfg = _gemma2_local()
+    model = MT.init_params(cfg, device="cpu", generator=torch.Generator()
+                           .manual_seed(5))
+    tokens = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (2, 40)))
+    n0 = dict(_build.launches)
+    got, want = [], []
+    for dev, out in ((cuda, got), (torch.device("cpu"), want)):
+        m = model.to(dev)
+        t = tokens.to(dev)
+        logits, cache = MT.prefill(cfg, m, t, 48)
+        out.append(logits)
+        tok = tokens[:, -1:].to(dev)
+        for step in range(3):
+            logits, cache = MT.decode_step(cfg, m, cache, 40 + step, tok)
+            out.append(logits)
+            tok = (tok + 1) % cfg.vocab_size
+        out.append(cache["L0"]["k"])
+        out.append(MT.forward(cfg, m, t))
+    assert _build.launches == n0
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_generate_dense_reduced(cuda):
+    """``Generator`` on a reduced qwen2.5 (q, k, v biases, theta 1e6) on the
+    card: tokens in range, greedy deterministic, sampling unlike greedy."""
+    cfg = model_registry.get_config("qwen2.5-14b", reduced=True)
+    model = MT.init_params(cfg, device=cuda, generator=torch.Generator(
+        device=cuda).manual_seed(0))
+    server = Generator(cfg, model, max_len=64, device=cuda)
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab_size, (3, 24))
+    got = server.generate(prompts, 16)
+    assert got.shape == (3, 16)
+    assert (got >= 0).all() and (got < cfg.vocab_size).all()
+    np.testing.assert_array_equal(got, server.generate(prompts, 16))
+    sampled = server.generate(prompts, 16, temperature=1.0, seed=1)
+    assert (sampled >= 0).all() and (sampled < cfg.vocab_size).all()
     assert not np.array_equal(sampled, got)

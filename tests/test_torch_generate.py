@@ -7,8 +7,15 @@ The reduced falcon-mamba-7b with the reference's parameters
 a ``torch.Generator``, not ``jax.random.categorical``'s bits (departure
 P9), so ``temperature > 0`` is held to the reference test's properties
 (``tests/test_system.py::test_generate_serving``): tokens in range, equal
-for equal seeds, unlike greedy.  The card is in ``tests/test_torch_cuda.py``.
+for equal seeds, unlike greedy.  The dense attention family: greedy
+tokens equal the reference's token for token on smollm-360m (the
+reference's own ``test_generate_serving`` model), gemma2-2b, and gemma2-2b
+with a window of 8 on every layer, which binds in the prefill and in
+every decode step.  The card is in ``tests/test_torch_cuda.py``.
 """
+
+import dataclasses
+
 
 import numpy as np
 import pytest
@@ -17,10 +24,12 @@ import torch
 import jax
 
 from repro.models import registry as jax_registry
+from repro.models.config import LayerSpec as JaxLayerSpec
 from repro.models import transformer as JT
 from repro.serve.generate import Generator as JaxGenerator
 
 from repro_torch.models import registry
+from repro_torch.models.config import LayerSpec
 from repro_torch.models import transformer as T
 from repro_torch.models.convert import params_from_jax
 from repro_torch.serve import Generator
@@ -111,3 +120,30 @@ def test_default_device_raises_without_cuda(served):
     cfg, _, _, model = served
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Generator(cfg, model)
+
+
+def _local(cfg, spec_type, window):
+    return dataclasses.replace(cfg, pattern=tuple(
+        spec_type(mixer="attn", mlp="dense", sliding_window=window)
+        for _ in cfg.pattern))
+
+
+@pytest.mark.parametrize("arch,window", [("smollm-360m", 0),
+                                         ("gemma2-2b", 0),
+                                         ("gemma2-2b", 8)])
+def test_dense_greedy_equals_reference(arch, window):
+    """3 prompts of 20 tokens, 10 greedy steps: the KV cache grows to 29
+    entries, past a window of 8 from the prefill on."""
+    cfg = registry.get_config(arch, reduced=True)
+    jcfg = jax_registry.get_config(arch, reduced=True)
+    if window:
+        cfg, jcfg = _local(cfg, LayerSpec, window), _local(
+            jcfg, JaxLayerSpec, window)
+    params = JT.init_params(jcfg, jax.random.PRNGKey(3))
+    model = params_from_jax(cfg, jax.tree.map(np.asarray, params),
+                            device=CPU)
+    prompts = _prompts(cfg, s=20, seed=window + 1)
+    got = Generator(cfg, model, max_len=32, device=CPU).generate(prompts, 10)
+    want = JaxGenerator(jcfg, params, max_len=32).generate(prompts, 10)
+    assert got.shape == (3, 10)
+    np.testing.assert_array_equal(got, want)

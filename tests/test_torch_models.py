@@ -9,8 +9,16 @@ the same numpy weights; and the reduced falcon-mamba-7b through
 ``params_from_jax``: ``forward``, ``prefill`` and three ``decode_step``s
 within rtol and atol 1e-4 (the reference's own bar in
 ``test_mamba_chunked_scan_equivalence``), at S = 32 and 30 and
-``scan_chunk`` 1 and 8.  Every draw comes from a ``default_rng`` or a
-``PRNGKey`` of the test's own.  The model on the card is in
+``scan_chunk`` 1 and 8.  The dense attention family (smollm-360m,
+gemma2-2b, gemma-7b, qwen2.5-14b) likewise: ``model_defs`` full and
+reduced (gemma2-2b 2 614 341 888 parameters, qwen2.5-14b
+14 770 033 664), the cache layout, ``forward``, ``prefill`` and decode
+steps within 1e-4 of the reference at S = 32 and 30, and gemma2 with a
+window of 8 on every layer, whose decode step equals ``forward`` on the
+extended sequence (the reference's
+``tests/test_models.py::test_sliding_window_decode_matches_forward``).
+Every draw comes from a ``default_rng`` or a ``PRNGKey`` of the test's
+own.  The model on the card is in
 ``tests/test_torch_cuda.py``.
 """
 
@@ -159,8 +167,13 @@ def test_init_params_constants_equal_reference_and_scales():
     assert not torch.equal(other.embed, model.embed)
 
 
+DENSE = ("smollm_360m", "gemma2_2b", "gemma_7b", "qwen2p5_14b")
+DENSE_PARAMS = {"gemma2_2b": 2_614_341_888, "qwen2p5_14b": 14_770_033_664}
+
+
 @pytest.mark.parametrize("arch", [a for a in jax_registry.ARCHS
-                                  if a != "falcon_mamba_7b"])
+                                  if a != "falcon_mamba_7b"
+                                  and a not in DENSE])
 def test_other_architectures_are_not_ported_yet(arch):
     cfg = registry.get_config(arch, reduced=True)
     with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
@@ -384,3 +397,153 @@ def test_prefill_decode_consistency():
     lref = T.forward(cfg, model, torch.cat([tokens, nxt], dim=1))
     np.testing.assert_allclose(l2[:, 0].numpy(), lref[:, -1].numpy(),
                                rtol=3e-2, atol=5e-2)
+
+
+# ---------------------------------------------------------------------------
+# the dense attention family
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("reduced", [False, True])
+@pytest.mark.parametrize("arch", DENSE)
+def test_dense_model_defs_equal_reference(arch, reduced):
+    cfg = registry.get_config(arch, reduced=reduced)
+    jcfg = jax_registry.get_config(arch, reduced=reduced)
+    got = {path: tuple(pd) for path, pd in
+           T.flatten_defs(T.model_defs(cfg)).items()}
+    want = {path: (tuple(pd.shape), tuple(pd.axes), pd.fan_in) for path, pd
+            in JT._flatten_with_path(JT.model_defs(jcfg))}
+    assert got == want
+    assert T.n_params(cfg) == sum(math.prod(s) for s, _, _ in want.values())
+    if not reduced and arch in DENSE_PARAMS:
+        assert T.n_params(cfg) == DENSE_PARAMS[arch]
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_dense_cache_layout_equals_reference(arch):
+    for reduced in (False, True):
+        cfg = registry.get_config(arch, reduced=reduced)
+        jcfg = jax_registry.get_config(arch, reduced=reduced)
+        got = T.init_cache(cfg, 2, 40, device=CPU)
+        want = JT.abstract_cache(jcfg, 2, 40)
+        assert set(got) == set(want)
+        for key, entry in got.items():
+            assert set(entry) == set(want[key]) == {"k", "v"}
+            for name, t in entry.items():
+                w = want[key][name]
+                assert tuple(t.shape) == tuple(w.shape), (key, name)
+                assert str(t.dtype).split(".")[1] == str(w.dtype)
+
+
+def _check_steps(cfg, jcfg, params, model, tokens, steps, tol=TOL):
+    """prefill, then ``steps`` decode steps, each step's logits and the
+    whole cache against the reference's; returns the port's last logits
+    and cache."""
+    seq = tokens.shape[1]
+    lp, cache = T.prefill(cfg, model, torch.from_numpy(tokens).long(),
+                          seq + steps + 1)
+    jlp, jcache = JT.prefill(jcfg, params, jnp.asarray(tokens),
+                             seq + steps + 1)
+    for step in range(steps + 1):
+        _close(lp, jlp, **tol)
+        for key, entry in cache.items():
+            for name, t in entry.items():
+                _close(t, jcache[key][name], **tol)
+        if step == steps:
+            return lp, cache
+        nxt = np.asarray(jnp.argmax(jlp, axis=-1)).astype(np.int32)
+        before = {k: {n: t.clone() for n, t in e.items()}
+                  for k, e in cache.items()}
+        lp, new = T.decode_step(cfg, model, cache, seq + step,
+                                torch.from_numpy(nxt).long())
+        for k, e in cache.items():  # the step wrote its own copy
+            for n, t in e.items():
+                assert torch.equal(t, before[k][n])
+        cache = new
+        jlp, jcache = JT.decode_step(jcfg, params, jcache,
+                                     jnp.int32(seq + step), jnp.asarray(nxt))
+
+
+@pytest.mark.parametrize("seq", [32, 30])
+@pytest.mark.parametrize("arch", DENSE)
+def test_dense_model_equals_reference(arch, seq):
+    """forward, prefill (logits, every k and v) and two decode steps of the
+    reduced model within rtol / atol 1e-4 of the reference on its own
+    parameters; chunks of 16, so S = 30 pads the last block."""
+    cfg, jcfg = _configs(arch)
+    params, model = _reference_model(jcfg, cfg, seed=seq)
+    tokens = np.random.default_rng(seq).integers(
+        0, cfg.vocab_size, (2, seq)).astype(np.int32)
+    logits = T.forward(cfg, model, torch.from_numpy(tokens).long())
+    assert tuple(logits.shape) == (2, seq, cfg.padded_vocab)
+    _close(logits, JT.forward(jcfg, params, jnp.asarray(tokens)))
+    _check_steps(cfg, jcfg, params, model, tokens, 2)
+
+
+def _all_local(arch="gemma2-2b", window=8):
+    cfgs = _configs(arch)
+    return [dataclasses.replace(c, pattern=tuple(
+        dataclasses.replace(s, sliding_window=window) for s in c.pattern))
+        for c in cfgs]
+
+
+def test_sliding_window_decode_equals_forward_and_reference():
+    """gemma2 with every layer local and a window of 8 at S = 24: the
+    window binds in the prefill and in the decode steps.  Three decode
+    steps equal the reference's within 1e-4, and the first equals
+    ``forward`` on the extended sequence within 1e-4 (the reference test
+    asks for 3e-2 / 5e-2)."""
+    cfg, jcfg = _all_local()
+    assert all(s.sliding_window == 8 for s in cfg.pattern)
+    params, model = _reference_model(jcfg, cfg)
+    tokens = np.random.default_rng(24).integers(
+        0, cfg.vocab_size, (2, 24)).astype(np.int32)
+    t_tokens = torch.from_numpy(tokens).long()
+    logits = T.forward(cfg, model, t_tokens)
+    _close(logits, JT.forward(jcfg, params, jnp.asarray(tokens)))
+    _check_steps(cfg, jcfg, params, model, tokens, 3)
+    lp, cache = T.prefill(cfg, model, t_tokens, 26)
+    nxt = logits[:, -1:].argmax(-1)
+    l2, _ = T.decode_step(cfg, model, cache, 24, nxt)
+    lref = T.forward(cfg, model, torch.cat([t_tokens, nxt], dim=1))
+    np.testing.assert_allclose(l2[:, 0].numpy(), lref[:, -1].numpy(),
+                               **TOL)
+
+
+def test_decode_past_the_cache_raises():
+    """P10: the reference clamps a write past ``max_len - 1`` to the last
+    slot (``dynamic_update_slice``); the port raises.  ``Generator``
+    never gets there (S + steps <= max_len)."""
+    cfg, _ = _configs("smollm-360m")
+    model = T.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                          device=CPU)
+    tokens = torch.zeros((2, 8), dtype=torch.long)
+    _, cache = T.prefill(cfg, model, tokens, 9)
+    tok = torch.zeros((2, 1), dtype=torch.long)
+    _, cache = T.decode_step(cfg, model, cache, 8, tok)
+    with pytest.raises(ValueError, match="P10"):
+        T.decode_step(cfg, model, cache, 9, tok)
+    with pytest.raises(ValueError, match="max_len"):
+        T.prefill(cfg, model, tokens, 7)
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_dense_init_params_constants_and_scales(arch):
+    """Norms (``ln1``, ``ln2``, gemma2's ``ln*_post``) and qwen's q, k, v
+    biases are zeros, as the reference's; every drawn weight has std
+    ~1/sqrt(fan_in) (P8)."""
+    cfg, _ = _configs(arch)
+    model = T.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                          device=CPU)
+    defs = T.flatten_defs(T.model_defs(cfg))
+    names = set()
+    for path, _, p in model.leaves():
+        name = path.split("/")[-1]
+        names.add(name)
+        if defs[path].fan_in == 0:
+            assert not p.any(), path
+        else:
+            scale = 1.0 / math.sqrt(defs[path].fan_in)
+            assert abs(p.std().item() / scale - 1) < 0.15, path
+    assert {"wq", "wk", "wv", "wo", "wi", "wg", "ln1", "ln2"} <= names
+    assert ("bq" in names) == cfg.qkv_bias
+    assert ("ln1_post" in names) == cfg.post_block_norm
