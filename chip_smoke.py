@@ -97,17 +97,17 @@ git-ignored ``build/``), then runs these phases, one or more lines each:
 8. the hierarchical route (paper Section 4.4) on the Table-10 rows of
    ``benchmarks/table10_scale.py`` (n = 2^20, d = 32, low rank), each a
    first call (its LAPs counted by level) and a main call with the
-   counters zeroed just before it and read just after (for (a) and (b)
-   one main call that counts, then one profiled whole): (a) k = 4096
+   counters zeroed just before it and read just after ((a), (b) and (d)
+   one call each, which counts): (a) k = 4096
    (plan (64, 64), dense), (b) the same with ``chunk_size="auto"`` (level 1
    streamed, ``"auction_fused"``), (d) (a) with ``categories=`` (one
    call), (c) k = 131072 (plan (256, 512); one call if the phase has
    passed HIER_PHASE_BUDGET_S); the LAPs of each level and the kernels'
    launches a LAP, exact balance, constraint (5) for (d), the objective
    above random, a finite gap >= 0, the labels' sha256; (a) and (b) with
-   20 LAPs of each level profiled inside the main call (device launches a
-   LAP at G = 1 and G = 64) and a second call profiled whole (each
-   kernel's device time, the idle share); then (e)
+   20 LAPs of each level profiled inside the call (device launches a
+   LAP at G = 1 and G = 64: no copy between host and card, no wait); then
+   (e)
    ``kplus_moments=2`` on phase 3's rows at k = 256, its moment-2 spread
    below the same call's without k-plus;
 9. sessions at full size on phase 3's rows at k = 256
@@ -201,6 +201,32 @@ git-ignored ``build/``), then runs these phases, one or more lines each:
    range and unlike greedy.  qwen2.5-14b (48 layers, 14 770 033 664
    parameters; q, k, v biases, theta 1e6, untied): (f) the same (a), (b)
    on 2 prompts of 2 048 tokens with 16 steps, and (d);
+14. the model stack: the MoE and MLA family and the hybrid at full
+   width, random weights drawn on the card from a seed, served by
+   ``Generator`` on 2 seeded prompts of 2 048 tokens: granite-moe-3b at
+   full depth (32 layers, 3 903 186 432 parameters; 40 experts padded to
+   48, top 8), deepseek-v2-236b at 3 of its 60 layers (12 964 930 560
+   parameters; MLA, 160 experts top 6, 2 shared) and jamba-v0.1-52b at
+   one of its 4 blocks (8 layers, 13 295 235 072 parameters; 7 Mamba and
+   1 attention layer, MoE on every other).  Each: (a) ``init_params``
+   with its count; (b) ``generate`` (32 greedy steps for granite, 16 for
+   the others): the prefill's time and tokens/s, the decode steps' ms and
+   tokens/s, a profiled prefill and decode step with their idle shares
+   and device ms by kernel, the peak memory, ``ssm_scan`` once a Mamba
+   layer in the prefill (jamba: 7) and never in decode, no other kernel
+   of the repo, and the (token, choice) pairs the prefill's MoE layers
+   drop at capacity factor 1.25 (the reference's rule, reported); (c) the
+   first MoE layer in float32 on the normed prompt embeddings against a
+   plain loop over the experts: the same kept pairs, within 1e-4 of max
+   |out|, each timed; (f) deepseek's layer-0 MLA in float32: the
+   absorbed decode of the last token over the latent cache against the
+   expanded form's last row, within 1e-4 of max |out|, and the cache's
+   576 values a token and a layer; (d) on the first 1 024 tokens, at the
+   capacity factor that drops nothing (E_pad / k), the first decode
+   step's logits against ``forward`` on the extended sequence and the
+   prefill's last logits against ``forward``'s, within twice bfloat16's
+   own spread; (e) greedy twice equal, 16 sampled steps in range and
+   unlike greedy;
 
 then one JSON line describing every kernel, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises, exits non-zero and
@@ -268,6 +294,7 @@ from repro_torch.kernels.ref import (  # noqa: E402
 from repro_torch.kernels.ssm_scan import ssm_scan_chunk  # noqa: E402
 from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.models import layers as ML  # noqa: E402
+from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.models import registry as model_registry  # noqa: E402
 from repro_torch.models import transformer as MT  # noqa: E402
 from repro_torch.serve import Generator  # noqa: E402
@@ -2189,11 +2216,10 @@ def hier_call(x, k, dev, expect, windows=False, once=False, **kw):
     the kernels' launches a LAP, equal labels and rounds in both, exact
     balance, the objective above a seeded random partition and a finite
     gap >= 0.  With ``once`` the first call is the main call.  With
-    ``windows`` the main call carries the level counters too and profiles
-    WINDOW_LAPS LAPs in the middle of level 1 and of level 2 (device
-    launches a LAP at G = 1 and at G = plan[0]: no copy between host and
-    card, no wait; its time includes the two windows' synchronizes and
-    profiler), and the second call is the one profiled whole."""
+    ``windows`` the first call profiles WINDOW_LAPS LAPs in the middle of
+    level 1 and of level 2 (device launches a LAP at G = 1 and at G =
+    plan[0]: no copy between host and card, no wait; its time includes
+    the two windows' synchronizes and profiler)."""
     route, plan, solver = expect
     n = x.shape[0]
     laps, m = {}, n
@@ -2210,18 +2236,8 @@ def hier_call(x, k, dev, expect, windows=False, once=False, **kw):
                 solver, field, at, WINDOW_LAPS)) for at in (
                     l1 // 2 - half, l1 + laps[plan[0]] // 2 - half))
         first, first_s, first_used = user_call(x, k, dev, **kw)
-    if windows:
-        second = []
-        torch.cuda.synchronize()
-        reset_counts()
-        whole = call_kernel_ms(x, k, dev, "auction_phase_kernel", call=(
-            lambda: second.append(anticluster(x, k=k, device=dev, **kw))))
-        whole["idle_share"] = 1.0 - whole["device_ms"] / (first_s * 1e3)
-        (res, main_s, used), (first, first_s, first_used) = (
-            (first, first_s, first_used), (second[0], None, counts()))
-    else:
-        res, main_s, used = ((first, first_s, first_used) if once
-                             else user_call(x, k, dev, **kw))
+    res, main_s, used = ((first, first_s, first_used) if once
+                         else user_call(x, k, dev, **kw))
     check(res.route == route and res.plan == plan and res.solver == solver,
           f"route {res.route} plan {res.plan} solver {res.solver}, expected "
           f"{expect}")
@@ -2261,7 +2277,6 @@ def hier_call(x, k, dev, expect, windows=False, once=False, **kw):
                   f"G={G}: a LAP reads back from the card, uploads to it or "
                   f"waits for it: {split}")
             run["windows"][G] = split
-        run["call_profile"] = whole
     return run, res
 
 
@@ -2272,8 +2287,8 @@ def hierarchical_routes(dev, card: str) -> dict:
     the dense solver), (b) the same with ``chunk_size="auto"`` (level 1
     streamed in 8192-row chunks, ``"auction_fused"``), (c) k = 131072
     (plan (256, 512)), (d) (a) with ``categories=`` the class codes of
-    ATTRIBUTE_COUNTS (constraint (5) exact, one call); (a) and (b) also
-    with their levels' LAPs profiled and profiled whole.  Then (e)
+    ATTRIBUTE_COUNTS (constraint (5) exact); (a), (b) and (d) one call
+    each, (a) and (b) with their levels' LAPs profiled.  Then (e)
     ``kplus_moments=2``
     on phase 3's rows at k = 256 (the flat route, d = 22 -> 44): the
     moment-2 spread below that of the same call without k-plus."""
@@ -2287,7 +2302,7 @@ def hierarchical_routes(dev, card: str) -> dict:
             f"G={G}: {v['laps']} LAPs, " + ", ".join(
                 f"{kn} {c:g}" for kn, c in v.items() if kn != "laps")
             + " a LAP" for G, v in run["per_level"].items())
-        other = ("a second call profiled whole" if run["first_s"] is None
+        other = ("one call" if run["once"]
                  else f"first call {run['first_s']:.3f} s")
         log(f"({name}) on {card}: route={run['route']} plan={run['plan']} "
             f"solver={run['solver']} {run['main_s']:.3f} s ({other}); "
@@ -2306,26 +2321,18 @@ def hierarchical_routes(dev, card: str) -> dict:
                 f"{split['device_copies_per_lap']}, idle share "
                 f"{split['idle_share']:.3f} (wall {split['wall_ms']:.2f} ms, "
                 f"device {split['device_ms']:.2f} ms)")
-        whole = run.get("call_profile")
-        if whole:
-            log(f"  ({name}) the whole call profiled: every kernel "
-                f"{whole['device_ms']:.3f} ms of device time in "
-                f"{whole['launches']} launches against the main call's "
-                f"{run['main_s'] * 1e3:.1f} ms wall (idle share "
-                f"{whole['idle_share']:.3f}); phase kernel "
-                f"{whole['kernel_ms']:.3f} ms in {whole['kernel_launches']} "
-                f"launches; by kernel {json.dumps(whole['kernels'])}")
         out[name] = run
 
     report("a", hier_call(x, HIER_K, dev, ("hier", (64, 64), "auction"),
-                          windows=True)[0])
+                          windows=True, once=True)[0])
     report("b", hier_call(x, HIER_K, dev, ("hier", (64, 64), "auction_fused"),
-                          windows=True, chunk_size="auto")[0])
+                          windows=True, once=True, chunk_size="auto")[0])
     chunks = 1 + -(-(HIER_N // 64 - 1) // (CHUNK_ROWS // 64))
     check(out["b"]["launches"]["gather_rows"] == chunks,
           f"(b): {out['b']['launches']['gather_rows']} gather_rows launches, "
           f"expected {chunks}")
-    # one call: its labels and rounds are held equal to a second's by (a)
+    # one call: labels and rounds are held equal to a second call's by (c)
+    # where the phase has time, and by phases 3, 4 and 6
     run, res = hier_call(x, HIER_K, dev, ("hier", (64, 64), "auction"),
                          once=True, categories=cls)
     check(stratified(res.labels.cpu().numpy(), cls, HIER_K),
@@ -4290,10 +4297,14 @@ def full_softmax(q, k, v, *, window=0, softcap=0.0):
         b, s, h, hd)
 
 
-def draw_model(dev, arch: str, want: int, what: str):
+def draw_model(dev, arch: str, want: int, what: str, n_layers=None):
     """``init_params`` on the card from seed 0, with its count checked
-    against ``want`` and ``n_params``: (cfg, model, log dict)."""
+    against ``want`` and ``n_params``: (cfg, model, log dict).  With
+    ``n_layers`` the config's depth is cut to that many layers (whole
+    blocks)."""
     cfg = model_registry.get_config(arch)
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     torch.cuda.empty_cache()
     live = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -4324,12 +4335,14 @@ def draw_model(dev, arch: str, want: int, what: str):
 
 
 def serve_timed(cfg, model, dev, prompts, steps: int, card: str,
-                what: str) -> tuple:
+                what: str, scans: int = 0) -> tuple:
     """``Generator.generate`` as a user calls it, after one warm-up call:
-    the prefill's wall and tokens/s, the decode steps' ms and tokens/s, no
-    launch of the repo's kernels, the peak memory; then a profiled prefill
-    and a profiled decode step with their idle shares and device ms by
-    kernel.  Returns (server, tokens, log dict)."""
+    the prefill's wall and tokens/s, the decode steps' ms and tokens/s,
+    ``scans`` launches of ``ssm_scan`` in the prefill (one a Mamba layer)
+    and no other launch of the repo's kernels, none in decode, the peak
+    memory; then a profiled prefill and a profiled decode step with their
+    idle shares and device ms by kernel.  Returns (server, tokens, log
+    dict)."""
     b, s = prompts.shape
     max_len = s + steps
     server = Generator(cfg, model, max_len=max_len, device=dev)
@@ -4346,8 +4359,13 @@ def serve_timed(cfg, model, dev, prompts, steps: int, card: str,
           and bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
           f"generate gave {tokens.shape} tokens or ones out of range")
     check(clock.steps == steps - 1
-          and not any(used[k] for k in _build.launches),
-          f"{clock.steps} decode steps; the repo's kernels launched {used}")
+          and clock.prefill_launches == scans and clock.decode_launches == 0
+          and all(used[k] == (scans if k == "ssm_scan" else 0)
+                  for k in _build.launches),
+          f"{clock.steps} decode steps; ssm_scan launched "
+          f"{clock.prefill_launches} times in the prefill (expected "
+          f"{scans}) and {clock.decode_launches} in decode; the repo's "
+          f"kernels launched {used}")
     decode_s = t_end - clock.prefill_end
     bb = {"wall_s": t_end - t0, "prefill_s": clock.prefill_s,
           "prefill_tokens_per_s": b * s / clock.prefill_s,
@@ -4357,10 +4375,10 @@ def serve_timed(cfg, model, dev, prompts, steps: int, card: str,
           "kernel_launches": {k: used[k] for k in _build.launches},
           "max_memory_allocated": torch.cuda.max_memory_allocated()}
     tp = torch.from_numpy(prompts).to(dev)
-    prof = call_kernel_ms(None, None, dev, "flash", call=lambda: (
+    prof = call_kernel_ms(None, None, dev, "ssm_scan", call=lambda: (
         MT.prefill(cfg, model, tp, max_len)))
     logits, cache = MT.prefill(cfg, model, tp, max_len)
-    one = call_kernel_ms(None, None, dev, "flash", call=lambda: (
+    one = call_kernel_ms(None, None, dev, "ssm_scan", call=lambda: (
         MT.decode_step(cfg, model, cache, s, logits.argmax(-1))))
     del logits, cache
     bb["profiled_prefill"], bb["profiled_decode_step"] = prof, one
@@ -4410,7 +4428,7 @@ def decode_against_forward(cfg, model, tp, what: str) -> dict:
          "bf16_spread": (full - full32).abs().max().item(),
          "prefill_vs_forward": (lp - last_logits(cfg, model, tp))
          .abs().max().item(),
-         "logits_scale": full32.abs().max().item(),
+         "logits_scale": full32[..., :cfg.vocab_size].abs().max().item(),
          "spread_factor": SPREAD_FACTOR}
     tol = SPREAD_FACTOR * d["bf16_spread"]
     log(f"({what}) S={s}: the first decode step's logits within "
@@ -4475,6 +4493,25 @@ def flash_against_full(cfg, model, tp) -> dict:
     return out
 
 
+def greedy_and_sampled(cfg, server, prompts, tokens, steps: int) -> dict:
+    """(e): ``steps`` greedy steps again equal to ``tokens``' first, and
+    ``steps`` sampled ones (temperature 1.0, seed 1) in range and other
+    than greedy."""
+    again = server.generate(prompts, steps)
+    sampled = server.generate(prompts, steps, temperature=1.0, seed=1)
+    greedy = tokens[:, :steps]
+    check(np.array_equal(again, greedy), "greedy tokens differ between runs")
+    check(bool(((sampled >= 0) & (sampled < cfg.vocab_size)).all())
+          and not np.array_equal(sampled, greedy),
+          "temperature=1.0, seed=1: tokens out of range or equal to greedy")
+    e = {"greedy_equal": True,
+         "sampled_differs_steps": int((sampled != greedy).any(0).sum())}
+    log(f"(e) greedy twice: equal tokens; temperature=1.0 seed=1: tokens in "
+        f"range, other than greedy at {e['sampled_differs_steps']} of "
+        f"{steps} steps")
+    return e
+
+
 def dense_stack(dev, card: str) -> dict:
     """Phase 13: gemma2-2b, then qwen2.5-14b, at full width and depth."""
     t_start = time.perf_counter()
@@ -4487,19 +4524,8 @@ def dense_stack(dev, card: str) -> dict:
     tp = torch.from_numpy(prompts).to(dev)
     out["c"] = flash_against_full(cfg, model, tp)
     out["d"] = decode_against_forward(cfg, model, tp, "d")
-    again = server.generate(prompts, DENSE_SAMPLED_STEPS)
-    sampled = server.generate(prompts, DENSE_SAMPLED_STEPS, temperature=1.0,
-                              seed=1)
-    greedy = tokens[:, :DENSE_SAMPLED_STEPS]
-    check(np.array_equal(again, greedy), "greedy tokens differ between runs")
-    check(bool(((sampled >= 0) & (sampled < cfg.vocab_size)).all())
-          and not np.array_equal(sampled, greedy),
-          "temperature=1.0, seed=1: tokens out of range or equal to greedy")
-    out["e"] = {"greedy_equal": True, "sampled_differs_steps": int(
-        (sampled != greedy).any(0).sum())}
-    log(f"(e) greedy twice: equal tokens; temperature=1.0 seed=1: tokens in "
-        f"range, other than greedy at {out['e']['sampled_differs_steps']} of "
-        f"{DENSE_SAMPLED_STEPS} steps")
+    out["e"] = greedy_and_sampled(cfg, server, prompts, tokens,
+                                  DENSE_SAMPLED_STEPS)
     del model, server, tp
     torch.cuda.empty_cache()
     out["gemma2_s"] = time.perf_counter() - t_start
@@ -4514,6 +4540,221 @@ def dense_stack(dev, card: str) -> dict:
     out["f"] = f
     del model, server
     torch.cuda.empty_cache()
+    out["live_at_end_bytes"] = torch.cuda.memory_allocated()
+    out["seconds"] = time.perf_counter() - t_start
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the model stack, the MoE and MLA family and the hybrid serving
+# ---------------------------------------------------------------------------
+
+# (arch, layers on the card (None: all of its ModelConfig's), their
+# parameters, the full config's, greedy steps of (b)).  deepseek-v2-236b
+# (891.7 GiB in float32) keeps 3 of its 60 layers and jamba-v0.1-52b
+# (192.1 GiB) one of its 4 blocks of 8 layers: one card holds no more.
+MOE_MODELS = (
+    ("granite-moe-3b-a800m", None, 3_903_186_432, 3_903_186_432, 32),
+    ("deepseek-v2-236b", 3, 12_964_930_560, 239_375_569_920, 16),
+    ("jamba-v0.1-52b", 8, 13_295_235_072, 51_570_315_264, 16),
+)
+MOE_PROMPTS = (2, 2048)
+MOE_SAMPLED_STEPS = 16  # (e)
+# (d) runs on the prompts' first CHECK_PROMPT tokens, at the capacity
+# factor that drops nothing (C = T + 1): there deepseek's float32 forward
+# over 2 x 2 049 tokens would hold (160, 4 104, 5 120) float32 expert
+# blocks of 13.4 GB beside its 52 GB of weights
+CHECK_PROMPT = 1024
+MOE_RTOL = 1e-4  # (c), (f): float32, of max |out|
+
+
+def moe_modules(model) -> list:
+    return [m for m in model.modules() if isinstance(m, MOE.MoE)]
+
+
+@contextlib.contextmanager
+def capacity_factor(model, cf: float):
+    """Within the block every MoE layer of ``model`` routes with capacity
+    factor ``cf`` (its config swapped, then restored)."""
+    mods = moe_modules(model)
+    kept = [m.cfg for m in mods]
+    for m in mods:
+        m.cfg = dataclasses.replace(m.cfg, moe=dataclasses.replace(
+            m.cfg.moe, capacity_factor=cf))
+    try:
+        yield
+    finally:
+        for m, c in zip(mods, kept):
+            m.cfg = c
+
+
+def prefill_drops(cfg, model, tp, max_len: int) -> dict:
+    """The (token, choice) pairs that each MoE layer of a prefill drops at
+    the config's capacity factor, from ``moe.route`` on the layer's input
+    (a forward hook).  The reference's own rule, so reported, not
+    checked."""
+    dropped, pairs = [], []
+
+    def hook(mod, args, out):
+        r = MOE.route(mod.cfg, mod.router, args[0].reshape(
+            -1, args[0].shape[-1]))
+        dropped.append((~r.keep).sum())
+        pairs.append(r.keep.numel())
+
+    handles = [m.register_forward_hook(hook) for m in moe_modules(model)]
+    try:
+        MT.prefill(cfg, model, tp, max_len)
+    finally:
+        for h in handles:
+            h.remove()
+    by_layer = [int(d) for d in dropped]
+    out = {"capacity_factor": cfg.moe.capacity_factor,
+           "moe_layers": len(by_layer), "pairs_a_layer": pairs[0],
+           "dropped": sum(by_layer), "dropped_by_layer": by_layer,
+           "dropped_share": sum(by_layer) / sum(pairs)}
+    log(f"(b) the prefill's MoE layers at capacity factor "
+        f"{out['capacity_factor']}: {out['dropped']} of {sum(pairs)} (token, "
+        f"choice) pairs dropped ({out['dropped_share']:.4%}) over "
+        f"{len(by_layer)} layers, by layer {by_layer}")
+    return out
+
+
+def expert_loop(cfg, p, x):
+    """The MoE layer ``p`` as a plain loop over the experts: each expert's
+    gated FFN on the tokens of the first ``cap`` pairs (token-major) that
+    chose it, weighted by ``top_p`` and added at their tokens, then the
+    shared experts.  Returns (out, the kept pairs)."""
+    m = cfg.moe
+    xf = x.reshape(-1, x.shape[-1])
+    r = MOE.route(cfg, p.router, xf)
+    act = MOE._act(cfg)
+    flat_e, w = r.top_e.reshape(-1), r.top_p.reshape(-1)
+    out = torch.zeros_like(xf)
+    kept = torch.zeros_like(r.keep)
+    for e in range(m.n_experts):
+        pairs = torch.nonzero(flat_e == e)[:r.cap, 0]
+        kept[pairs] = True
+        tok = pairs // m.top_k
+        he = xf[tok]
+        y = (act(he @ p.wg[e]) * (he @ p.wi[e])) @ p.wo[e]
+        out.index_add_(0, tok, y * w[pairs, None])
+    if m.n_shared:
+        out += (act(xf @ p.shared_wg) * (xf @ p.shared_wi)) @ p.shared_wo
+    return out.reshape(x.shape), kept
+
+
+def moe_against_loop(cfg, model, tp) -> dict:
+    """(c): the first MoE layer in float32 on the prompts' normed
+    embeddings against :func:`expert_loop`: the same kept pairs, the
+    output within MOE_RTOL of max |out|; each timed."""
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    layer = next(lay for blk in model.blocks for lay in blk.values()
+                 if lay.spec.mlp == "moe")
+    x = MT._norm(cfg32, layer, "ln2", MT.embed_tokens(cfg32, model, tp))
+    got = layer.mlp(x)
+    want, kept = expert_loop(layer.mlp.cfg, layer.mlp, x)
+    r = MOE.route(layer.mlp.cfg, layer.mlp.router, x.reshape(-1, x.shape[-1]))
+    c = {"tokens": r.top_e.shape[0], "experts": cfg.moe.n_experts,
+         "top_k": cfg.moe.top_k, "capacity": r.cap,
+         "n_shared": cfg.moe.n_shared,
+         "kept_pairs": int(r.keep.sum()), "pairs": r.keep.numel(),
+         "same_kept_pairs": bool(torch.equal(kept, r.keep)),
+         "max_abs_err": (got - want).abs().max().item(),
+         "scale": want.abs().max().item(),
+         "moe_ms": time_ms(lambda: layer.mlp(x), 3, 1),
+         "loop_ms": time_ms(lambda: expert_loop(layer.mlp.cfg, layer.mlp, x),
+                            3, 1)}
+    del got, want, x
+    log(f"(c) one MoE layer in float32 ({c['tokens']} tokens, "
+        f"{c['experts']} experts, top {c['top_k']}, capacity {c['capacity']}, "
+        f"{c['n_shared']} shared): {c['kept_pairs']} of {c['pairs']} pairs "
+        f"kept, the loop's the same: {c['same_kept_pairs']}; within "
+        f"{c['max_abs_err']:.3e} of the per-expert loop (max |out| "
+        f"{c['scale']:.4f}; tolerance {MOE_RTOL} of it); {c['moe_ms']:.2f} "
+        f"ms against the loop's {c['loop_ms']:.2f} ms")
+    check(c["same_kept_pairs"]
+          and c["max_abs_err"] <= MOE_RTOL * c["scale"],
+          f"(c) the MoE layer against the per-expert loop: {c}")
+    return c
+
+
+def mla_against_expanded(cfg, model, tp) -> dict:
+    """(f): layer 0's MLA in float32 on the prompts' normed embeddings: the
+    absorbed decode of the last token over the latent cache of the others
+    against the expanded form's last row over the whole sequence, within
+    MOE_RTOL of max |out|; each timed.  And the cache's size: ``kv_lora +
+    qk_rope`` values a token and a layer against a dense cache's 2 H
+    head_dim."""
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    layer = model.blocks[0]["L0"]
+    x = MT._norm(cfg32, layer, "ln1", MT.embed_tokens(cfg32, model, tp))
+    pos = MT._positions_default(tp)
+    b, s = tp.shape
+    full, _ = layer.attn(x, pos)
+    _, (ckv, kr) = layer.attn(x[:, :-1], pos[:, :-1])
+    cache = (torch.zeros(b, s, ckv.shape[-1], device=x.device),
+             torch.zeros(b, s, kr.shape[-1], device=x.device))
+    cache[0][:, :s - 1], cache[1][:, :s - 1] = ckv, kr
+    step, _ = layer.attn(x[:, -1:], pos[:, -1:], cache=cache, kv_len=s - 1)
+    m = cfg.mla
+    f = {"seq": s, "max_abs_err": (step[:, 0] - full[:, -1]).abs().max()
+         .item(), "scale": full[:, -1].abs().max().item(),
+         "expanded_ms": time_ms(lambda: layer.attn(x, pos), 3, 1),
+         "absorbed_ms": time_ms(lambda: layer.attn(
+             x[:, -1:], pos[:, -1:], cache=cache, kv_len=s - 1), 3, 1),
+         "cache_values_a_token_a_layer": m.kv_lora + m.qk_rope_dim,
+         "dense_values_a_token_a_layer": 2 * cfg.n_heads * cfg.head_dim}
+    del full, x
+    log(f"(f) layer 0's MLA in float32 at S = {s}: the absorbed decode of "
+        f"the last token within {f['max_abs_err']:.3e} of the expanded "
+        f"form's last row (max |out| {f['scale']:.4f}; tolerance {MOE_RTOL} "
+        f"of it); expanded over {s} tokens {f['expanded_ms']:.2f} ms, one "
+        f"absorbed step {f['absorbed_ms']:.3f} ms; the cache holds "
+        f"{f['cache_values_a_token_a_layer']} values a token and a layer "
+        f"against {f['dense_values_a_token_a_layer']} for a dense k, v cache")
+    check(f["max_abs_err"] <= MOE_RTOL * f["scale"],
+          f"(f) the absorbed decode against the expanded form: {f}")
+    return f
+
+
+def moe_stack(dev, card: str) -> dict:
+    """Phase 14: granite-moe-3b at full depth, deepseek-v2-236b at 3 of
+    its 60 layers and jamba-v0.1-52b at one block of 8, at full width."""
+    t_start = time.perf_counter()
+    out = {"live_at_start_bytes": torch.cuda.memory_allocated()}
+    for i, (arch, layers, want, full, steps) in enumerate(MOE_MODELS):
+        t0 = time.perf_counter()
+        cfg, model, run = draw_model(dev, arch, want, "a", n_layers=layers)
+        full_layers = model_registry.get_config(arch).n_layers
+        run |= {"layers": cfg.n_layers, "full_layers": full_layers,
+                "full_params": full}
+        log(f"  depth {cfg.n_layers} of {full_layers} layers (the full "
+            f"config: {full} parameters); experts {cfg.moe.n_experts} (padded "
+            f"{MOE.padded_experts(cfg)}), top {cfg.moe.top_k}, shared "
+            f"{cfg.moe.n_shared}, capacity factor {cfg.moe.capacity_factor}; "
+            f"mixers {[sp.mixer for sp in cfg.pattern]}")
+        prompts = np.random.default_rng(15 + i).integers(0, cfg.vocab_size,
+                                                         MOE_PROMPTS)
+        scans = sum(sp.mixer == "mamba" for sp in cfg.pattern) * cfg.n_blocks
+        server, tokens, run["b"] = serve_timed(cfg, model, dev, prompts,
+                                               steps, card, "b", scans=scans)
+        tp = torch.from_numpy(prompts).to(dev)
+        run["b"]["drops"] = prefill_drops(cfg, model, tp,
+                                          MOE_PROMPTS[1] + steps)
+        run["c"] = moe_against_loop(cfg, model, tp)
+        if cfg.mla:
+            run["f"] = mla_against_expanded(cfg, model, tp)
+        no_drop = MOE.padded_experts(cfg) / cfg.moe.top_k
+        with capacity_factor(model, no_drop):
+            run["d"] = decode_against_forward(cfg, model,
+                                              tp[:, :CHECK_PROMPT], "d")
+        run["d"]["capacity_factor"] = no_drop
+        run["e"] = greedy_and_sampled(cfg, server, prompts, tokens,
+                                      MOE_SAMPLED_STEPS)
+        del model, server, tp
+        torch.cuda.empty_cache()
+        run["seconds"] = time.perf_counter() - t0
+        out[arch] = run
     out["live_at_end_bytes"] = torch.cuda.memory_allocated()
     out["seconds"] = time.perf_counter() - t_start
     return out
@@ -4676,6 +4917,13 @@ def main():
             arch: run["b"]["kernel_launches"][r["name"]]
             for arch, run in ((DENSE_ARCH, dense_run),
                               (BIG_ARCH, dense_run["f"]))}
+    phase("phase 14: the model stack: the MoE and MLA family and the "
+          "hybrid serving")
+    moe_run = moe_stack(dev, smi)
+    for r in rows:
+        r["launches_phase14"] = {
+            arch: moe_run[arch]["b"]["kernel_launches"][r["name"]]
+            for arch, *_ in MOE_MODELS}
     phase("done")
 
     log(json.dumps({"main_path": main_run, "against_plain": plain_run,
@@ -4686,7 +4934,8 @@ def main():
                     "hierarchical_routes": hier_run,
                     "sessions": session_run, "consumers": consumer_run,
                     "mesh_pipeline_baselines": mesh_run_,
-                    "model_stack": model_run, "dense_stack": dense_run}))
+                    "model_stack": model_run, "dense_stack": dense_run,
+                    "moe_stack": moe_run}))
     log(smi)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

@@ -29,9 +29,9 @@ _NEG = -1e30
 
 def unported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported yet: the port's model stack serves the SSM "
-        f"family (mixer 'mamba') and the dense attention family (mixer "
-        f"'attn', mlp 'dense'); the rest is ROADMAP.md Queue 1 item 1")
+        f"{what} is not ported yet: the port's model stack serves the "
+        f"mixers 'attn', 'mla' and 'mamba' with the MLPs 'dense' and "
+        f"'moe'; the rest is ROADMAP.md Queue 1 item 1")
 
 
 class PD(NamedTuple):
@@ -91,9 +91,10 @@ def rope_freqs(cfg, head_dim: int, device=None):
 def apply_rope(cfg, x, positions):
     """x: (B, S, H, hd); positions: (B, S), or (B, S, 3) of which the first
     stream is taken.  The angles are float32, the rotation is computed in
-    float32 and cast back to x's dtype, as the reference does.  (The
-    reference's ``head_dim`` argument, a partial rotation for MLA, comes
-    with MLA.)"""
+    float32 and cast back to x's dtype, as the reference does.  The whole
+    last axis rotates: no caller of the reference passes its ``head_dim``
+    argument (MLA rotates its ``qk_rope`` slices whole), so the port has
+    none."""
     if cfg.mrope_sections:
         raise unported("M-RoPE (mrope_sections: qwen2-vl)")
     half = x.shape[-1] // 2

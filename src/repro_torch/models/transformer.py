@@ -2,19 +2,25 @@
 and the three execution modes (forward, prefill, decode) over the blocks.
 
 Counterpart of ``repro/models/transformer.py`` for the SSM family
-(``mixer="mamba"``: falcon-mamba-7b) and the dense attention family
+(``mixer="mamba"``: falcon-mamba-7b), the dense attention family
 (``mixer="attn"``, ``mlp="dense"``, gemma2's post-block norms:
-smollm-360m, gemma2-2b, gemma-7b, qwen2.5-14b).  ``model_defs`` is the
-reference's metadata, blocks stacked on a leading ``n_blocks`` axis, and
-the single source of the names and shapes; :class:`Model` holds block
-``b``'s slice of each stacked leaf in ``blocks[b]["L{i}"]`` under the same
-name, and runs the blocks in a Python loop where the reference scans them.
-The decode cache keeps the reference's stacked layout: attention's k and v
-(``(n_blocks, B, max_len, KV, hd)``, the compute dtype) and the Mamba
-state.  Weights are cast to ``cfg.compute_dtype`` at use, as the reference
-does; the SSM state, the scan and attention's scores stay float32.  MLA,
-MoE, cross-attention, the encoder, M-RoPE and the modality front ends
-raise ``NotImplementedError``: they are later slices of the port
+smollm-360m, gemma2-2b, gemma-7b, qwen2.5-14b), the MoE family
+(``mlp="moe"``: granite-moe-3b; with ``mixer="mla"``: deepseek-v2-236b)
+and the hybrid jamba-v0.1-52b (Mamba and attention mixers, dense and MoE
+MLPs in one block).  ``model_defs`` is the reference's metadata, blocks
+stacked on a leading ``n_blocks`` axis, and the single source of the
+names and shapes; :class:`Model` holds block ``b``'s slice of each
+stacked leaf in ``blocks[b]["L{i}"]`` under the same name, and runs the
+blocks in a Python loop where the reference scans them.  The decode
+cache keeps the reference's stacked layout: attention's k and v
+(``(n_blocks, B, max_len, KV, hd)``, the compute dtype), MLA's latents
+``ckv`` and ``kr`` (``(n_blocks, B, max_len, kv_lora | qk_rope)``) and
+the Mamba state.  Weights are cast to ``cfg.compute_dtype`` at use, as
+the reference does; the SSM state, the scan, the MoE router and
+attention's scores stay float32.  The MoE runs without a mesh (the
+reference's ``_moe_call`` with ``mesh=None``).  Cross-attention, the
+encoder, M-RoPE and the modality front ends raise
+``NotImplementedError``: they are later slices of the port
 (``ROADMAP.md`` Queue 1 item 1).
 """
 
@@ -28,6 +34,8 @@ from torch import nn
 from repro_torch._device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
+from repro_torch.models import mla as MLA
+from repro_torch.models import moe as MOE
 from repro_torch.models.config import LayerSpec, ModelConfig
 
 # ---------------------------------------------------------------------------
@@ -40,24 +48,27 @@ def _add_norm(cfg, d: dict, name: str):
         d[name + "_b"] = L.PD((cfg.d_model,), (None,))
 
 
+# each mixer and MLP by its spec name: (its parameter metadata, its module)
+_MIXERS = {"attn": (L.attn_defs, L.Attention), "mla": (MLA.mla_defs, MLA.MLA),
+           "mamba": (M.mamba_defs, M.Mamba)}
+_MLPS = {"dense": (L.mlp_defs, L.MLP), "moe": (MOE.moe_defs, MOE.MoE)}
+
+
 def _layer_defs(cfg: ModelConfig, spec: LayerSpec) -> dict:
     d = {}
     _add_norm(cfg, d, "ln1")
-    if spec.mixer == "attn":
-        d["attn"] = L.attn_defs(cfg)
-    elif spec.mixer == "mamba":
-        d["attn"] = M.mamba_defs(cfg)
-    else:
-        raise L.unported(f"mixer {spec.mixer!r}")
+    if spec.mixer not in _MIXERS:
+        raise ValueError(spec.mixer)
+    d["attn"] = _MIXERS[spec.mixer][0](cfg)
     if cfg.post_block_norm:
         _add_norm(cfg, d, "ln1_post")
     if spec.cross_attn:
         raise L.unported("cross-attention (cross_attn)")
     if spec.mlp != "none":
-        if spec.mlp != "dense":
-            raise L.unported(f"mlp {spec.mlp!r}")
+        if spec.mlp not in _MLPS:
+            raise ValueError(spec.mlp)
         _add_norm(cfg, d, "ln2")
-        d["mlp"] = L.mlp_defs(cfg)
+        d["mlp"] = _MLPS[spec.mlp][0](cfg)
         if cfg.post_block_norm:
             _add_norm(cfg, d, "ln2_post")
     return d
@@ -117,8 +128,9 @@ def n_params(cfg: ModelConfig) -> int:
 
 class Layer(nn.Module):
     """One position of the block pattern: its norms, the mixer under the
-    reference's name ``attn`` (:class:`layers.Attention` or
-    :class:`mamba.Mamba`) and, for a dense MLP, ``mlp``."""
+    reference's name ``attn`` (:class:`layers.Attention`, :class:`mla.MLA`
+    or :class:`mamba.Mamba`) and the MLP under ``mlp`` (:class:`layers.MLP`
+    or :class:`moe.MoE`), if the spec has one."""
 
     def __init__(self, cfg, spec: LayerSpec, *, device, dtype):
         super().__init__()
@@ -127,10 +139,9 @@ class Layer(nn.Module):
         L.register(self, {k: v for k, v in defs.items()
                           if k not in ("attn", "mlp")},
                    device=device, dtype=dtype)
-        mixer = L.Attention if spec.mixer == "attn" else M.Mamba
-        self.attn = mixer(cfg, device=device, dtype=dtype)
+        self.attn = _MIXERS[spec.mixer][1](cfg, device=device, dtype=dtype)
         if "mlp" in defs:
-            self.mlp = L.MLP(cfg, device=device, dtype=dtype)
+            self.mlp = _MLPS[spec.mlp][1](cfg, device=device, dtype=dtype)
 
 
 class Model(nn.Module):
@@ -218,25 +229,32 @@ def _norm(cfg, module, key, x):
                         getattr(module, key + "_b", None))
 
 
+# the cache entries of attention (RoPE'd k, v) and of MLA (its latents)
+_KV_NAMES = {"attn": ("k", "v"), "mla": ("ckv", "kr")}
+
+
 def _apply_layer(cfg, layer: Layer, x, positions, *, mode="train",
                  cache=None, kv_len=None):
     """One layer.  ``cache`` is the layer's slice of the stacked cache:
     ``mode="prefill"`` writes the layer's entry into it (attention's RoPE'd
-    k and v at positions ``0 .. S - 1``, the Mamba state), ``mode="decode"``
-    reads and advances it in place."""
+    k and v, or MLA's latents, at positions ``0 .. S - 1``; the Mamba
+    state), ``mode="decode"`` reads and advances it in place."""
     spec = layer.spec
     h = _norm(cfg, layer, "ln1", x)
-    if spec.mixer == "attn":
+    if spec.mixer in _KV_NAMES:
+        names = _KV_NAMES[spec.mixer]
+        kw = {"spec": spec} if spec.mixer == "attn" else {}
         if mode == "decode":
-            y, _ = layer.attn(h, positions, spec=spec,
-                              cache=(cache["k"], cache["v"]), kv_len=kv_len)
+            y, _ = layer.attn(h, positions, kv_len=kv_len, **kw,
+                              cache=tuple(cache[n] for n in names))
         else:
-            # the reference projects k and v again for the cache
-            # (``_fresh_kv``): the same products, so the same values
-            y, (k, v) = layer.attn(h, positions, spec=spec)
+            # the reference computes the entry again for the cache
+            # (``_fresh_kv``, ``_latents``): the same products, so the
+            # same values
+            y, entry = layer.attn(h, positions, **kw)
             if mode == "prefill":
-                cache["k"][:, :k.shape[1]] = k
-                cache["v"][:, :v.shape[1]] = v
+                for n, t in zip(names, entry):
+                    cache[n][:, :t.shape[1]] = t
     else:
         st = (cache["conv"], cache["h"]) if mode == "decode" else None
         y, st_new = layer.attn(h, state=st)
@@ -311,8 +329,9 @@ def forward(cfg, model: Model, tokens, **kw):
 
 def cache_defs(cfg: ModelConfig, batch: int, max_len: int) -> dict:
     """Shape and sharding metadata of the decode cache, stacked per pattern
-    position: attention's k and v ``(B, max_len, KV, hd)``; the SSM cache,
-    which does not grow with ``max_len``."""
+    position: attention's k and v ``(B, max_len, KV, hd)``; MLA's latents
+    ``ckv`` ``(B, max_len, kv_lora)`` and ``kr`` ``(B, max_len,
+    qk_rope)``; the SSM cache, which does not grow with ``max_len``."""
     kv, hd = cfg.n_kv_heads, cfg.head_dim
     out = {}
     for i, spec in enumerate(cfg.pattern):
@@ -321,6 +340,12 @@ def cache_defs(cfg: ModelConfig, batch: int, max_len: int) -> dict:
             out[f"L{i}"] = {
                 n: L.PD((batch, max_len, kv, hd), ("dp", "sp", None, None))
                 for n in ("k", "v")}
+        elif spec.mixer == "mla":
+            out[f"L{i}"] = {
+                "ckv": L.PD((batch, max_len, cfg.mla.kv_lora),
+                            ("dp", "sp", None)),
+                "kr": L.PD((batch, max_len, cfg.mla.qk_rope_dim),
+                           ("dp", "sp", None))}
         else:
             out[f"L{i}"] = {
                 "conv": L.PD((batch, cfg.ssm.d_conv - 1, cfg.d_inner),
@@ -359,8 +384,8 @@ def decode_step(cfg, model: Model, cache, kv_len, tokens):
 def prefill(cfg, model: Model, tokens, max_len: int, *, enc_frames=None,
             extra_embeds=None):
     """Process the prompt, build the cache.  Returns (last-pos logits,
-    cache); ``max_len`` sizes attention's cache (zeros past the prompt),
-    not the SSM state."""
+    cache); ``max_len`` sizes attention's and MLA's cache (zeros past the
+    prompt), not the SSM state."""
     _front_ends(extra_embeds, enc_frames)
     b, s = tokens.shape
     if s > max_len:

@@ -2,11 +2,15 @@
 
 Counterpart of ``repro/serve/generate.py``.  Static-batch serving (all
 requests share a step clock), for every model the stack builds: the SSM
-family, whose prefill runs every Mamba layer's scan through
-``ops.ssm_scan`` (one kernel launch a layer on the card), and the dense
-attention family, whose prefill fills the KV cache that each decode step
-extends at ``kv_len`` (plain torch: the reference's attention has no
-Pallas kernel).  The decode steps are plain torch.  Sampling: greedy, or
+family (falcon-mamba-7b), whose prefill runs every Mamba layer's scan
+through ``ops.ssm_scan`` (one kernel launch a layer on the card); the
+dense attention family, whose prefill fills the KV cache that each decode
+step extends at ``kv_len``; the MoE family (granite-moe-3b), deepseek-v2's
+MLA, whose cache holds the compressed latents that the decode steps read
+in the absorbed form, and the hybrid jamba-v0.1-52b (Mamba, attention and
+MoE layers; ``ssm_scan`` once a Mamba layer).  Attention, MoE and MLA are
+plain torch (the reference's have no Pallas kernel), and so are the
+decode steps.  Sampling: greedy, or
 with ``temperature > 0`` from a ``torch.Generator`` on the model's device
 seeded by ``seed`` (departure P9: not ``jax.random.categorical``'s bits).
 """

@@ -35,6 +35,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import registry as model_registry
 from repro_torch.models import transformer as MT
 from repro_torch.models.mamba import Mamba, mamba_defs
+from repro_torch.models import moe as MOE
 from repro_torch.serve import Generator
 
 
@@ -1388,3 +1389,94 @@ def test_cuda_generate_dense_reduced(cuda):
     sampled = server.generate(prompts, 16, temperature=1.0, seed=1)
     assert (sampled >= 0).all() and (sampled < cfg.vocab_size).all()
     assert not np.array_equal(sampled, got)
+
+
+# ---------------------------------------------------------------------------
+# the MoE and MLA family, and the hybrid jamba
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "deepseek-v2-236b",
+                                  "jamba-v0.1-52b"])
+def test_cuda_moe_model_equals_cpu(cuda, arch):
+    """The reduced model in float32 on the card against the same weights on
+    the CPU: the prefill's logits and every cache entry, three decode steps
+    and forward within 1e-4.  jamba's prefill launches ssm_scan once a
+    Mamba layer (7 a block of 8), its decode steps never; granite and
+    deepseek launch no kernel of the repo."""
+    cfg = model_registry.get_config(arch, reduced=True)
+    model = MT.init_params(cfg, device="cpu", generator=torch.Generator()
+                           .manual_seed(6))
+    tokens = torch.from_numpy(np.random.default_rng(6).integers(
+        0, cfg.vocab_size, (2, 40)))
+    mamba = sum(s.mixer == "mamba" for s in cfg.pattern) * cfg.n_blocks
+    got, want = [], []
+    for dev, out in ((cuda, got), (torch.device("cpu"), want)):
+        m = model.to(dev)
+        t = tokens.to(dev)
+        n0 = dict(_build.launches)
+        logits, cache = MT.prefill(cfg, m, t, 48)
+        scans = _build.launches["ssm_scan"] - n0["ssm_scan"]
+        out.append(logits)
+        out.extend(e for entry in cache.values() for e in entry.values())
+        tok = tokens[:, -1:].to(dev)
+        for step in range(3):
+            logits, cache = MT.decode_step(cfg, m, cache, 40 + step, tok)
+            out.append(logits)
+            tok = (tok + 1) % cfg.vocab_size
+        out.append(MT.forward(cfg, m, t))
+        launched = {k: v - n0[k] for k, v in _build.launches.items()}
+        if dev.type == "cuda":
+            assert scans == mamba == (14 if cfg.family == "hybrid" else 0)
+            assert launched == {k: (2 * mamba if k == "ssm_scan" else 0)
+                                for k in launched}  # prefill and forward
+        else:
+            assert not any(launched.values())
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["reduced", "granite-integer",
+                                  "granite-integer-drops", "zero-router"])
+def test_cuda_moe_routing_equals_cpu(cuda, case):
+    """``moe.route`` on the card equals the CPU's: the chosen experts, the
+    ranks, the kept pairs and the slots exactly, the probabilities within
+    rtol 1e-5 (float32 logits of random inputs differ by ulps between
+    cuBLAS and the CPU, and exp scales that by |logit|).  At granite's
+    full width (1 536 wide, 40 experts padded to 48, top 8, 512 tokens)
+    the inputs are small integers, so the float32 logits are exact on both
+    and tie often: the tie rule decides, on the card as on the CPU; with
+    capacity factor 0.5 pairs drop.  A zero router picks experts
+    0 .. k-1."""
+    reduced = case == "reduced"
+    cfg = model_registry.get_config("granite-moe-3b-a800m", reduced=reduced)
+    if case.endswith("drops"):
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=0.5))
+    gen = torch.Generator().manual_seed(8)
+    e_pad = MOE.padded_experts(cfg)
+    t = 80 if reduced else 512
+    if case.startswith("granite-integer"):
+        x = torch.randint(-2, 3, (t, cfg.d_model), generator=gen).float()
+        router = torch.randint(-1, 2, (cfg.d_model, e_pad),
+                               generator=gen).float() / 8
+    else:
+        x = torch.randn((t, cfg.d_model), generator=gen)
+        router = torch.randn((cfg.d_model, e_pad), generator=gen)
+        if case == "zero-router":
+            router.zero_()
+    got = MOE.route(cfg, router.to(cuda), x.to(cuda))
+    want = MOE.route(cfg, router, x)
+    assert got.cap == want.cap
+    for name in ("top_e", "ranks", "keep", "slot"):
+        assert torch.equal(getattr(got, name).cpu(), getattr(want, name)), name
+    torch.testing.assert_close(got.top_p.cpu(), want.top_p, rtol=1e-5,
+                               atol=1e-7)
+    if reduced:  # capacity factor 8 >= E / k: nothing drops
+        assert bool(want.keep.all())
+    if case.endswith("drops"):
+        assert not bool(want.keep.all())
+    if case == "zero-router":
+        assert torch.equal(want.top_e, torch.arange(cfg.moe.top_k).expand(
+            t, -1))

@@ -11,7 +11,9 @@ for equal seeds, unlike greedy.  The dense attention family: greedy
 tokens equal the reference's token for token on smollm-360m (the
 reference's own ``test_generate_serving`` model), gemma2-2b, and gemma2-2b
 with a window of 8 on every layer, which binds in the prefill and in
-every decode step.  The card is in ``tests/test_torch_cuda.py``.
+every decode step.  The MoE and MLA family and the hybrid (granite-moe-3b,
+deepseek-v2-236b, jamba-v0.1-52b, reduced) likewise.  The card is in
+``tests/test_torch_cuda.py``.
 """
 
 import dataclasses
@@ -146,4 +148,23 @@ def test_dense_greedy_equals_reference(arch, window):
     got = Generator(cfg, model, max_len=32, device=CPU).generate(prompts, 10)
     want = JaxGenerator(jcfg, params, max_len=32).generate(prompts, 10)
     assert got.shape == (3, 10)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "deepseek-v2-236b",
+                                  "jamba-v0.1-52b"])
+def test_moe_greedy_equals_reference(arch):
+    """The MoE / MLA family and the hybrid: 2 prompts of 16 tokens, 8
+    greedy steps, token for token (deepseek's decode steps run the
+    absorbed form over the latent cache; jamba's its Mamba, attention and
+    MoE layers)."""
+    cfg = registry.get_config(arch, reduced=True)
+    jcfg = jax_registry.get_config(arch, reduced=True)
+    params = JT.init_params(jcfg, jax.random.PRNGKey(5))
+    model = params_from_jax(cfg, jax.tree.map(np.asarray, params),
+                            device=CPU)
+    prompts = _prompts(cfg, b=2, s=16, seed=5)
+    got = Generator(cfg, model, max_len=24, device=CPU).generate(prompts, 8)
+    want = JaxGenerator(jcfg, params, max_len=24).generate(prompts, 8)
+    assert got.shape == (2, 8)
     np.testing.assert_array_equal(got, want)

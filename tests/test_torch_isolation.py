@@ -44,7 +44,8 @@ def test_import_pulls_in_neither_jax_nor_repro():
             "repro_torch.sharding, repro_torch.launch, repro_torch.train, "
             "repro_torch.serve, repro_torch.models, repro_torch.configs, "
             "repro_torch.models.transformer, repro_torch.models.layers, "
-            "repro_torch.models.mamba, repro_torch.models.convert, "
+            "repro_torch.models.mamba, repro_torch.models.moe, "
+            "repro_torch.models.mla, repro_torch.models.convert, "
             "repro_torch.serve.generate\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
