@@ -227,6 +227,29 @@ git-ignored ``build/``), then runs these phases, one or more lines each:
    prefill's last logits against ``forward``'s, within twice bfloat16's
    own spread; (e) greedy twice equal, 16 sampled steps in range and
    unlike greedy;
+15. the model stack: the front ends at full width and depth, random
+   weights drawn on the card from a seed, served by ``Generator`` (no
+   kernel of the repo runs: the reference's M-RoPE, encoder and
+   cross-attention are plain ``jnp``).  qwen2-vl-7b (28 layers,
+   7 615 616 512 parameters; M-RoPE sections (16, 24, 24), q, k, v
+   biases): (a) ``init_params`` with its count, then ``generate`` on 2
+   seeded prompts of 2 048 tokens whose first 256 positions are seeded
+   patch embeddings (a 448 x 448 image's 16 x 16 merged patches) with 32
+   greedy steps, timed and profiled as in phase 13; (b) the prefill at
+   Qwen2-VL's grid positions ((0, i // 16, i % 16) for the patches, 16 +
+   j in every stream for the text) moves the logits against the default
+   positions, ``apply_rope`` at those positions within float32's error
+   of its float64 evaluation, and a decode step against ``forward`` on
+   the grid positions within twice bfloat16's own spread.
+   whisper-medium (24 encoder and 24 decoder layers, 1 013 989 376
+   parameters), every norm weight drawn as 1 + 0.02 N(0, 1) and bias as
+   0.02 N(0, 1) (the init rule zeroes them, and whisper then computes
+   zeros: ROADMAP R9): (c) ``encode`` of 2 x 1 500 seeded frames timed
+   and profiled alone, ``generate`` on 2 prompts of 224 tokens with
+   ``max_len`` 448 and 64 greedy steps, timed and profiled, and a decode
+   step sharing ``xk``, ``xv`` with the cache it was given (the same
+   ``data_ptr``) while it copies the rest; (d) a decode step against
+   ``forward`` as in (b);
 
 then one JSON line describing every kernel, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises, exits non-zero and
@@ -4335,24 +4358,28 @@ def draw_model(dev, arch: str, want: int, what: str, n_layers=None):
 
 
 def serve_timed(cfg, model, dev, prompts, steps: int, card: str,
-                what: str, scans: int = 0) -> tuple:
+                what: str, scans: int = 0, front=None,
+                max_len: int | None = None) -> tuple:
     """``Generator.generate`` as a user calls it, after one warm-up call:
     the prefill's wall and tokens/s, the decode steps' ms and tokens/s,
     ``scans`` launches of ``ssm_scan`` in the prefill (one a Mamba layer)
     and no other launch of the repo's kernels, none in decode, the peak
     memory; then a profiled prefill and a profiled decode step with their
-    idle shares and device ms by kernel.  Returns (server, tokens, log
-    dict)."""
+    idle shares and device ms by kernel.  ``front`` holds the front end's
+    inputs (``extra_embeds`` or ``enc_frames``) for every prefill;
+    ``max_len`` defaults to the prompt and the steps.  Returns (server,
+    tokens, log dict)."""
     b, s = prompts.shape
-    max_len = s + steps
+    front = front or {}
+    max_len = max_len or s + steps
     server = Generator(cfg, model, max_len=max_len, device=dev)
-    server.generate(prompts, 2)  # warm-up at full size: cuBLAS, allocator
+    server.generate(prompts, 2, **front)  # warm-up: cuBLAS, allocator
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     with StageClock() as clock:
         t0 = time.perf_counter()
-        tokens = server.generate(prompts, steps)
+        tokens = server.generate(prompts, steps, **front)
         t_end = time.perf_counter()
     used = counts()
     check(tokens.shape == (b, steps)
@@ -4376,8 +4403,8 @@ def serve_timed(cfg, model, dev, prompts, steps: int, card: str,
           "max_memory_allocated": torch.cuda.max_memory_allocated()}
     tp = torch.from_numpy(prompts).to(dev)
     prof = call_kernel_ms(None, None, dev, "ssm_scan", call=lambda: (
-        MT.prefill(cfg, model, tp, max_len)))
-    logits, cache = MT.prefill(cfg, model, tp, max_len)
+        MT.prefill(cfg, model, tp, max_len, **front)))
+    logits, cache = MT.prefill(cfg, model, tp, max_len, **front)
     one = call_kernel_ms(None, None, dev, "ssm_scan", call=lambda: (
         MT.decode_step(cfg, model, cache, s, logits.argmax(-1))))
     del logits, cache
@@ -4403,31 +4430,41 @@ def serve_timed(cfg, model, dev, prompts, steps: int, card: str,
     return server, tokens, bb
 
 
-def last_logits(cfg, model, tokens):
+def last_logits(cfg, model, tokens, **kw):
     """``forward``'s logits at the last position only: (B, 1, V)."""
     return MT.logits_from_hidden(cfg, model, MT.forward_hidden(
-        cfg, model, tokens)[:, -1:])
+        cfg, model, tokens, **kw)[:, -1:])
 
 
-def decode_against_forward(cfg, model, tp, what: str) -> dict:
+def decode_against_forward(cfg, model, tp, what: str, front=None,
+                           positions=None) -> dict:
     """The first decode step after the prefill of ``tp`` against
     ``forward`` on the extended sequence, and the prefill's last logits
     against ``forward``'s, each within SPREAD_FACTOR times bfloat16's own
     spread: ``forward`` in bfloat16 against float32 compute on the
-    extended sequence, in this run."""
+    extended sequence, in this run.  ``front`` (``extra_embeds`` or
+    ``enc_frames``) goes to every call; with ``positions`` (B, S) or (B,
+    S, 3) the new token sits one past the last position in every
+    stream."""
+    front = front or {}
     s = tp.shape[1]
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
-    lp, cache = MT.prefill(cfg, model, tp, s + 1)
+    lp, cache = MT.prefill(cfg, model, tp, s + 1, positions=positions,
+                           **front)
     nxt = lp.argmax(-1)
-    step, _ = MT.decode_step(cfg, model, cache, s, nxt)
+    step_pos = None if positions is None else positions[:, -1:] + 1
+    step, _ = MT.decode_step(cfg, model, cache, s, nxt, positions=step_pos)
     del cache
     ext = torch.cat([tp, nxt], 1)
-    full = last_logits(cfg, model, ext)
-    full32 = last_logits(cfg32, model, ext)
+    kw = dict(front, positions=None if positions is None
+              else torch.cat([positions, step_pos], 1))
+    full = last_logits(cfg, model, ext, **kw)
+    full32 = last_logits(cfg32, model, ext, **kw)
     d = {"max_abs_err": (step - full).abs().max().item(),
          "bf16_spread": (full - full32).abs().max().item(),
-         "prefill_vs_forward": (lp - last_logits(cfg, model, tp))
-         .abs().max().item(),
+         "prefill_vs_forward": (lp - last_logits(
+             cfg, model, tp, positions=positions, **front)).abs().max()
+         .item(),
          "logits_scale": full32[..., :cfg.vocab_size].abs().max().item(),
          "spread_factor": SPREAD_FACTOR}
     tol = SPREAD_FACTOR * d["bf16_spread"]
@@ -4451,7 +4488,8 @@ def flash_against_full(cfg, model, tp) -> dict:
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
     layer = model.blocks[0]["L0"]
     h = MT._norm(cfg32, layer, "ln1", MT.embed_tokens(cfg32, model, tp))
-    q, k, v = ML.attn_qkv(cfg32, layer.attn, h, MT._positions_default(tp))
+    q, k, v = ML.attn_qkv(cfg32, layer.attn, h,
+                          MT._positions_default(cfg, tp))
     del h
     out, got = {}, {}
     for name, window in (("windowed", layer.spec.sliding_window),
@@ -4688,7 +4726,7 @@ def mla_against_expanded(cfg, model, tp) -> dict:
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
     layer = model.blocks[0]["L0"]
     x = MT._norm(cfg32, layer, "ln1", MT.embed_tokens(cfg32, model, tp))
-    pos = MT._positions_default(tp)
+    pos = MT._positions_default(cfg, tp)
     b, s = tp.shape
     full, _ = layer.attn(x, pos)
     _, (ckv, kr) = layer.attn(x[:, :-1], pos[:, :-1])
@@ -4755,6 +4793,217 @@ def moe_stack(dev, card: str) -> dict:
         torch.cuda.empty_cache()
         run["seconds"] = time.perf_counter() - t0
         out[arch] = run
+    out["live_at_end_bytes"] = torch.cuda.memory_allocated()
+    out["seconds"] = time.perf_counter() - t_start
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the model stack, the front ends serving
+# ---------------------------------------------------------------------------
+
+VLM_ARCH = "qwen2-vl-7b"
+VLM_PARAMS = 7_615_616_512     # its ModelConfig, all 28 layers
+VLM_PROMPTS = (2, 2048)
+VLM_GRID = 16     # a 448 x 448 image: 16 x 16 merged patches lead a prompt
+VLM_STEPS = 32
+AUDIO_ARCH = "whisper-medium"
+AUDIO_PARAMS = 1_013_989_376   # its ModelConfig: 24 encoder, 24 decoder
+AUDIO_PROMPTS = (2, 224)
+AUDIO_MAX_LEN = 448            # Whisper's text context
+AUDIO_STEPS = 64
+NORM_NOISE = 0.02  # (c): norm weights 1 + 0.02 N(0, 1), biases 0.02 N(0, 1)
+
+
+def grid_positions(b: int, s: int, grid: int, dev) -> torch.Tensor:
+    """Qwen2-VL's positions (B, S, 3) for ``grid**2`` patches then text:
+    patch ``i`` at (0, i // grid, i % grid), text token ``j`` at ``grid +
+    j`` in all three streams."""
+    p = grid * grid
+    i = torch.arange(p, device=dev)
+    patches = torch.stack([torch.zeros_like(i), i // grid, i % grid], -1)
+    text = (grid + torch.arange(s - p, device=dev))[:, None].expand(-1, 3)
+    return torch.cat([patches, text]).expand(b, s, 3)
+
+
+def rope_float64(cfg, x, positions):
+    """``apply_rope``'s formula evaluated in float64: the frequencies, the
+    sections' streams, the angles and the rotation."""
+    half = x.shape[-1] // 2
+    inv = cfg.rope_theta ** (-torch.arange(
+        half, dtype=torch.float64, device=x.device) * 2.0 / x.shape[-1])
+    stream = torch.tensor([i for i, n in enumerate(cfg.mrope_sections)
+                           for _ in range(n)], device=x.device)
+    ang = positions.double()[..., stream] * inv
+    sin, cos = torch.sin(ang)[:, :, None], torch.cos(ang)[:, :, None]
+    x1, x2 = x.double()[..., :half], x.double()[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1), ang
+
+
+def mrope_on_card(cfg, model, tp, patches, grid) -> dict:
+    """(b): the prefill at Qwen2-VL's grid positions against the default
+    ones (the logits must move); ``apply_rope`` at the grid positions on
+    float32 values of the shape of a layer's q against its float64
+    evaluation, within float32's own error for these angles: 2^-22 of max
+    |x| times (the largest angle + 4), the angle's rounding and a few ulps
+    of sin, cos and the rotation; then a decode step against ``forward``
+    on the grid positions."""
+    s = tp.shape[1]
+    lp_grid, cache = MT.prefill(cfg, model, tp, s, positions=grid,
+                                extra_embeds=patches)
+    del cache
+    lp_default, cache = MT.prefill(cfg, model, tp, s, extra_embeds=patches)
+    del cache
+    b = {"grid_vs_default": (lp_grid - lp_default).abs().max().item()}
+    gen = torch.Generator(device=tp.device).manual_seed(151)
+    x = torch.randn((tp.shape[0], s, cfg.n_heads, cfg.head_dim),
+                    generator=gen, device=tp.device)
+    got = ML.apply_rope(cfg, x, grid)
+    want, ang = rope_float64(cfg, x, grid)
+    scale = x.abs().max().item()
+    b |= {"rope_max_abs_err": (got.double() - want).abs().max().item(),
+          "rope_tolerance": 2.0 ** -22 * scale * (ang.max().item() + 4),
+          "max_angle": ang.max().item(), "max_abs_x": scale,
+          "rope_ms": time_ms(lambda: ML.apply_rope(cfg, x, grid), 10, 2)}
+    del x, got, want, ang
+    log(f"(b) M-RoPE, sections {cfg.mrope_sections}: the prefill at the grid "
+        f"positions moves the last logits by up to {b['grid_vs_default']:.4f}"
+        f" against the default positions; apply_rope on ({tp.shape[0]}, {s},"
+        f" {cfg.n_heads}, {cfg.head_dim}) float32 at the grid positions "
+        f"within {b['rope_max_abs_err']:.3e} of its float64 evaluation "
+        f"(tolerance {b['rope_tolerance']:.3e}: angles up to "
+        f"{b['max_angle']:.1f}, max |x| {scale:.3f}), {b['rope_ms']:.3f} ms")
+    check(b["grid_vs_default"] > 0,
+          "(b) the grid positions do not move the prefill's logits")
+    check(b["rope_max_abs_err"] <= b["rope_tolerance"],
+          f"(b) apply_rope against float64: {b}")
+    b["d"] = decode_against_forward(cfg, model, tp, "b",
+                                    {"extra_embeds": patches}, grid)
+    return b
+
+
+@torch.no_grad()
+def redraw_norms(model, gen):
+    """Every norm weight 1 + NORM_NOISE N(0, 1) and every norm bias
+    NORM_NOISE N(0, 1), drawn on the card: under the reference's init
+    rule they are all zero, and whisper's layernorm then computes zeros
+    (ROADMAP R9).  Returns the count of values redrawn."""
+    n = 0
+    for path, _, p in model.leaves():
+        name = path.split("/")[-1]
+        if name.startswith(("ln", "final_norm")):
+            p.normal_(0.0 if name.endswith("_b") else 1.0, NORM_NOISE,
+                      generator=gen)
+            n += p.numel()
+    return n
+
+
+def encode_timed(cfg, model, frames, card: str) -> dict:
+    """(c): ``encode`` alone, after a warm-up: the median host wall of 3
+    calls (each ending in a synchronize), a profiled call's device ms by
+    kernel and the idle share."""
+    MT.encode(cfg, model, frames)
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = MT.encode(cfg, model, frames)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    prof = call_kernel_ms(None, None, frames.device, "ssm_scan",
+                          call=lambda: MT.encode(cfg, model, frames))
+    e = {"frames": tuple(frames.shape), "wall_s": statistics.median(walls),
+         "profiled": prof, "out_max_abs": out.abs().max().item()}
+    e["idle_share"] = (1.0 - prof["device_ms"] / 1e3 / e["wall_s"]
+                       if prof["device_ms"] else None)
+    check(bool(torch.isfinite(out).all()) and e["out_max_abs"] > 0
+          and prof["kernel_launches"] == 0,
+          f"(c) encode gave non-finite or all-zero output: {e}")
+    log(f"(c) encode of {e['frames']} frames on {card}: "
+        f"{e['wall_s'] * 1e3:.2f} ms (median of 3); a profiled call: device "
+        f"{prof['device_ms']:.2f} ms in {prof['launches']} launches (idle "
+        f"share {e['idle_share']}); by kernel: "
+        + "; ".join(f"{k} {v['ms']:.2f} ms/{v['launches']}"
+                    for k, v in prof["kernels"].items()))
+    return e
+
+
+def cross_entries_shared(cfg, model, tp, frames, max_len: int) -> dict:
+    """(c): a decode step after the prefill shares ``xk`` and ``xv`` with
+    the cache it was given (the same ``data_ptr``) and copies every other
+    entry; the bytes of each."""
+    _, cache = MT.prefill(cfg, model, tp, max_len, enc_frames=frames)
+    _, new = MT.decode_step(cfg, model, cache, tp.shape[1],
+                            tp[:, -1:])
+    shared = copied = 0
+    same = True
+    for key, entry in cache.items():
+        for name, t in entry.items():
+            is_same = new[key][name].data_ptr() == t.data_ptr()
+            cross = name in ("xk", "xv")
+            same &= is_same == cross
+            nbytes = t.numel() * t.element_size()
+            if cross:
+                shared += nbytes
+            else:
+                copied += nbytes
+    del cache, new
+    x = {"step_copies_bytes": copied, "shared_cross_bytes": shared,
+         "cross_entries_shared": same}
+    log(f"(c) a decode step copies {copied / 2**20:.1f} MiB of the cache (k, "
+        f"v at max_len {max_len}) and shares xk, xv ({shared / 2**20:.1f} "
+        f"MiB), the same data_ptr before and after: {same}")
+    check(same, "(c) a decode step copied xk / xv or shared another entry")
+    return x
+
+
+def front_ends(dev, card: str) -> dict:
+    """Phase 15: qwen2-vl-7b and whisper-medium at full width and depth."""
+    t_start = time.perf_counter()
+    out = {"live_at_start_bytes": torch.cuda.memory_allocated()}
+    cfg, model, a = draw_model(dev, VLM_ARCH, VLM_PARAMS, "a")
+    b, s = VLM_PROMPTS
+    prompts = np.random.default_rng(151).integers(0, cfg.vocab_size,
+                                                  VLM_PROMPTS)
+    gen = torch.Generator(device=dev).manual_seed(152)
+    patches = torch.randn((b, VLM_GRID ** 2, cfg.d_model), generator=gen,
+                          device=dev) / math.sqrt(cfg.d_model)
+    log(f"  M-RoPE sections {cfg.mrope_sections}; {VLM_GRID ** 2} seeded "
+        f"patch embeddings {tuple(patches.shape)} lead each prompt")
+    front = {"extra_embeds": patches}
+    _, _, a["b"] = serve_timed(cfg, model, dev, prompts, VLM_STEPS, card,
+                               "a", front=front)
+    tp = torch.from_numpy(prompts).to(dev)
+    out["a"] = a
+    out["b"] = mrope_on_card(cfg, model, tp, patches,
+                             grid_positions(b, s, VLM_GRID, dev))
+    del model, patches, tp
+    torch.cuda.empty_cache()
+    out["qwen2_vl_s"] = time.perf_counter() - t_start
+
+    cfg, model, c = draw_model(dev, AUDIO_ARCH, AUDIO_PARAMS, "c")
+    c["norm_values_redrawn"] = redraw_norms(
+        model, torch.Generator(device=dev).manual_seed(153))
+    b, s = AUDIO_PROMPTS
+    frames = torch.randn((b, cfg.enc_ctx, cfg.d_model), generator=torch
+                         .Generator(device=dev).manual_seed(154), device=dev)
+    prompts = np.random.default_rng(155).integers(0, cfg.vocab_size,
+                                                  AUDIO_PROMPTS)
+    log(f"  {cfg.enc_layers} encoder layers over {cfg.enc_ctx} frames, "
+        f"cross-attention in every decoder layer; {c['norm_values_redrawn']}"
+        f" norm weights and biases redrawn (1 + {NORM_NOISE} N(0, 1) and "
+        f"{NORM_NOISE} N(0, 1): R9); seeded frames {tuple(frames.shape)}")
+    c["encode"] = encode_timed(cfg, model, frames, card)
+    _, _, c["b"] = serve_timed(cfg, model, dev, prompts, AUDIO_STEPS, card,
+                               "c", front={"enc_frames": frames},
+                               max_len=AUDIO_MAX_LEN)
+    tp = torch.from_numpy(prompts).to(dev)
+    c["cross"] = cross_entries_shared(cfg, model, tp, frames, AUDIO_MAX_LEN)
+    out["c"] = c
+    out["d"] = decode_against_forward(cfg, model, tp, "d",
+                                      {"enc_frames": frames})
+    del model, frames, tp
+    torch.cuda.empty_cache()
     out["live_at_end_bytes"] = torch.cuda.memory_allocated()
     out["seconds"] = time.perf_counter() - t_start
     return out
@@ -4924,6 +5173,13 @@ def main():
         r["launches_phase14"] = {
             arch: moe_run[arch]["b"]["kernel_launches"][r["name"]]
             for arch, *_ in MOE_MODELS}
+    phase("phase 15: the model stack: the front ends serving")
+    front_run = front_ends(dev, smi)
+    for r in rows:
+        r["launches_phase15"] = {
+            arch: run["b"]["kernel_launches"][r["name"]]
+            for arch, run in ((VLM_ARCH, front_run["a"]),
+                              (AUDIO_ARCH, front_run["c"]))}
     phase("done")
 
     log(json.dumps({"main_path": main_run, "against_plain": plain_run,
@@ -4935,7 +5191,7 @@ def main():
                     "sessions": session_run, "consumers": consumer_run,
                     "mesh_pipeline_baselines": mesh_run_,
                     "model_stack": model_run, "dense_stack": dense_run,
-                    "moe_stack": moe_run}))
+                    "moe_stack": moe_run, "front_ends": front_run}))
     log(smi)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

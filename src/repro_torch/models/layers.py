@@ -9,9 +9,9 @@ and the reference's stacked layout from the same metadata.  The attention
 and the MLP are plain torch, as the reference's are plain ``jnp`` (no
 Pallas kernel): the scores and the attention's accumulator are float32
 whatever the compute dtype, as the reference's
-``preferred_element_type=jnp.float32`` makes them.  Not ported yet
-(``ROADMAP.md`` Queue 1 item 1): qwen2-vl's M-RoPE, whisper's
-cross-attention and non-causal encoder.
+``preferred_element_type=jnp.float32`` makes them.  RoPE covers qwen2-vl's
+M-RoPE; the attention layer covers whisper's non-causal encoder and its
+cross-attention over the encoder's k and v.
 """
 
 from __future__ import annotations
@@ -25,13 +25,6 @@ import torch.nn.functional as F
 from torch import nn
 
 _NEG = -1e30
-
-
-def unported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: the port's model stack serves the "
-        f"mixers 'attn', 'mla' and 'mamba' with the MLPs 'dense' and "
-        f"'moe'; the rest is ROADMAP.md Queue 1 item 1")
 
 
 class PD(NamedTuple):
@@ -78,30 +71,47 @@ def norm_defs(cfg, name="norm"):
 
 
 # ---------------------------------------------------------------------------
-# rotary embeddings (RoPE; qwen2-vl's M-RoPE is a later slice)
+# rotary embeddings (RoPE + qwen2-vl M-RoPE)
 # ---------------------------------------------------------------------------
 
 def rope_freqs(cfg, head_dim: int, device=None):
+    """``theta ** (-2 i / head_dim)`` for the ``head_dim / 2`` pairs,
+    float32.  The exponent is the reference's float32 arithmetic; the
+    power is taken in float64 and rounded once, which gives XLA's float32
+    ``pow`` bit for bit (torch's float32 ``pow`` is off by an ulp at some
+    pairs of head_dim 64 and up, which moves an angle by ``position``
+    ulps)."""
     half = head_dim // 2
-    return cfg.rope_theta ** (
-        -torch.arange(half, dtype=torch.float32, device=device) * 2.0
-        / head_dim)
+    expo = -torch.arange(half, dtype=torch.float32, device=device) * 2.0 \
+        / head_dim
+    return (cfg.rope_theta ** expo.double()).float()
 
 
 def apply_rope(cfg, x, positions):
-    """x: (B, S, H, hd); positions: (B, S), or (B, S, 3) of which the first
-    stream is taken.  The angles are float32, the rotation is computed in
-    float32 and cast back to x's dtype, as the reference does.  The whole
-    last axis rotates: no caller of the reference passes its ``head_dim``
+    """x: (B, S, H, hd); positions: (B, S), or (B, S, 3) for M-RoPE.  Under
+    ``cfg.mrope_sections`` with 3-stream positions, frequency pair ``i``
+    takes its angle from stream ``stream_id[i]`` (the sections laid end to
+    end: temporal, height, width); otherwise (B, S, 3) positions take
+    stream 0.  The angles are float32, the rotation is computed in float32
+    and cast back to x's dtype, as the reference does.  The whole last
+    axis rotates: no caller of the reference passes its ``head_dim``
     argument (MLA rotates its ``qk_rope`` slices whole), so the port has
     none."""
-    if cfg.mrope_sections:
-        raise unported("M-RoPE (mrope_sections: qwen2-vl)")
     half = x.shape[-1] // 2
     inv = rope_freqs(cfg, x.shape[-1], device=x.device)  # (half,)
-    if positions.ndim == 3:
-        positions = positions[..., 0]
-    ang = positions.float()[:, :, None] * inv[None, None, :]  # (B, S, half)
+    if cfg.mrope_sections and positions.ndim == 3:
+        if sum(cfg.mrope_sections) != half:
+            raise ValueError(f"mrope_sections {cfg.mrope_sections} do not "
+                             f"sum to the {half} frequency pairs")
+        pf = positions.float()
+        pos = torch.cat([pf[..., i, None].expand(*pf.shape[:2], n)
+                         for i, n in enumerate(cfg.mrope_sections)],
+                        dim=-1)  # (B, S, half)
+    else:
+        if positions.ndim == 3:
+            positions = positions[..., 0]
+        pos = positions.float()[:, :, None]  # (B, S, 1)
+    ang = pos * inv[None, None, :]  # (B, S, half)
     sin = torch.sin(ang)[:, :, None, :]
     cos = torch.cos(ang)[:, :, None, :]
     x1, x2 = x[..., :half], x[..., half:]
@@ -231,39 +241,48 @@ def attn_defs(cfg):
     return defs
 
 
-def attn_qkv(cfg, p, x, positions):
-    """q (B, S, H, hd), and k, v (B, S, KV, hd), q and k RoPE'd; each
-    weight cast to x's dtype at use."""
-    b, s, _ = x.shape
-    cd = x.dtype
-    q, k, v = (x @ w.to(cd) for w in (p.wq, p.wk, p.wv))
+def _project(cfg, p, x, name, heads):
+    """``x @ w{name}`` (``+ b{name}`` under ``qkv_bias``), the weight cast
+    to x's dtype at use, as (B, S, heads, hd)."""
+    y = x @ getattr(p, "w" + name).to(x.dtype)
     if cfg.qkv_bias:
-        q, k, v = q + p.bq.to(cd), k + p.bk.to(cd), v + p.bv.to(cd)
-    q = apply_rope(cfg, q.reshape(b, s, cfg.n_heads, cfg.head_dim),
-                   positions)
-    k = apply_rope(cfg, k.reshape(b, s, cfg.n_kv_heads, cfg.head_dim),
-                   positions)
-    return q, k, v.reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+        y = y + getattr(p, "b" + name).to(x.dtype)
+    return y.reshape(*x.shape[:2], heads, cfg.head_dim)
+
+
+def attn_qkv(cfg, p, x, positions):
+    """q (B, S, H, hd), and k, v (B, S, KV, hd), q and k RoPE'd."""
+    return (apply_rope(cfg, _project(cfg, p, x, "q", cfg.n_heads),
+                       positions),
+            apply_rope(cfg, _project(cfg, p, x, "k", cfg.n_kv_heads),
+                       positions),
+            _project(cfg, p, x, "v", cfg.n_kv_heads))
 
 
 def attn_apply(cfg, p, x, positions, *, spec, cache=None, kv_len=None,
                kv_override=None):
     """x: (B, S, D); ``p`` holds ``attn_defs``' weights (an
-    :class:`Attention`).  Without ``cache``: causal flash attention over
-    the sequence; returns (out, (k, v)), the RoPE'd k and v being the
-    prefill's cache entry.  With ``cache=(k_cache, v_cache)`` (B, max_len,
-    KV, hd) and ``kv_len`` (an int: the entries already written): k and v
-    are written at ``kv_len`` into the given tensors, in place (the caller
-    owns them; ``transformer.decode_step`` hands in its own copy), then
+    :class:`Attention`).  Without ``cache``: flash attention over the
+    sequence, causal unless ``spec.encoder`` (whisper's encoder); returns
+    (out, (k, v)), the RoPE'd k and v being the prefill's cache entry.
+    With ``cache=(k_cache, v_cache)`` (B, max_len, KV, hd) and ``kv_len``
+    (an int: the entries already written): k and v are written at
+    ``kv_len`` into the given tensors, in place (the caller owns them;
+    ``transformer.decode_step`` hands in its own copy), then
     :func:`attend_one` over ``kv_len + S`` entries; returns (out, (k_cache,
     v_cache)).  Where the reference clamps a write past ``max_len - S``,
-    the port raises (departure P10)."""
-    if kv_override is not None or getattr(spec, "encoder", False):
-        raise unported("cross-attention and the non-causal encoder "
-                       "(whisper)")
+    the port raises (departure P10).  With ``kv_override=(k, v)`` (B, T,
+    KV, hd), the encoder's projections (cross-attention): q is not
+    rotated and attends to all T entries, through :func:`attend_one` for
+    one query and non-causal :func:`flash_attention` for more; ``cache``
+    is not read; returns (out, (k, v))."""
     b, s, _ = x.shape
-    q, k, v = attn_qkv(cfg, p, x, positions)
-    if cache is not None:
+    if kv_override is not None:
+        q = _project(cfg, p, x, "q", cfg.n_heads)
+        k, v = kv_override
+    else:
+        q, k, v = attn_qkv(cfg, p, x, positions)
+    if cache is not None and kv_override is None:
         ck, cv = cache
         idx = int(kv_len)
         if idx < 0 or idx + s > ck.shape[1]:
@@ -276,28 +295,33 @@ def attn_apply(cfg, p, x, positions, *, spec, cache=None, kv_len=None,
         out = attend_one(q, ck, cv, softcap=cfg.attn_softcap,
                          kv_len=idx + s, window=spec.sliding_window)
         entry = (ck, cv)
+    elif s == 1 and kv_override is not None:
+        out = attend_one(q, k, v, softcap=cfg.attn_softcap)
+        entry = (k, v)
     else:
         out = flash_attention(
-            q, k, v, causal=True, window=spec.sliding_window,
-            softcap=cfg.attn_softcap, chunk_q=cfg.attn_chunk_q,
-            chunk_kv=cfg.attn_chunk_kv)
+            q, k, v, causal=kv_override is None and not spec.encoder,
+            window=spec.sliding_window, softcap=cfg.attn_softcap,
+            chunk_q=cfg.attn_chunk_q, chunk_kv=cfg.attn_chunk_kv)
         entry = (k, v)
     y = out.reshape(b, s, cfg.n_heads * cfg.head_dim) @ p.wo.to(x.dtype)
     return y, entry
 
 
 class Attention(nn.Module):
-    """One GQA attention mixer under the reference's name ``attn``; its
-    parameters carry ``attn_defs``' names and shapes."""
+    """One GQA attention mixer under the reference's name ``attn`` (or the
+    cross-attention under ``xattn``); its parameters carry ``attn_defs``'
+    names and shapes."""
 
     def __init__(self, cfg, *, device=None, dtype=torch.float32):
         super().__init__()
         self.cfg = cfg
         register(self, attn_defs(cfg), device=device, dtype=dtype)
 
-    def forward(self, x, positions, *, spec, cache=None, kv_len=None):
+    def forward(self, x, positions, *, spec, cache=None, kv_len=None,
+                kv_override=None):
         return attn_apply(self.cfg, self, x, positions, spec=spec,
-                          cache=cache, kv_len=kv_len)
+                          cache=cache, kv_len=kv_len, kv_override=kv_override)
 
 
 # ---------------------------------------------------------------------------

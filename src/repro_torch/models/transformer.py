@@ -5,23 +5,27 @@ Counterpart of ``repro/models/transformer.py`` for the SSM family
 (``mixer="mamba"``: falcon-mamba-7b), the dense attention family
 (``mixer="attn"``, ``mlp="dense"``, gemma2's post-block norms:
 smollm-360m, gemma2-2b, gemma-7b, qwen2.5-14b), the MoE family
-(``mlp="moe"``: granite-moe-3b; with ``mixer="mla"``: deepseek-v2-236b)
-and the hybrid jamba-v0.1-52b (Mamba and attention mixers, dense and MoE
-MLPs in one block).  ``model_defs`` is the reference's metadata, blocks
-stacked on a leading ``n_blocks`` axis, and the single source of the
-names and shapes; :class:`Model` holds block ``b``'s slice of each
-stacked leaf in ``blocks[b]["L{i}"]`` under the same name, and runs the
-blocks in a Python loop where the reference scans them.  The decode
-cache keeps the reference's stacked layout: attention's k and v
-(``(n_blocks, B, max_len, KV, hd)``, the compute dtype), MLA's latents
-``ckv`` and ``kr`` (``(n_blocks, B, max_len, kv_lora | qk_rope)``) and
-the Mamba state.  Weights are cast to ``cfg.compute_dtype`` at use, as
+(``mlp="moe"``: granite-moe-3b; with ``mixer="mla"``: deepseek-v2-236b),
+the hybrid jamba-v0.1-52b (Mamba and attention mixers, dense and MoE
+MLPs in one block) and the front ends: qwen2-vl-7b (M-RoPE over (B, S, 3)
+positions, precomputed patch embeddings ``extra_embeds`` in place of the
+prompt's first positions) and whisper-medium (``encode``: precomputed
+frame embeddings through a non-causal encoder; cross-attention over its
+output in every decoder layer).  ``model_defs`` is the reference's
+metadata, blocks stacked on a leading ``n_blocks`` axis (the encoder's
+on ``enc_layers``), and the single source of the names and shapes;
+:class:`Model` holds block ``b``'s slice of each stacked leaf in
+``blocks[b]["L{i}"]`` (the encoder's in ``enc.blocks[b]["L0"]``) under
+the same name, and runs the blocks in a Python loop where the reference
+scans them.  The decode cache keeps the reference's stacked layout:
+attention's k and v (``(n_blocks, B, max_len, KV, hd)``, the compute
+dtype), MLA's latents ``ckv`` and ``kr`` (``(n_blocks, B, max_len,
+kv_lora | qk_rope)``), the Mamba state and the cross-attention's ``xk``,
+``xv`` (``(n_blocks, B, enc_len, H, hd)``, written by the prefill and
+only read after).  Weights are cast to ``cfg.compute_dtype`` at use, as
 the reference does; the SSM state, the scan, the MoE router and
 attention's scores stay float32.  The MoE runs without a mesh (the
-reference's ``_moe_call`` with ``mesh=None``).  Cross-attention, the
-encoder, M-RoPE and the modality front ends raise
-``NotImplementedError``: they are later slices of the port
-(``ROADMAP.md`` Queue 1 item 1).
+reference's ``_moe_call`` with ``mesh=None``).
 """
 
 from __future__ import annotations
@@ -63,7 +67,8 @@ def _layer_defs(cfg: ModelConfig, spec: LayerSpec) -> dict:
     if cfg.post_block_norm:
         _add_norm(cfg, d, "ln1_post")
     if spec.cross_attn:
-        raise L.unported("cross-attention (cross_attn)")
+        _add_norm(cfg, d, "ln_x")
+        d["xattn"] = L.attn_defs(cfg)
     if spec.mlp != "none":
         if spec.mlp not in _MLPS:
             raise ValueError(spec.mlp)
@@ -80,11 +85,11 @@ def _stack(defs: dict, n: int) -> dict:
             for k, v in defs.items()}
 
 
+# whisper's encoder layer: self-attention without the causal mask
+ENC_SPEC = LayerSpec(mixer="attn", mlp="dense", encoder=True)
+
+
 def model_defs(cfg: ModelConfig) -> dict:
-    if cfg.enc_layers:
-        raise L.unported("the encoder (enc_layers)")
-    if cfg.mrope_sections:
-        raise L.unported("M-RoPE (mrope_sections: qwen2-vl)")
     d_model, v = cfg.d_model, cfg.padded_vocab
     if cfg.embed_shard == "dmodel":
         if cfg.tie_embeddings:
@@ -103,6 +108,15 @@ def model_defs(cfg: ModelConfig) -> dict:
         defs["final_norm_b"] = L.PD((d_model,), (None,))
     if not cfg.tie_embeddings:
         defs["unembed"] = L.PD((d_model, v), ("fsdp", "tp"), d_model)
+    if cfg.enc_layers:
+        defs["enc"] = {
+            "pos": L.PD((cfg.enc_ctx, d_model), (None, None), d_model),
+            "final_norm": L.PD((d_model,), (None,)),
+            "blocks": _stack({"L0": _layer_defs(cfg, ENC_SPEC)},
+                             cfg.enc_layers),
+        }
+        if cfg.norm == "layernorm":
+            defs["enc"]["final_norm_b"] = L.PD((d_model,), (None,))
     return defs
 
 
@@ -129,46 +143,67 @@ def n_params(cfg: ModelConfig) -> int:
 class Layer(nn.Module):
     """One position of the block pattern: its norms, the mixer under the
     reference's name ``attn`` (:class:`layers.Attention`, :class:`mla.MLA`
-    or :class:`mamba.Mamba`) and the MLP under ``mlp`` (:class:`layers.MLP`
-    or :class:`moe.MoE`), if the spec has one."""
+    or :class:`mamba.Mamba`), the cross-attention under ``xattn`` (a
+    second :class:`layers.Attention`) and the MLP under ``mlp``
+    (:class:`layers.MLP` or :class:`moe.MoE`), if the spec has them."""
 
     def __init__(self, cfg, spec: LayerSpec, *, device, dtype):
         super().__init__()
         self.spec = spec
         defs = _layer_defs(cfg, spec)
         L.register(self, {k: v for k, v in defs.items()
-                          if k not in ("attn", "mlp")},
+                          if k not in ("attn", "xattn", "mlp")},
                    device=device, dtype=dtype)
         self.attn = _MIXERS[spec.mixer][1](cfg, device=device, dtype=dtype)
+        if "xattn" in defs:
+            self.xattn = L.Attention(cfg, device=device, dtype=dtype)
         if "mlp" in defs:
             self.mlp = _MLPS[spec.mlp][1](cfg, device=device, dtype=dtype)
+
+
+def _block_list(cfg, pattern, n: int, *, device, dtype) -> nn.ModuleList:
+    return nn.ModuleList(
+        nn.ModuleDict({f"L{i}": Layer(cfg, spec, device=device, dtype=dtype)
+                       for i, spec in enumerate(pattern)})
+        for _ in range(n))
 
 
 class Model(nn.Module):
     """The stack's parameters, uninitialised: build one with
     :func:`init_params` or ``convert.params_from_jax``.  ``blocks[b]`` is an
-    ``nn.ModuleDict`` of the pattern's layers ``"L0"``, ``"L1"``, ..."""
+    ``nn.ModuleDict`` of the pattern's layers ``"L0"``, ``"L1"``, ...; a
+    config with an encoder adds ``enc``, whose ``pos``, ``final_norm``
+    (``final_norm_b``) and ``blocks[b]["L0"]`` are the reference's
+    ``enc`` subtree."""
 
     def __init__(self, cfg: ModelConfig, *, device=None):
         super().__init__()
         self.cfg = cfg
         dtype = getattr(torch, cfg.param_dtype)
-        top = {k: v for k, v in model_defs(cfg).items() if k != "blocks"}
-        L.register(self, top, device=device, dtype=dtype)
-        self.blocks = nn.ModuleList(
-            nn.ModuleDict({f"L{i}": Layer(cfg, spec, device=device,
-                                          dtype=dtype)
-                           for i, spec in enumerate(cfg.pattern)})
-            for _ in range(cfg.n_blocks))
+        defs = model_defs(cfg)
+        L.register(self, {k: v for k, v in defs.items()
+                          if k not in ("blocks", "enc")},
+                   device=device, dtype=dtype)
+        self.blocks = _block_list(cfg, cfg.pattern, cfg.n_blocks,
+                                  device=device, dtype=dtype)
+        if "enc" in defs:
+            self.enc = nn.Module()
+            L.register(self.enc, {k: v for k, v in defs["enc"].items()
+                                  if k != "blocks"},
+                       device=device, dtype=dtype)
+            self.enc.blocks = _block_list(cfg, (ENC_SPEC,), cfg.enc_layers,
+                                          device=device, dtype=dtype)
 
     def leaves(self):
         """``(reference path, block index or None, parameter)`` for every
         parameter; a block's parameter is index ``b`` of the reference's
-        stacked leaf."""
+        stacked leaf (``blocks/...`` or ``enc/blocks/...``)."""
         for name, p in self.named_parameters():
             parts = name.split(".")
-            if parts[0] == "blocks":
-                yield "/".join(["blocks"] + parts[2:]), int(parts[1]), p
+            if "blocks" in parts:
+                i = parts.index("blocks")
+                yield ("/".join(parts[:i + 1] + parts[i + 2:]),
+                       int(parts[i + 1]), p)
             else:
                 yield "/".join(parts), None, p
 
@@ -231,14 +266,26 @@ def _norm(cfg, module, key, x):
 
 # the cache entries of attention (RoPE'd k, v) and of MLA (its latents)
 _KV_NAMES = {"attn": ("k", "v"), "mla": ("ckv", "kr")}
+# the cross-attention's entries: written by the prefill, then only read
+_CROSS_NAMES = ("xk", "xv")
+
+
+def _cross_kv(cfg, p, enc_out):
+    """The cross-attention's k and v of the encoder's output (B, T, KV,
+    hd): ``wk``, ``wv`` cast to its dtype, no bias and no rotation (the
+    reference's ``_cross_kv``)."""
+    b, t, _ = enc_out.shape
+    return tuple((enc_out @ w.to(enc_out.dtype)).reshape(
+        b, t, cfg.n_kv_heads, cfg.head_dim) for w in (p.wk, p.wv))
 
 
 def _apply_layer(cfg, layer: Layer, x, positions, *, mode="train",
-                 cache=None, kv_len=None):
+                 cache=None, kv_len=None, enc_out=None):
     """One layer.  ``cache`` is the layer's slice of the stacked cache:
     ``mode="prefill"`` writes the layer's entry into it (attention's RoPE'd
     k and v, or MLA's latents, at positions ``0 .. S - 1``; the Mamba
-    state), ``mode="decode"`` reads and advances it in place."""
+    state; the cross-attention's k and v of ``enc_out``), ``mode="decode"``
+    reads and advances it in place (``xk``, ``xv`` only read)."""
     spec = layer.spec
     h = _norm(cfg, layer, "ln1", x)
     if spec.mixer in _KV_NAMES:
@@ -264,6 +311,17 @@ def _apply_layer(cfg, layer: Layer, x, positions, *, mode="train",
     if cfg.post_block_norm:
         y = _norm(cfg, layer, "ln1_post", y)
     x = x + y
+    if spec.cross_attn:
+        h = _norm(cfg, layer, "ln_x", x)
+        if mode == "decode":
+            kv = tuple(cache[n] for n in _CROSS_NAMES)
+        else:
+            kv = _cross_kv(cfg, layer.xattn, enc_out)
+            if mode == "prefill":
+                for n, t in zip(_CROSS_NAMES, kv):
+                    cache[n].copy_(t)
+        y, _ = layer.xattn(h, positions, spec=spec, kv_override=kv)
+        x = x + y
     if spec.mlp != "none":
         y = layer.mlp(_norm(cfg, layer, "ln2", x))
         if cfg.post_block_norm:
@@ -272,37 +330,73 @@ def _apply_layer(cfg, layer: Layer, x, positions, *, mode="train",
     return x
 
 
-def _run_blocks(cfg, model: Model, x, positions, *, mode="train",
-                cache=None, kv_len=None):
-    """The blocks in order.  With ``cache`` (``cache_defs``' stacked
-    layout), block ``b``'s layers write their entries into index ``b`` of
-    it, in place."""
-    for b, block in enumerate(model.blocks):
+def _run_blocks(cfg, blocks, x, positions, *, mode="train", cache=None,
+                kv_len=None, enc_out=None):
+    """The blocks in order (``model.blocks``, or ``model.enc.blocks``).
+    With ``cache`` (``cache_defs``' stacked layout), block ``b``'s layers
+    write their entries into index ``b`` of it, in place."""
+    for b, block in enumerate(blocks):
         for key, layer in block.items():
             x = _apply_layer(
                 cfg, layer, x, positions, mode=mode, kv_len=kv_len,
-                cache=None if cache is None else {
+                enc_out=enc_out, cache=None if cache is None else {
                     n: t[b] for n, t in cache[key].items()})
     return x
 
 
-def _positions_default(tokens):
+def _positions_default(cfg, tokens):
+    """``0 .. S - 1`` for every row: (B, S), or (B, S, 3) with the same
+    value in each stream under M-RoPE."""
     b, s = tokens.shape[:2]
-    return torch.arange(s, device=tokens.device).expand(b, s)
+    pos = torch.arange(s, device=tokens.device).expand(b, s)
+    return pos[..., None].expand(b, s, 3) if cfg.mrope_sections else pos
 
 
-def _front_ends(extra_embeds, enc_frames):
-    if extra_embeds is not None or enc_frames is not None:
-        raise L.unported("extra_embeds / enc_frames (the vision and audio "
-                         "front ends)")
+def encode(cfg, model: Model, frames):
+    """Whisper's encoder over precomputed frame embeddings (B, T, D), T up
+    to ``enc_ctx``: the learned positions ``pos[:T]`` added, the encoder
+    blocks (non-causal, q and k RoPE'd at ``0 .. T - 1``, as the
+    reference's are), the final layernorm."""
+    if not cfg.enc_layers:
+        raise ValueError(f"{cfg.name} has no encoder")
+    x = frames.to(_cdt(cfg))
+    t = x.shape[1]
+    if t > cfg.enc_ctx:
+        raise ValueError(f"{t} frames exceed enc_ctx {cfg.enc_ctx}")
+    x = x + model.enc.pos[:t][None].to(x.dtype)
+    x = _run_blocks(cfg, model.enc.blocks, x, _positions_default(cfg, x[..., 0]))
+    return _norm(cfg, model.enc, "final_norm", x)
 
 
-def forward_hidden(cfg, model: Model, tokens, *, extra_embeds=None,
-                   enc_frames=None):
+def _inputs(cfg, model: Model, tokens, positions, extra_embeds, enc_frames):
+    """The embedded tokens with ``extra_embeds`` (B, P, D) in place of
+    the first P positions, the positions (default
+    :func:`_positions_default`) and the encoder's output (None without an
+    encoder)."""
+    x = embed_tokens(cfg, model, tokens)
+    if extra_embeds is not None:
+        pfx = extra_embeds.to(device=x.device, dtype=x.dtype)
+        if pfx.shape[1] > x.shape[1]:
+            raise ValueError(f"{pfx.shape[1]} prefix embeddings exceed the "
+                             f"{x.shape[1]} prompt tokens")
+        x = torch.cat([pfx, x[:, pfx.shape[1]:]], dim=1)
+    positions = (_positions_default(cfg, tokens) if positions is None
+                 else torch.as_tensor(positions, device=tokens.device))
+    if cfg.enc_layers:
+        if enc_frames is None:
+            raise ValueError(f"{cfg.name} needs enc_frames")
+        return x, positions, encode(cfg, model, enc_frames.to(x.device))
+    if enc_frames is not None:
+        raise ValueError(f"{cfg.name} has no encoder for enc_frames")
+    return x, positions, None
+
+
+def forward_hidden(cfg, model: Model, tokens, *, positions=None,
+                   extra_embeds=None, enc_frames=None):
     """Token stream -> final hidden states (B, S, D)."""
-    _front_ends(extra_embeds, enc_frames)
-    x = _run_blocks(cfg, model, embed_tokens(cfg, model, tokens),
-                    _positions_default(tokens))
+    x, positions, enc_out = _inputs(cfg, model, tokens, positions,
+                                    extra_embeds, enc_frames)
+    x = _run_blocks(cfg, model.blocks, x, positions, enc_out=enc_out)
     return _norm(cfg, model, "final_norm", x)
 
 
@@ -327,71 +421,92 @@ def forward(cfg, model: Model, tokens, **kw):
 # serving
 # ---------------------------------------------------------------------------
 
-def cache_defs(cfg: ModelConfig, batch: int, max_len: int) -> dict:
+def cache_defs(cfg: ModelConfig, batch: int, max_len: int,
+               enc_len: int = 0) -> dict:
     """Shape and sharding metadata of the decode cache, stacked per pattern
     position: attention's k and v ``(B, max_len, KV, hd)``; MLA's latents
     ``ckv`` ``(B, max_len, kv_lora)`` and ``kr`` ``(B, max_len,
-    qk_rope)``; the SSM cache, which does not grow with ``max_len``."""
+    qk_rope)``; the SSM cache, which does not grow with ``max_len``; a
+    cross-attention's ``xk``, ``xv`` ``(B, enc_len, H, hd)``.  The
+    reference lays those out over ``n_heads`` and fills them with
+    ``n_kv_heads``, so a config where the two differ raises ValueError
+    (ROADMAP R10)."""
     kv, hd = cfg.n_kv_heads, cfg.head_dim
     out = {}
     for i, spec in enumerate(cfg.pattern):
         _layer_defs(cfg, spec)
         if spec.mixer == "attn":
-            out[f"L{i}"] = {
-                n: L.PD((batch, max_len, kv, hd), ("dp", "sp", None, None))
-                for n in ("k", "v")}
+            e = {n: L.PD((batch, max_len, kv, hd), ("dp", "sp", None, None))
+                 for n in ("k", "v")}
         elif spec.mixer == "mla":
-            out[f"L{i}"] = {
-                "ckv": L.PD((batch, max_len, cfg.mla.kv_lora),
-                            ("dp", "sp", None)),
-                "kr": L.PD((batch, max_len, cfg.mla.qk_rope_dim),
-                           ("dp", "sp", None))}
+            e = {"ckv": L.PD((batch, max_len, cfg.mla.kv_lora),
+                             ("dp", "sp", None)),
+                 "kr": L.PD((batch, max_len, cfg.mla.qk_rope_dim),
+                            ("dp", "sp", None))}
         else:
-            out[f"L{i}"] = {
-                "conv": L.PD((batch, cfg.ssm.d_conv - 1, cfg.d_inner),
-                             ("dp", None, "tp")),
-                "h": L.PD((batch, cfg.d_inner, cfg.ssm.d_state),
-                          ("dp", "tp", None))}
+            e = {"conv": L.PD((batch, cfg.ssm.d_conv - 1, cfg.d_inner),
+                              ("dp", None, "tp")),
+                 "h": L.PD((batch, cfg.d_inner, cfg.ssm.d_state),
+                           ("dp", "tp", None))}
+        if spec.cross_attn:
+            if cfg.n_heads != cfg.n_kv_heads:
+                raise ValueError(
+                    f"{cfg.name}: cross-attention's cache holds n_heads "
+                    f"({cfg.n_heads}) heads, its k and v n_kv_heads "
+                    f"({cfg.n_kv_heads}); the reference needs them equal")
+            e |= {n: L.PD((batch, enc_len, cfg.n_heads, hd),
+                          ("dp", None, "tp", None)) for n in _CROSS_NAMES}
+        out[f"L{i}"] = e
     return _stack(out, cfg.n_blocks)
 
 
-def init_cache(cfg, batch: int, max_len: int, *, device=None) -> dict:
+def init_cache(cfg, batch: int, max_len: int, enc_len: int = 0, *,
+               device=None) -> dict:
     """Zeros in ``cache_defs``' layout: the SSM state ``h`` float32, the
     rest in the compute dtype."""
     dev = resolve_device(device)
     return {key: {n: torch.zeros(pd.shape, device=dev, dtype=(
         torch.float32 if n == "h" else _cdt(cfg))) for n, pd in e.items()}
-        for key, e in cache_defs(cfg, batch, max_len).items()}
+        for key, e in cache_defs(cfg, batch, max_len, enc_len).items()}
 
 
-def decode_step(cfg, model: Model, cache, kv_len, tokens):
+def decode_step(cfg, model: Model, cache, kv_len, tokens, *, positions=None):
     """One token for every sequence.  tokens: (B, 1); ``kv_len`` (an int:
-    the tokens seen so far) is its position, where attention writes its
-    key.  Returns (logits, cache): the cache passed in is not changed, the
-    step writes into its own copy.  Positions are always ``kv_len`` (the
-    reference's default; M-RoPE positions come with qwen2-vl)."""
+    the tokens seen so far) is where attention writes its key.  Positions
+    default to ``kv_len``, in every stream under M-RoPE (the reference's
+    default).  Returns (logits, cache): the cache passed in is not
+    changed, the step writes into its own copy of every entry but the
+    cross-attention's ``xk`` and ``xv``, which it only reads and shares
+    with the cache passed in."""
     kv_len = int(kv_len)
     b = tokens.shape[0]
-    new = {key: {n: t.clone() for n, t in e.items()}
-           for key, e in cache.items()}
-    positions = torch.full((b, 1), kv_len, device=tokens.device)
-    x = _run_blocks(cfg, model, embed_tokens(cfg, model, tokens), positions,
-                    mode="decode", cache=new, kv_len=kv_len)
+    new = {key: {n: t if n in _CROSS_NAMES else t.clone()
+                 for n, t in e.items()} for key, e in cache.items()}
+    if positions is None:
+        positions = torch.full((b, 1, 3) if cfg.mrope_sections else (b, 1),
+                               kv_len, device=tokens.device)
+    else:
+        positions = torch.as_tensor(positions, device=tokens.device)
+    x = _run_blocks(cfg, model.blocks, embed_tokens(cfg, model, tokens),
+                    positions, mode="decode", cache=new, kv_len=kv_len)
     return logits_from_hidden(cfg, model, _norm(cfg, model, "final_norm",
                                                 x)), new
 
 
-def prefill(cfg, model: Model, tokens, max_len: int, *, enc_frames=None,
-            extra_embeds=None):
+def prefill(cfg, model: Model, tokens, max_len: int, *, positions=None,
+            enc_frames=None, extra_embeds=None):
     """Process the prompt, build the cache.  Returns (last-pos logits,
     cache); ``max_len`` sizes attention's and MLA's cache (zeros past the
-    prompt), not the SSM state."""
-    _front_ends(extra_embeds, enc_frames)
+    prompt), not the SSM state; the cross-attention's entries hold the
+    encoder's T frames."""
     b, s = tokens.shape
     if s > max_len:
         raise ValueError(f"{s} prompt tokens do not fit max_len {max_len}")
-    cache = init_cache(cfg, b, max_len, device=tokens.device)
-    x = _run_blocks(cfg, model, embed_tokens(cfg, model, tokens),
-                    _positions_default(tokens), mode="prefill", cache=cache)
+    x, positions, enc_out = _inputs(cfg, model, tokens, positions,
+                                    extra_embeds, enc_frames)
+    cache = init_cache(cfg, b, max_len, 0 if enc_out is None
+                       else enc_out.shape[1], device=tokens.device)
+    x = _run_blocks(cfg, model.blocks, x, positions, mode="prefill",
+                    cache=cache, enc_out=enc_out)
     h = _norm(cfg, model, "final_norm", x[:, -1:])
     return logits_from_hidden(cfg, model, h), cache

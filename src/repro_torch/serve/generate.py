@@ -8,9 +8,12 @@ dense attention family, whose prefill fills the KV cache that each decode
 step extends at ``kv_len``; the MoE family (granite-moe-3b), deepseek-v2's
 MLA, whose cache holds the compressed latents that the decode steps read
 in the absorbed form, and the hybrid jamba-v0.1-52b (Mamba, attention and
-MoE layers; ``ssm_scan`` once a Mamba layer).  Attention, MoE and MLA are
-plain torch (the reference's have no Pallas kernel), and so are the
-decode steps.  Sampling: greedy, or
+MoE layers; ``ssm_scan`` once a Mamba layer), and the front ends:
+qwen2-vl-7b with its patch embeddings (``extra_embeds``) and whisper-medium
+with its frame embeddings (``enc_frames``, encoded once by the prefill,
+whose cross-attention k and v every step reads).  Attention, MoE, MLA, the
+encoder and cross-attention are plain torch (the reference's have no
+Pallas kernel), and so are the decode steps.  Sampling: greedy, or
 with ``temperature > 0`` from a ``torch.Generator`` on the model's device
 seeded by ``seed`` (departure P9: not ``jax.random.categorical``'s bits).
 """
@@ -35,12 +38,17 @@ class Generator:
     def generate(self, prompts, n_steps: int, *, temperature: float = 0.0,
                  seed: int = 0, enc_frames=None, extra_embeds=None,
                  stop_token: int | None = None) -> np.ndarray:
-        """prompts: (B, S_prompt) ints.  Returns (B, n_steps) int32 tokens:
+        """prompts: (B, S_prompt) ints; ``extra_embeds`` (B, P, D) and
+        ``enc_frames`` (B, T, D), numpy arrays or tensors, go to the
+        prefill on the server's device.  Returns (B, n_steps) int32 tokens:
         the first the prefill's argmax, then greedy or sampled steps,
         stopping early once every row has emitted ``stop_token``."""
         cfg = self.cfg
         prompts = torch.as_tensor(np.asarray(prompts), dtype=torch.long,
                                   device=self.device)
+        enc_frames, extra_embeds = (
+            None if a is None else torch.as_tensor(a, device=self.device)
+            for a in (enc_frames, extra_embeds))
         b, s = prompts.shape
         if s + n_steps > self.max_len:
             raise ValueError(f"increase max_len: {s} prompt tokens + "

@@ -76,13 +76,6 @@ def test_apply_rope_equals_reference(theta):
     _close(gotb, np.asarray(wantb.astype(jnp.float32)), rtol=0, atol=0)
 
 
-def test_mrope_is_not_ported_yet():
-    cfg = registry.get_config("qwen2-vl-7b", reduced=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
-        L.apply_rope(cfg, torch.zeros(1, 4, 4, 16),
-                     torch.zeros(1, 4, 3, dtype=torch.long))
-
-
 # ---------------------------------------------------------------------------
 # flash_attention
 # ---------------------------------------------------------------------------
@@ -256,15 +249,3 @@ def test_attention_layer_equals_reference(bias):
     _close(ck1, jck)
     _close(cv1, jcv)
     assert ck1 is ck  # written in place: the caller's own copy
-
-
-def test_cross_attention_and_encoder_are_not_ported_yet():
-    from repro_torch.models.config import LayerSpec
-    cfg = registry.get_config("qwen2.5-14b", reduced=True)
-    layer = L.Attention(cfg, device="cpu")
-    x = torch.zeros(1, 4, cfg.d_model)
-    pos = torch.zeros(1, 4, dtype=torch.long)
-    for kw in ({"spec": LayerSpec(encoder=True)},
-               {"spec": LayerSpec(), "kv_override": (x, x)}):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
-            L.attn_apply(cfg, layer, x, pos, **kw)

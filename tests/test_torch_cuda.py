@@ -1480,3 +1480,127 @@ def test_cuda_moe_routing_equals_cpu(cuda, case):
     if case == "zero-router":
         assert torch.equal(want.top_e, torch.arange(cfg.moe.top_k).expand(
             t, -1))
+
+
+# ---------------------------------------------------------------------------
+# the front ends: qwen2-vl's M-RoPE and patch prefix, whisper's encoder
+# ---------------------------------------------------------------------------
+
+def _grid_positions(b, s, grid):
+    """Qwen2-VL's (B, S, 3) positions: ``grid**2`` patches at (0, i //
+    grid, i % grid), then text at ``grid + j`` in all three streams."""
+    i = torch.arange(grid * grid)
+    patches = torch.stack([torch.zeros_like(i), i // grid, i % grid], -1)
+    text = (grid + torch.arange(s - grid * grid))[:, None].expand(-1, 3)
+    return torch.cat([patches, text]).expand(b, s, 3)
+
+
+def _front_model(arch, seed):
+    """The reduced model on the CPU, its norm weights drawn as 1 + 0.02
+    N(0, 1) and biases as 0.02 N(0, 1) (zero under the init rule, which
+    makes whisper compute zeros: ROADMAP R9); tokens (2, 40); the front
+    end's inputs; qwen2-vl's grid positions (whisper: None)."""
+    cfg = model_registry.get_config(arch, reduced=True)
+    gen = torch.Generator().manual_seed(seed)
+    model = MT.init_params(cfg, device="cpu", generator=gen)
+    with torch.no_grad():
+        for path, _, p in model.leaves():
+            name = path.split("/")[-1]
+            if name.startswith(("ln", "final_norm")):
+                p.normal_(0.0 if name.endswith("_b") else 1.0, 0.02,
+                          generator=gen)
+    rng = np.random.default_rng(seed)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 40)))
+    if cfg.enc_layers:
+        return cfg, model, tokens, {"enc_frames": torch.from_numpy(
+            rng.normal(size=(2, cfg.enc_ctx, cfg.d_model))).float()}, None
+    return cfg, model, tokens, {"extra_embeds": torch.from_numpy(
+        rng.normal(size=(2, 16, cfg.d_model))).float()}, _grid_positions(
+            2, 40, 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2-vl-7b", "whisper-medium"])
+def test_cuda_front_end_model_equals_cpu(cuda, arch):
+    """The reduced model in float32 on the card against the same weights on
+    the CPU: ``encode``, the prefill's logits and every cache entry (``xk``,
+    ``xv`` included), three decode steps (qwen2-vl at the grid's next text
+    positions) and ``forward`` within 1e-4; on the card each step shares
+    ``xk`` and ``xv`` with the cache it was given; no kernel of the repo
+    launches."""
+    cfg, model, tokens, front, grid = _front_model(arch, 9)
+    n0 = dict(_build.launches)
+    got, want = [], []
+    for dev, out in ((cuda, got), (torch.device("cpu"), want)):
+        m = model.to(dev)
+        t = tokens.to(dev)
+        fr = {k: v.to(dev) for k, v in front.items()}
+        pos = None if grid is None else grid.to(dev)
+        if cfg.enc_layers:
+            out.append(MT.encode(cfg, m, fr["enc_frames"]))
+        logits, cache = MT.prefill(cfg, m, t, 48, positions=pos, **fr)
+        out.append(logits)
+        out.extend(e for entry in cache.values() for e in entry.values())
+        tok = tokens[:, -1:].to(dev)
+        for step in range(3):
+            step_pos = None if pos is None else torch.full(
+                (2, 1, 3), 40 - 16 + 4 + step, device=dev)
+            logits, new = MT.decode_step(cfg, m, cache, 40 + step, tok,
+                                         positions=step_pos)
+            for key, entry in cache.items():
+                for name, e in entry.items():
+                    assert (new[key][name].data_ptr() == e.data_ptr()) == (
+                        name in ("xk", "xv")), (key, name)
+            cache = new
+            out.append(logits)
+            tok = (tok + 1) % cfg.vocab_size
+        out.append(MT.forward(cfg, m, t, positions=pos, **fr))
+    assert _build.launches == n0
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_mrope_grid_positions_against_float64(cuda):
+    """``apply_rope`` on the card at qwen2-vl-7b's full width (head_dim 128,
+    sections (16, 24, 24), theta 1e6) and Qwen2-VL's positions for a 16 x
+    16 patch grid and 1 792 text tokens, against the same formula in
+    float64, within float32's error for these angles: 2^-22 of max |x|
+    times (the largest angle + 4)."""
+    cfg = model_registry.get_config("qwen2-vl-7b")
+    x = torch.randn((2, 2048, 4, cfg.head_dim), device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(3))
+    pos = _grid_positions(2, 2048, 16).to(cuda)
+    got = L.apply_rope(cfg, x, pos)
+    half = cfg.head_dim // 2
+    inv = cfg.rope_theta ** (-torch.arange(half, dtype=torch.float64,
+                                           device=cuda) * 2.0 / cfg.head_dim)
+    stream = torch.repeat_interleave(torch.arange(3), torch.tensor(
+        cfg.mrope_sections)).to(cuda)
+    ang = pos.double()[..., stream] * inv
+    sin, cos = torch.sin(ang)[:, :, None], torch.cos(ang)[:, :, None]
+    x1, x2 = x.double()[..., :half], x.double()[..., half:]
+    want = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
+    tol = 2.0 ** -22 * x.abs().max().item() * (ang.max().item() + 4)
+    assert (got.double() - want).abs().max().item() <= tol
+    plain = L.apply_rope(cfg, x, pos[..., 0])
+    assert (plain - got).abs().max().item() > 0.1  # the streams count
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2-vl-7b", "whisper-medium"])
+def test_cuda_generate_front_ends(cuda, arch):
+    """``Generator`` on the card with the front end's inputs as numpy
+    arrays: tokens in range, greedy deterministic, and the front end's
+    inputs move them."""
+    cfg, model, tokens, front, _ = _front_model(arch, 10)
+    server = Generator(cfg, model, max_len=64, device=cuda)
+    front = {k: v.numpy() for k, v in front.items()}
+    got = server.generate(tokens.numpy(), 16, **front)
+    assert got.shape == (2, 16)
+    assert (got >= 0).all() and (got < cfg.vocab_size).all()
+    np.testing.assert_array_equal(got, server.generate(tokens.numpy(), 16,
+                                                       **front))
+    other = {k: -v for k, v in front.items()}
+    assert not np.array_equal(got, server.generate(tokens.numpy(), 16,
+                                                   **other))

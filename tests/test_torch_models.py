@@ -178,25 +178,6 @@ MOE = {"granite_moe_3b": 3_903_186_432, "deepseek_v2_236b": 239_375_569_920,
        "jamba_v0p1_52b": 51_570_315_264}
 
 
-@pytest.mark.parametrize("arch", ["qwen2_vl_7b", "whisper_medium"])
-def test_other_architectures_are_not_ported_yet(arch):
-    cfg = registry.get_config(arch, reduced=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
-        T.init_params(cfg, generator=torch.Generator(), device=CPU)
-
-
-def test_front_ends_are_not_ported_yet():
-    cfg, _ = _configs()
-    model = T.init_params(cfg, generator=torch.Generator().manual_seed(0),
-                          device=CPU)
-    tokens = torch.zeros((1, 4), dtype=torch.long)
-    for kw in ({"extra_embeds": torch.zeros(1, 2, cfg.d_model)},
-               {"enc_frames": torch.zeros(1, 2, cfg.d_model)}):
-        for fn in (T.forward, lambda *a, **k: T.prefill(*a, 8, **k)):
-            with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
-                fn(cfg, model, tokens, **kw)
-
-
 def test_default_device_raises_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
