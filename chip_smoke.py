@@ -61,12 +61,12 @@ git-ignored ``build/``), then runs these phases, one or more lines each:
    read just after, then a profile of the first few batches of one chunk,
    then a window of 20 LAPs in the middle of a third call profiled (no
    copy between host and card and no wait on the card in a LAP);
-4. the same path at n = PLAIN_N (8192) against the plain kernels, and the
+4. the same path at n = PLAIN_N (4096) against the plain kernels, and the
    default spec's flat route at that n against the forced plain path (the
    Python loop over ``top2``): labels bitwise equal, both times; likewise
    phase 7's calls (a), (b) and (d) at that n, and the categorical stream
    core with ``chunk_size >= n`` against the flat core; the hierarchical
-   route ``plan=(8, 16)``, dense and with ``chunk_size=4096``, against the
+   route ``plan=(8, 16)``, dense and with ``chunk_size=2048``, against the
    forced plain path (labels bitwise), and ``batched=False`` against the
    stacked levels (labels equal, or the first LAP that differs and why);
 5. the kernel entry point ``repro_torch.kernels`` at full size, driven
@@ -124,7 +124,7 @@ git-ignored ``build/``), then runs these phases, one or more lines each:
    post-delta rows, equal labels on a second run, an over-threshold
    delta's fallback bitwise that repartition; (d) ``dispatch_repartition``
    on (a)'s session, ``wait()`` bitwise ``repartition``, with the host
-   time it frees; (e) a warm repartition and an update at n = 16 384 on
+   time it frees; (e) a warm repartition and an update at n = 8 192 on
    the flat route and ``plan=(8, 16)``, labels bitwise the forced plain
    path's; (f) the ``greedy`` and ``scipy`` solvers on the main data's
    first LAP beside the auction;
@@ -250,6 +250,22 @@ git-ignored ``build/``), then runs these phases, one or more lines each:
    step sharing ``xk``, ``xv`` with the cache it was given (the same
    ``data_ptr``) while it copies the rest; (d) a decode step against
    ``forward`` as in (b);
+16. training: (a) falcon-mamba-7b at full width cut to TRAIN_LAYERS (32)
+   of 64 layers (3 902 672 896 parameters, 58.15 GiB of parameters,
+   gradients and AdamW moments), B = 2, S = 4 096 (the reference's
+   ``train_4k`` sequence), a warm-up step and three ``make_train_step``
+   steps on one seeded batch: each step's wall, tokens/s, the losses
+   (the last under the first), the peak memory (under 70 GiB), ``ssm_scan``
+   twice a layer (the forward and the recompute) and ``ssm_scan_bwd`` once
+   a layer a step and no other kernel of the repo, a profiled step (device
+   ms by kernel, the idle share), layer 0's ``a_log`` moved (its gradient
+   comes only through the scan); (b) smollm-360m at full size, B = 4, S =
+   2 048, one step with microbatches 2 against 1 at the reference's own
+   tolerances; (c) ``launch.train.main --aba-batching`` on smollm-360m at
+   full size, 6 steps straight against 3, a checkpoint and a resume: the
+   last loss bitwise equal; (d) ``--grad-compression --dp 2`` on the one
+   card.  Phase 2 holds ``ssm_scan_bwd`` to ``ssm_scan_bwd_ref`` at (a)'s
+   layer shape (2, 4 096, 8 192, 16) and times it;
 
 then one JSON line describing every kernel, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises, exits non-zero and
@@ -276,6 +292,7 @@ import inspect
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -302,7 +319,8 @@ from repro_torch.core.objective import (  # noqa: E402
 from repro_torch.data import (ABABatchSequencer, aba_folds,  # noqa: E402
                               fold_engine, fold_partition, fold_splits,
                               minibatch)
-from repro_torch.data.synthetic import PRESETS, make  # noqa: E402
+from repro_torch.data.synthetic import (PRESETS, lm_token_stream,  # noqa: E402
+                                        make)
 import repro_torch.kernels as K  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import auction_phase as phase_kernel  # noqa: E402
@@ -313,8 +331,9 @@ from repro_torch.kernels.gather import (  # noqa: E402
     gather_rows as cuda_gather_rows)
 from repro_torch.kernels.ref import (  # noqa: E402
     bid_top2_gather_ref, bid_top2_ref, cdist_gather_ref, cdist_ref,
-    gather_rows_ref, ssm_scan_chunk_ref, ssm_scan_ref)
-from repro_torch.kernels.ssm_scan import ssm_scan_chunk  # noqa: E402
+    gather_rows_ref, ssm_scan_bwd_ref, ssm_scan_chunk_ref, ssm_scan_ref)
+from repro_torch.kernels.ssm_scan import (  # noqa: E402
+    ssm_scan_bwd, ssm_scan_chunk, ssm_scan_train)
 from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.models import layers as ML  # noqa: E402
 from repro_torch.models import moe as MOE  # noqa: E402
@@ -322,7 +341,10 @@ from repro_torch.models import registry as model_registry  # noqa: E402
 from repro_torch.models import transformer as MT  # noqa: E402
 from repro_torch.serve import Generator  # noqa: E402
 from repro_torch.serve import AnticlusterRouter  # noqa: E402
+from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.train import ABAPipeline  # noqa: E402
+from repro_torch.train import (OptConfig, adamw_init,  # noqa: E402
+                               make_train_step)
 
 # the module, not the function the package exports under its name
 bid_top2_module = importlib.import_module("repro_torch.kernels.bid_top2")
@@ -1586,7 +1608,8 @@ class LapWindow:
                     if key.startswith(HOST_COPIES))}
 
 
-def call_kernel_ms(x, k, dev, kernel: str, call=None, **kw) -> dict:
+def call_kernel_ms(x, k, dev, kernel: str, call=None, names=(),
+                   **kw) -> dict:
     """One whole call (``anticluster(x, k=k, **kw)``, or ``call()``) under
     the profiler, device activity only: the device
     time and launches of ``kernel``, of every kernel and copy, and of the
@@ -1594,7 +1617,8 @@ def call_kernel_ms(x, k, dev, kernel: str, call=None, **kw) -> dict:
     profiler's, not a measurement).  Summed from the profiler's raw
     events: a call of ~17 000 LAPs records ~850 000 of them, and
     ``key_averages`` first builds an event tree, which takes minutes at
-    that count (PERF.md)."""
+    that count (PERF.md).  ``names``: kernels (name parts) whose device
+    time and launches are also returned alone, under ``named``."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1615,7 +1639,11 @@ def call_kernel_ms(x, k, dev, kernel: str, call=None, **kw) -> dict:
             "device_ms": sum(ms for ms, _ in by_name.values()),
             "launches": sum(c for _, c in by_name.values()),
             "kernels": {key[:80]: {"ms": ms, "launches": c}
-                        for key, (ms, c) in ranked[:10]}}
+                        for key, (ms, c) in ranked[:10]},
+            "named": {n: {"ms": sum(ms for key, (ms, _) in ranked
+                                    if n in key),
+                          "launches": sum(c for key, (_, c) in ranked
+                                          if n in key)} for n in names}}
 
 
 def lap_window(x, k, dev, solver, field, laps, what, call=None,
@@ -1882,12 +1910,13 @@ def constrained_routes(dev, n: int, card: str, masked_run: dict) -> dict:
 
 # Phase 4's rows.  Its Python loops set its time, linearly in the rows:
 # at 16 384 rows phase 4 took 313 s of a 1 074 s run of this script on
-# an H100 (PERF.md).
-PLAIN_N = 8192
+# an H100, at 8 192 204 s of 1 213 s on a slow host (PERF.md): 4 096
+# keeps the script inside its limit there.
+PLAIN_N = 4096
 
 
 def against_plain(dev):
-    n, d, k, chunk = PLAIN_N, PRESETS["diabetes"][1], 256, 4096
+    n, d, k, chunk = PLAIN_N, PRESETS["diabetes"][1], 256, PLAIN_N // 2
     x = torch.from_numpy(make("mixture", n, d, seed=1)).to(dev)
     kw = dict(k=k, chunk_size=chunk, solver="auction_fused", device=dev)
     res = anticluster(x, **kw)
@@ -2098,8 +2127,8 @@ def check_hierarchical_phases(dev) -> dict:
 
 def hierarchical_against_plain(x, dev) -> dict:
     """Phase 4 on the hierarchical route: ``plan=(8, 16)`` on phase 4's
-    rows, dense and with ``chunk_size=4096`` (level 1 streamed in four
-    chunks), through the kernels and with every phase in the Python loop
+    rows, dense and with ``chunk_size=PLAIN_N // 2`` (level 1 streamed in
+    two chunks), through the kernels and with every phase in the Python loop
     (``forced_path("ref")``): labels bitwise equal.  Then ``batched=False``
     (a G = 1 solve a group) against the stacked levels: labels equal, or
     the first level-2 LAP that differs and what differs in it (the group's
@@ -2107,8 +2136,9 @@ def hierarchical_against_plain(x, dev) -> dict:
     either way both balanced with objectives within 1e-3 relative."""
     plan, k = (8, 16), 128
     out = {}
-    for name, xx, kw in (("dense", x, {}), ("chunk 4096", x,
-                                            {"chunk_size": 4096})):
+    chunk = PLAIN_N // 2
+    for name, xx, kw in (("dense", x, {}), (f"chunk {chunk}", x,
+                                            {"chunk_size": chunk})):
         n = xx.shape[0]
         laps1, laps2 = n // plan[0] - 1, n // plan[0] // plan[1] - 1
         res, kernel_s, used = user_call(xx, k, dev, plan=plan, **kw)
@@ -2410,7 +2440,8 @@ SESSION_EPOCHS = 3      # warm repartitions of each session
 DELTA_SHARE = 0.01      # the update's delta: rows removed, as many added
 DELTA_SEED = 9          # which rows leave
 DEFAULT_DIGEST = "65b9e33e025c4278"  # the default route's labels, runs 61-87
-PLAIN_SESSION_N = 16384  # (e): warm solves and updates against the plain path
+PLAIN_SESSION_N = 8192  # (e): warm solves and updates against the plain path
+#                          (16 384 until phase 16 came: 89 s of loops)
 HOST_WORK = (24, 1024)   # (d): float64 matmuls of this order, the host work
 
 
@@ -2617,7 +2648,7 @@ def sessions(dev, n: int, card: str, default: dict, stream: dict) -> dict:
     delta's fallback bitwise that repartition; (d)
     ``dispatch_repartition`` on (a)'s session, its ``wait()`` bitwise the
     synchronous call, with the host time it frees; (e) a warm
-    repartition and an update at n = 16 384 on the flat route and on
+    repartition and an update at n = 8 192 on the flat route and on
     ``plan=(8, 16)`` against the forced plain path; (f) the ``greedy`` and
     ``scipy`` solvers on the first LAP of the main data beside the
     auction."""
@@ -3043,6 +3074,77 @@ def measure_entry_kernels(dev, errs) -> list:
         f"{BOOST_SM_MHZ} MHz, {at_clock}, the SM clock read while calls ran "
         f"(max {max_clock} MHz)")
     return rows
+
+
+SSM_TRAIN_SHAPE = (2, 4096, 8192, 16)  # phase 16's layer: B, S, di, ds
+SSM_BWD_PLAIN_REPS = dict(reps=1, warmup=0)  # the plain walk: 4096 steps, 2 s
+SSM_BWD_REL = 1e-4  # of each gradient's max |.|: the sums' order differs
+SSM_BWD_FLOPS = 20  # a state and step: h again, g, the five terms, decay
+
+
+def check_and_measure_ssm_scan_bwd(dev) -> dict:
+    """The backward scan at phase 16's layer shape (falcon-mamba-7b's
+    width at S = 4 096) against ``ssm_scan_bwd_ref``: every gradient
+    within SSM_BWD_REL of its max |.|, a second launch bitwise the first;
+    the saving forward's y and h bitwise the serving launch's.  Then its
+    time, the plain walk's, the saving forward's beside the serving one,
+    and the bound: the bytes (dt, x, dy read, d(dt), dx written, the
+    saved states read; B, C and their gradients) against SSM_BWD_FLOPS
+    float32 operations a state and step, and its expf floor (one a state
+    and step) at the data sheet's clock."""
+    bsz, s, di, ds = SSM_TRAIN_SHAPE
+    gen = torch.Generator().manual_seed(16)
+    args = ssm_inputs(gen, SSM_TRAIN_SHAPE, dev)
+    dy = torch.randn((bsz, s, di), generator=gen).to(dev)
+    dh = torch.randn((bsz, di, ds), generator=gen).to(dev)
+    y, h, tiles = ssm_scan_train(*args)
+    y0, h0 = K.ssm_scan(*args)
+    check(torch.equal(y, y0) and torch.equal(h, h0),
+          "ssm_scan's saving launch differs from the serving launch")
+    got = ssm_scan_bwd(*args, tiles, dy, dh)
+    again = ssm_scan_bwd(*args, tiles, dy, dh)
+    check(all(torch.equal(g, a) for g, a in zip(got, again)),
+          "ssm_scan_bwd not repeatable bit for bit")
+    want = ssm_scan_bwd_ref(*args, dy, dh)
+    names = ("ddt", "db", "dc", "dx", "da")
+    errs, rels = {}, {}
+    for name, g, w in zip(names, got, want):
+        errs[name] = (g - w).abs().max().item()
+        rels[name] = errs[name] / w.abs().max().item()
+    check(max(rels.values()) <= SSM_BWD_REL,
+          f"ssm_scan_bwd against its plain version: {rels}")
+    del want, again
+    n = bsz * s * di * ds
+    n_bytes = 4 * (5 * bsz * s * di + 4 * bsz * s * ds
+                   + bsz * -(-s // 16) * di * ds + 2 * di * ds
+                   + 2 * bsz * di * ds)
+    b, by = bound_ms(n_bytes, SSM_BWD_FLOPS * n)
+    fn = lambda: ssm_scan_bwd(*args, tiles, dy, dh)  # noqa: E731
+    row = {"name": "ssm_scan_bwd", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/ssm_scan_bwd.cu",
+           "replaces": "src/repro/models/mamba.py:114 (the gradient of "
+                       "mamba_apply's lax.scan; ssm_scan.py:55 has none)",
+           "shape": "B={} S={} di={} ds={}".format(*SSM_TRAIN_SHAPE),
+           "max_abs_err": max(errs.values()), "max_rel_err": rels,
+           "ms": time_ms(fn), "device_ms": device_ms(fn, "ssm_scan_bwd"),
+           "plain_ms": time_ms(lambda: ssm_scan_bwd_ref(*args, dy, dh),
+                               **SSM_BWD_PLAIN_REPS),
+           "bound_ms": b, "bound_by": by,
+           "expf_floor_ms": n / (SMS * EX2_PER_CLOCK_PER_SM * BOOST_SM_MHZ
+                                 * 1e6) * 1e3,
+           "library_ms": None,
+           "saving_forward_ms": time_ms(lambda: ssm_scan_train(*args)),
+           "serving_forward_ms": time_ms(lambda: K.ssm_scan(*args))}
+    log(f"ssm_scan_bwd {row['shape']}: each gradient within "
+        f"{SSM_BWD_REL} of its max |.| of ssm_scan_bwd_ref ({rels}), "
+        f"max_abs_err {row['max_abs_err']:.3e}; repeatable bit for bit; "
+        f"kernel {row['ms']:.4f} ms (device {row['device_ms']} ms), plain "
+        f"{row['plain_ms']:.1f} ms, bound {b:.4f} ms ({by}), expf floor "
+        f"{row['expf_floor_ms']:.4f} ms at {BOOST_SM_MHZ} MHz; the forward "
+        f"saving its states every 16 steps {row['saving_forward_ms']:.4f} "
+        f"ms against {row['serving_forward_ms']:.4f} ms serving, y and h "
+        f"bitwise equal")
+    return row
 
 
 def sm_clock_mhz(fn) -> tuple[int | None, int]:
@@ -5009,6 +5111,202 @@ def front_ends(dev, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: training
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "falcon-mamba-7b"
+TRAIN_LAYERS = 32      # of 64: the deepest of 24 and 32 under TRAIN_PEAK_GIB
+#                        (peak 62.19 GiB in PERF.md's first run of phase 16)
+TRAIN_BATCH = (2, 4096)  # B, S: the reference's train_4k sequence, one card
+TRAIN_STEPS = 3
+TRAIN_PEAK_GIB = 70.0
+TRAIN_OPT = OptConfig(lr=3e-5, warmup_steps=1)  # the loss moves in 3 steps
+DENSE_TRAIN_ARCH = "smollm-360m"
+DENSE_TRAIN_PARAMS = 361_821_120  # its ModelConfig, all 32 layers
+DENSE_TRAIN_BATCH = (4, 2048)  # (b): microbatches 2 against 1
+LAUNCH_ARGS = ["--arch", "smollm-360m", "--steps", "6", "--batch", "8",
+               "--seq", "128", "--n-docs", "2048", "--log-every", "1",
+               "--device", "cuda"]  # (c), (d): the launcher's defaults
+# (c) writes no checkpoint on the straight run (4.3 GB a save at full
+# size); (d) takes two steps: phase 16 stays under a minute
+
+
+def train_timed(cfg, model, dev, tokens, steps: int, what: str,
+                mamba: int) -> tuple:
+    """``make_train_step``'s step as the launcher calls it, after one
+    warm-up step: the steps' wall (each ending in a synchronize), tokens/s,
+    the losses, the peak memory, ``ssm_scan`` twice and ``ssm_scan_bwd``
+    once a Mamba layer a step (``mamba`` of them), then one step profiled
+    (device ms by kernel, the idle share).  Returns (model, log dict)."""
+    b, s = tokens.shape
+    step = make_train_step(cfg, None, TRAIN_OPT, loss_chunk=512)
+    opt = adamw_init(model)
+    batch = {"tokens": tokens}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model, opt, m = step(model, opt, batch)
+    first = m["loss"].item()
+    first_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    walls, losses, moves = [], [], []
+    for _ in range(steps):
+        reset_counts()
+        t0 = time.perf_counter()
+        model, opt, m = step(model, opt, batch)
+        losses.append(m["loss"].item())  # reads the loss: a synchronize
+        walls.append(time.perf_counter() - t0)
+        moves.append({k: v for k, v in counts().items()
+                      if k in _build.launches})
+    peak = torch.cuda.max_memory_allocated()
+    for used in moves:
+        check(used["ssm_scan"] == 2 * mamba and used["ssm_scan_bwd"] == mamba
+              and all(v == 0 for k, v in used.items()
+                      if k not in ("ssm_scan", "ssm_scan_bwd")),
+              f"({what}) a step launched {used} ({mamba} Mamba layers)")
+    check(all(math.isfinite(x) for x in [first] + losses)
+          and losses[-1] < first, f"({what}) losses {first}, {losses}")
+    prof = call_kernel_ms(None, None, dev, "ssm_scan", call=lambda: step(
+        model, opt, batch), names=("ssm_scan_kernel", "ssm_scan_bwd_kernel"))
+    wall = statistics.median(walls)
+    out = {"first_step_s": first_s, "first_loss": first, "losses": losses,
+           "step_s": walls, "step_s_median": wall,
+           "tokens_per_s": b * s / wall, "max_memory_allocated": peak,
+           "launches_per_step": moves[0], "profiled_step": prof,
+           "idle_share": 1.0 - prof["device_ms"] / 1e3 / wall,
+           "grad_norm": m["grad_norm"].item()}
+    log(f"({what}) {TRAIN_STEPS} train steps (B={b}, S={s}) after a warm-up "
+        f"step ({first_s:.2f} s): {', '.join(f'{w:.3f}' for w in walls)} s "
+        f"({out['tokens_per_s']:.0f} tokens/s); loss {first:.4f} -> "
+        f"{', '.join(f'{x:.4f}' for x in losses)}; peak "
+        f"{peak / 2**30:.2f} GiB; launches a step {moves[0]}")
+    log(f"  a profiled step: device {prof['device_ms']:.1f} ms in "
+        f"{prof['launches']} launches (idle share {out['idle_share']:.3f}); "
+        + "; ".join(f"{k} {v['ms']:.2f} ms/{v['launches']}"
+                    for k, v in prof["named"].items()) + "; by kernel: "
+        + "; ".join(f"{k} {v['ms']:.2f} ms/{v['launches']}"
+                    for k, v in prof["kernels"].items()))
+    return model, out
+
+
+def dense_microbatches(dev) -> dict:
+    """(b) smollm-360m at full size: one step with microbatches 2 against
+    1 from the same weights, at the reference's own tolerances (its
+    tests/test_train.py: the loss within 1e-2, every parameter within
+    rtol 2e-2 / atol 2e-3), each step timed."""
+    vocab = model_registry.get_config(DENSE_TRAIN_ARCH).vocab_size
+    tokens = torch.from_numpy(lm_token_stream(
+        *DENSE_TRAIN_BATCH, vocab, seed=162)[0]).long().to(dev)
+    ocfg = OptConfig(lr=1e-3, warmup_steps=0, decay_steps=10, grad_clip=0.0)
+    out, params = {}, {}
+    for mb in (1, 2):
+        cfg, model, a = draw_model(dev, DENSE_TRAIN_ARCH, DENSE_TRAIN_PARAMS,
+                                   "b")
+        step = make_train_step(cfg, None, ocfg, microbatches=mb,
+                               loss_chunk=512)
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model, _, m = step(model, adamw_init(model), {"tokens": tokens})
+        loss = m["loss"].item()
+        out[mb] = {"loss": loss, "step_s": time.perf_counter() - t0,
+                   "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                   "params": a["params"]}
+        params[mb] = [p.detach() for p in model.parameters()]
+        del model
+    diffs = [((p - q).abs() - 2e-3 - 2e-2 * q.abs()).max().item()
+             for p, q in zip(params[2], params[1])]
+    check(abs(out[1]["loss"] - out[2]["loss"]) < 1e-2 and max(diffs) <= 0,
+          f"(b) microbatches 2 against 1: {out}, worst excess {max(diffs)}")
+    del params
+    torch.cuda.empty_cache()
+    log(f"(b) smollm-360m ({out[1]['params']} parameters), B, S = "
+        f"{DENSE_TRAIN_BATCH}: one step with microbatches 1: loss "
+        f"{out[1]['loss']:.5f}, {out[1]['step_s']:.3f} s (first step), peak "
+        f"{out[1]['max_memory_allocated'] / 2**30:.2f} GiB; microbatches 2: "
+        f"loss {out[2]['loss']:.5f}, {out[2]['step_s']:.3f} s, peak "
+        f"{out[2]['max_memory_allocated'] / 2**30:.2f} GiB; every parameter "
+        f"within rtol 2e-2 / atol 2e-3 (worst margin {-max(diffs):.2e})")
+    return out
+
+
+def launcher_runs(dev) -> dict:
+    """(c) ``launch.train.main --aba-batching`` on smollm-360m at full
+    size: 6 steps straight, then 3 with ``--stop-after`` and a resume from
+    the checkpoint; the last losses bitwise equal.  (d) ``--grad-compression
+    --dp 2``: both data shards on the one card."""
+    root = os.path.join(ROOT, "build", "phase16_ckpt")
+    shutil.rmtree(root, ignore_errors=True)
+    out = {}
+    try:
+        for name, extra in (
+                ("straight", ["--aba-batching"]),
+                ("stopped", ["--aba-batching", "--ckpt-dir", root,
+                             "--stop-after", "3"]),
+                ("resumed", ["--aba-batching", "--ckpt-dir", root]),
+                ("compressed", ["--grad-compression", "--dp", "2",
+                                "--steps", "2"])):
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            loss = launch_train.main(LAUNCH_ARGS + extra)
+            out[name] = {"last_loss": loss,
+                         "seconds": time.perf_counter() - t0,
+                         "launches": {k: v for k, v in counts().items()
+                                      if k in _build.launches}}
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    check(out["resumed"]["last_loss"] == out["straight"]["last_loss"]
+          and all(math.isfinite(r["last_loss"]) for r in out.values())
+          and out["straight"]["launches"]["auction_phase_dense"] > 0,
+          f"(c), (d) the launcher: {out}")
+    log(f"(c) the launcher, 6 steps straight {out['straight']['seconds']:.2f}"
+        f" s, last loss {out['straight']['last_loss']!r}; 3 steps and a "
+        f"checkpoint {out['stopped']['seconds']:.2f} s, the resume "
+        f"{out['resumed']['seconds']:.2f} s, last loss "
+        f"{out['resumed']['last_loss']!r}: bitwise equal; launches "
+        f"{out['straight']['launches']}")
+    log(f"(d) --grad-compression --dp 2 on the one card: "
+        f"{out['compressed']['seconds']:.2f} s, last loss "
+        f"{out['compressed']['last_loss']:.4f}")
+    return out
+
+
+def training(dev, card: str) -> dict:
+    """Phase 16: training on the card."""
+    t_start = time.perf_counter()
+    torch.cuda.empty_cache()
+    out = {"live_at_start_bytes": torch.cuda.memory_allocated(),
+           "card": card}
+    full = model_registry.get_config(TRAIN_ARCH)
+    want = MT.n_params(dataclasses.replace(full, n_layers=TRAIN_LAYERS))
+    cfg, model, a = draw_model(dev, TRAIN_ARCH, want, "a",
+                               n_layers=TRAIN_LAYERS)
+    a["training_state_bytes"] = 16 * a["params"]
+    tokens = torch.from_numpy(lm_token_stream(
+        *TRAIN_BATCH, cfg.vocab_size, seed=161)[0]).long().to(dev)
+    a_log0 = model.blocks[0]["L0"].attn.a_log.detach().clone()
+    model, a["steps"] = train_timed(cfg, model, dev, tokens, TRAIN_STEPS,
+                                    "a", cfg.n_layers)
+    moved = (model.blocks[0]["L0"].attn.a_log - a_log0).abs().max().item()
+    check(moved > 0, "(a) a_log did not move: no gradient through the scan")
+    check(a["steps"]["max_memory_allocated"] < TRAIN_PEAK_GIB * 2**30,
+          f"(a) peak {a['steps']['max_memory_allocated'] / 2**30:.2f} GiB")
+    log(f"  layer 0's a_log (its gradient only through the scan) moved by "
+        f"up to {moved:.3e}; training state {a['training_state_bytes'] / 2**30:.2f}"
+        f" GiB (16 B a parameter)")
+    out["a"] = a
+    del model, tokens, a_log0
+    torch.cuda.empty_cache()
+    out["b"] = dense_microbatches(dev)
+    out["c"] = launcher_runs(dev)
+    out["live_at_end_bytes"] = torch.cuda.memory_allocated()
+    out["seconds"] = time.perf_counter() - t_start
+    log(f"phase 16: {out['seconds']:.1f} s")
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=PRESETS["diabetes"][0],
@@ -5078,7 +5376,8 @@ def main():
     hier_checks["mesh_laps"] = check_mesh_laps(dev)
     errs = check_entry_kernels(dev, torch.Generator().manual_seed(4))
     entry_rows = measure_entry_kernels(dev, errs)
-    rows = solve_rows + [dense_row] + entry_rows
+    bwd_row = check_and_measure_ssm_scan_bwd(dev)
+    rows = solve_rows + [dense_row] + entry_rows + [bwd_row]
     log_rows(rows)
 
     phase("phase 3: the main path")
@@ -5180,6 +5479,18 @@ def main():
             arch: run["b"]["kernel_launches"][r["name"]]
             for arch, run in ((VLM_ARCH, front_run["a"]),
                               (AUDIO_ARCH, front_run["c"]))}
+    phase("phase 16: training")
+    train_run = training(dev, smi)
+    per_step = train_run["a"]["steps"]["launches_per_step"]
+    for r in rows:
+        r["launches_phase16"] = {
+            f"{TRAIN_ARCH} a step": per_step[r["name"]],
+            **{f"launcher {k}": v["launches"][r["name"]]
+               for k, v in train_run["c"].items()}}
+        if r["name"] == "ssm_scan_bwd":
+            r["launches"] = per_step["ssm_scan_bwd"]
+            r["launches_in"] = (f"phase 16: make_train_step on {TRAIN_ARCH},"
+                                " one a Mamba layer a step")
     phase("done")
 
     log(json.dumps({"main_path": main_run, "against_plain": plain_run,
@@ -5191,7 +5502,8 @@ def main():
                     "sessions": session_run, "consumers": consumer_run,
                     "mesh_pipeline_baselines": mesh_run_,
                     "model_stack": model_run, "dense_stack": dense_run,
-                    "moe_stack": moe_run, "front_ends": front_run}))
+                    "moe_stack": moe_run, "front_ends": front_run,
+                    "training": train_run}))
     log(smi)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

@@ -13,12 +13,15 @@ of it: :class:`AnticlusterEngine` (warm ``repartition``,
 ``repro_torch.launch.make_host_mesh``) with its sharded sessions; and the
 consumers: ``repro_torch.data`` (the mini-batch sequencer, K-fold
 cross-validation), ``repro_torch.train`` (the overlapped mini-batch
-pipeline), ``repro_torch.serve`` (the serving router) and
+pipeline, and training: AdamW, the train step, checkpoints, int8
+gradient compression; the launcher ``repro_torch.launch.train``),
+``repro_torch.serve`` (the serving router) and
 ``repro_torch.obs`` (tracing, solver telemetry, memory profiles).  The
 paper's baselines are host code in ``repro_torch.core.baselines``.  The
-model stack serves the SSM family (``repro_torch.models``: the configs of
-the ten architectures, falcon-mamba-7b's model, whose prefill runs the
-``ssm_scan`` kernel; ``repro_torch.serve.Generator``).  Entry points run
+model stack (``repro_torch.models``: the configs of the ten
+architectures and their models, whose Mamba layers run the ``ssm_scan``
+kernel, and in training ``ssm_scan_bwd``) serves through
+``repro_torch.serve.Generator`` and trains.  Entry points run
 on the CUDA device unless ``device="cpu"`` is passed.  The front door is
 ``from repro_torch.anticluster import anticluster``, as in the JAX package.
 """

@@ -71,3 +71,20 @@ def load(name: str, seed: int = 0, max_n: int | None = None) -> np.ndarray:
     if max_n:
         n = min(n, max_n)
     return make(kind, n, d, seed=seed)
+
+
+def lm_token_stream(n_docs: int, seq_len: int, vocab: int, seed: int = 0,
+                    n_topics: int = 16):
+    """Synthetic LM corpus with topic structure: each doc draws a topic, and
+    tokens follow a topic-specific Zipf over a topic-local vocabulary slice.
+    Returns (tokens (n_docs, seq_len) int32, doc_features (n_docs, n_topics)
+    float32) -- the features are the embeddings ABA batches on."""
+    rng = np.random.default_rng(seed)
+    topics = rng.integers(0, n_topics, size=n_docs)
+    mix = rng.dirichlet(np.ones(n_topics) * 0.3, size=n_docs)
+    mix[np.arange(n_docs), topics] += 1.0
+    mix /= mix.sum(1, keepdims=True)
+    base = rng.zipf(1.5, size=(n_docs, seq_len)).astype(np.int64)
+    offset = (topics * (vocab // n_topics))[:, None]
+    tokens = (offset + (base % (vocab // n_topics))).astype(np.int32)
+    return tokens, mix.astype(np.float32)

@@ -55,6 +55,10 @@
 //     the time-major (C, B, .) layouts run without a transposed copy.
 //   * exp is expf (not __expf), the arithmetic fp32; the sum order of y_t
 //     differs from the reference's, hence a tolerance, not bitwise equality.
+//   * For training, the instantiation with kSave writes h as it enters each
+//     tile (every kSteps steps) to h_tiles (B, ceil(S / kSteps), di, ds):
+//     the states csrc/ssm_scan_bwd.cu recomputes a tile's h from.  Serving
+//     runs the instantiation without it, which writes nothing more.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -125,12 +129,13 @@ __device__ __forceinline__ void load_vec(const float* p, float (&v)[V]) {
   }
 }
 
-template <int Q>
+template <int Q, bool kSave>
 __global__ void __launch_bounds__(32 * Ring<Q>::kWarps)
 ssm_scan_kernel(const float* __restrict__ dt, const float* __restrict__ bm,
                 const float* __restrict__ cm, const float* __restrict__ x,
                 const float* __restrict__ a, const float* __restrict__ h0,
-                float* __restrict__ y, float* __restrict__ h_out, int S,
+                float* __restrict__ y, float* __restrict__ h_out,
+                float* __restrict__ h_tiles, int S,
                 int di, int ds, int64_t st_t, int64_t st_b, int64_t sb_t,
                 int64_t sb_b, int blocks) {
   using R = Ring<Q>;
@@ -238,6 +243,12 @@ ssm_scan_kernel(const float* __restrict__ dt, const float* __restrict__ bm,
   const int cl = lane / kLanes;
 
   for (int tile = 0; tile < ntiles; ++tile) {
+    if constexpr (kSave) {  // the state entering this tile
+      float* hp = h_tiles + ((static_cast<int64_t>(b) * ntiles + tile) * di + i) * ds;
+#pragma unroll
+      for (int q = 0; q < Q; ++q)
+        if (live && half * Q + q < ds) hp[half * Q + q] = h[q];
+    }
     if (tile + kStages - 1 < ntiles) fetch(tile + kStages - 1);
     wait_phase(bar + tile % kStages, (tile / kStages) & 1);
     const float* dxs = ring + (tile % kStages) * R::kStage;
@@ -275,55 +286,73 @@ ssm_scan_kernel(const float* __restrict__ dt, const float* __restrict__ bm,
   }
 }
 
-template <int Q>
-cudaError_t launch(cudaStream_t stream, const float* dt, const float* bm,
-                   const float* cm, const float* x, const float* a,
-                   const float* h0, float* y, float* h_out, int B, int S,
-                   int di, int ds, int64_t st_t, int64_t st_b, int64_t sb_t,
-                   int64_t sb_b) {
+template <int Q, bool kSave>
+cudaError_t launch_as(cudaStream_t stream, const float* dt, const float* bm,
+                      const float* cm, const float* x, const float* a,
+                      const float* h0, float* y, float* h_out, float* h_tiles,
+                      int B, int S, int di, int ds, int64_t st_t, int64_t st_b,
+                      int64_t sb_t, int64_t sb_b) {
   const cudaError_t err = cudaFuncSetAttribute(
-      ssm_scan_kernel<Q>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ssm_scan_kernel<Q, kSave>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(Ring<Q>::kBytes));
   if (err != cudaSuccess) return err;
   const int blocks = (di + Ring<Q>::kChannels - 1) / Ring<Q>::kChannels;
   if (static_cast<int64_t>(blocks) * B > INT32_MAX)
     return cudaErrorInvalidConfiguration;
-  ssm_scan_kernel<Q><<<blocks * B, 32 * Ring<Q>::kWarps, Ring<Q>::kBytes, stream>>>(
-      dt, bm, cm, x, a, h0, y, h_out, S, di, ds, st_t, st_b, sb_t, sb_b,
-      blocks);
+  ssm_scan_kernel<Q, kSave>
+      <<<blocks * B, 32 * Ring<Q>::kWarps, Ring<Q>::kBytes, stream>>>(
+          dt, bm, cm, x, a, h0, y, h_out, h_tiles, S, di, ds, st_t, st_b,
+          sb_t, sb_b, blocks);
   return cudaGetLastError();
+}
+
+template <int Q>
+cudaError_t launch(cudaStream_t stream, const float* dt, const float* bm,
+                   const float* cm, const float* x, const float* a,
+                   const float* h0, float* y, float* h_out, float* h_tiles,
+                   int B, int S, int di, int ds, int64_t st_t, int64_t st_b,
+                   int64_t sb_t, int64_t sb_b) {
+  return h_tiles == nullptr
+      ? launch_as<Q, false>(stream, dt, bm, cm, x, a, h0, y, h_out, h_tiles,
+                            B, S, di, ds, st_t, st_b, sb_t, sb_b)
+      : launch_as<Q, true>(stream, dt, bm, cm, x, a, h0, y, h_out, h_tiles,
+                           B, S, di, ds, st_t, st_b, sb_t, sb_b);
 }
 
 }  // namespace
 
 // dt, x, y: element (t, b, i) at t * st_t + b * st_b + i; bm, cm: (t, b, s)
 // at t * sb_t + b * sb_b + s; a (di, ds); h0 (B, di, ds) or null for zeros;
-// h_out (B, di, ds).  All float32, d_state <= 64.  Launches on
-// `stream` and returns the launch's cudaError_t (0 on success).
+// h_out (B, di, ds); h_tiles (B, n_tiles, di, ds) with n_tiles =
+// ceil(S / 16), or null for serving.  All float32, d_state <= 64.
+// Launches on `stream` and returns the launch's cudaError_t (0 on success).
 extern "C" int ssm_scan_f32(const float* dt, const float* bm, const float* cm,
                             const float* x, const float* a, const float* h0,
-                            float* y, float* h_out, int B, int S, int di,
-                            int ds, int64_t st_t, int64_t st_b, int64_t sb_t,
+                            float* y, float* h_out, float* h_tiles,
+                            int n_tiles, int B, int S, int di, int ds,
+                            int64_t st_t, int64_t st_b, int64_t sb_t,
                             int64_t sb_b, void* stream) {
   if (B <= 0 || di <= 0 || ds <= 0) return 0;
   if (ds > 32 * kLanes || ds > 64) return static_cast<int>(cudaErrorInvalidValue);
+  if (h_tiles != nullptr && n_tiles != (S + kSteps - 1) / kSteps)
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (ds <= 2 * kLanes) {
-    err = launch<2>(s, dt, bm, cm, x, a, h0, y, h_out, B, S, di, ds, st_t,
-                    st_b, sb_t, sb_b);
+    err = launch<2>(s, dt, bm, cm, x, a, h0, y, h_out, h_tiles, B, S, di,
+                    ds, st_t, st_b, sb_t, sb_b);
   } else if (ds <= 4 * kLanes) {
-    err = launch<4>(s, dt, bm, cm, x, a, h0, y, h_out, B, S, di, ds, st_t,
-                    st_b, sb_t, sb_b);
+    err = launch<4>(s, dt, bm, cm, x, a, h0, y, h_out, h_tiles, B, S, di,
+                    ds, st_t, st_b, sb_t, sb_b);
   } else if (ds <= 8 * kLanes) {
-    err = launch<8>(s, dt, bm, cm, x, a, h0, y, h_out, B, S, di, ds, st_t,
-                    st_b, sb_t, sb_b);
+    err = launch<8>(s, dt, bm, cm, x, a, h0, y, h_out, h_tiles, B, S, di,
+                    ds, st_t, st_b, sb_t, sb_b);
   } else if (ds <= 16 * kLanes) {
-    err = launch<16>(s, dt, bm, cm, x, a, h0, y, h_out, B, S, di, ds, st_t,
-                     st_b, sb_t, sb_b);
+    err = launch<16>(s, dt, bm, cm, x, a, h0, y, h_out, h_tiles, B, S, di,
+                     ds, st_t, st_b, sb_t, sb_b);
   } else {
-    err = launch<32>(s, dt, bm, cm, x, a, h0, y, h_out, B, S, di, ds, st_t,
-                     st_b, sb_t, sb_b);
+    err = launch<32>(s, dt, bm, cm, x, a, h0, y, h_out, h_tiles, B, S, di,
+                     ds, st_t, st_b, sb_t, sb_b);
   }
   return static_cast<int>(err);
 }

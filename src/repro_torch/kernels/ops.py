@@ -26,9 +26,15 @@ kernel above it, the reference's dispatch table.  (The reference's jnp path
 wraps a negative index the numpy way instead of clipping it; its Pallas
 kernels clip, and so does every path here.)
 
-``ssm_scan`` is the selective scan the Mamba block's prefill runs (the
-counterpart of ``ssm_scan_pallas``): one launch over the whole sequence on
-the card, the step-by-step ``ref.ssm_scan_ref`` on the plain path.
+``ssm_scan`` is the selective scan the Mamba block runs (the counterpart
+of ``ssm_scan_pallas``): one launch over the whole sequence on the card,
+the step-by-step ``ref.ssm_scan_ref`` on the plain path.  It is an
+autograd Function on both paths: where grad is enabled and an input
+requires it, the card's launch also saves the state entering every tile
+of 16 steps, and the backward is one launch of ``csrc/ssm_scan_bwd.cu``
+(``ref.ssm_scan_bwd_ref``, the same reverse walk written out, on the
+plain path).  Otherwise it launches what serving launches and keeps
+nothing.
 """
 
 from __future__ import annotations
@@ -47,8 +53,11 @@ from repro_torch.kernels.cdist import cdist as _cdist
 from repro_torch.kernels.ref import (auction_phase_dense_ref,
                                      auction_phase_ref, bid_top2_ref,
                                      bid_top2_span_ref, cdist_ref,
-                                     gather_rows_ref, ssm_scan_ref)
+                                     gather_rows_ref, ssm_scan_bwd_ref,
+                                     ssm_scan_ref)
 from repro_torch.kernels.ssm_scan import ssm_scan as _ssm_scan
+from repro_torch.kernels.ssm_scan import ssm_scan_bwd as _ssm_scan_bwd
+from repro_torch.kernels.ssm_scan import ssm_scan_train as _ssm_scan_train
 
 _GATHER_FUSE_MAX_D = 512  # the reference's full-row limit of the fused kernels
 
@@ -169,10 +178,46 @@ def auction_phase_dense(cost: torch.Tensor, prices, eps, max_rounds: int,
                                 skip, seed_top2, return_rounds)
 
 
+class SSMScan(torch.autograd.Function):
+    """:func:`ssm_scan` with its gradient.  ``path`` is the dispatch's
+    (``"cuda"`` or ``"ref"``); ``save`` whether a backward will follow,
+    decided by the caller, since grad is off inside ``forward``."""
+
+    @staticmethod
+    def forward(ctx, path, save, dt, b_in, c_out, x_in, a_mat):
+        states = None
+        if path == "ref":
+            out = ssm_scan_ref(dt, b_in, c_out, x_in, a_mat)
+        elif save:
+            y, h, states = _ssm_scan_train(dt, b_in, c_out, x_in, a_mat)
+            out = (y, h)
+        else:
+            out = _ssm_scan(dt, b_in, c_out, x_in, a_mat)
+        if save:
+            ctx.path = path
+            ctx.save_for_backward(dt, b_in, c_out, x_in, a_mat, states)
+        return out
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        dt, b_in, c_out, x_in, a_mat, states = ctx.saved_tensors
+        bsz, di, ds = dt.shape[0], *a_mat.shape
+        dy = torch.zeros_like(dt) if dy is None else dy.contiguous()
+        dh = (dt.new_zeros((bsz, di, ds)) if dh is None
+              else dh.contiguous())
+        if ctx.path == "ref":
+            grads = ssm_scan_bwd_ref(dt, b_in, c_out, x_in, a_mat, dy, dh)
+        else:
+            grads = _ssm_scan_bwd(dt, b_in, c_out, x_in, a_mat, states, dy,
+                                  dh)[:5]
+        return (None, None, *grads)
+
+
 def ssm_scan(dt: torch.Tensor, b_in, c_out, x_in, a_mat):
     """The selective scan from ``h0 = 0``: dt, x_in (B, S, di); b_in, c_out
     (B, S, ds); a_mat (di, ds) -> (y (B, S, di), h_final (B, di, ds)), all
-    float32 (see ``kernels.ssm_scan.ssm_scan``)."""
-    if resolve_path(dt) == "ref":
-        return ssm_scan_ref(dt, b_in, c_out, x_in, a_mat)
-    return _ssm_scan(dt, b_in, c_out, x_in, a_mat)
+    float32 (see ``kernels.ssm_scan.ssm_scan``), through :class:`SSMScan`:
+    differentiable in all five inputs."""
+    args = (dt, b_in, c_out, x_in, a_mat)
+    save = torch.is_grad_enabled() and any(t.requires_grad for t in args)
+    return SSMScan.apply(resolve_path(dt), save, *args)

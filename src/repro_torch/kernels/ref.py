@@ -130,6 +130,12 @@ def bid_top2_gather_ref(x: torch.Tensor, idx: torch.Tensor, c: torch.Tensor,
     return bid_top2_ref(gather_rows_ref(x, idx), c, prices)
 
 
+def _wide(t: torch.Tensor) -> torch.Tensor:
+    """float32, or float64 where it already is: the scan's plain versions
+    keep float64 for ``torch.autograd.gradcheck``."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
 def ssm_scan_chunk_ref(dt, b_in, c_out, x_in, a_mat, h0):
     """The selective scan in time-major layout, one step at a time:
     ``h_t = exp(dt_t A) * h_{t-1} + (dt_t x_t) B_t``, ``y_t = <h_t, C_t>``.
@@ -137,14 +143,14 @@ def ssm_scan_chunk_ref(dt, b_in, c_out, x_in, a_mat, h0):
     dt, x_in (C, B, di); b_in, c_out (C, B, ds); a_mat (di, ds); h0
     (B, di, ds).  Returns (y (C, B, di), h_final (B, di, ds)).
     """
-    a = a_mat.float()
-    h = h0.float().clone()
+    a = _wide(a_mat)
+    h = _wide(h0).clone()
     ys = []
     for t in range(dt.shape[0]):
-        dt_t = dt[t].float()
+        dt_t = _wide(dt[t])
         da = torch.exp(dt_t[:, :, None] * a[None])
-        h = h * da + (dt_t * x_in[t].float())[:, :, None] * b_in[t].float()[:, None, :]
-        ys.append((h * c_out[t].float()[:, None, :]).sum(dim=-1))
+        h = h * da + (dt_t * _wide(x_in[t]))[:, :, None] * _wide(b_in[t])[:, None, :]
+        ys.append((h * _wide(c_out[t])[:, None, :]).sum(dim=-1))
     y = (torch.stack(ys) if ys else
          torch.zeros(dt.shape, dtype=torch.float32, device=dt.device))
     return y, h
@@ -160,6 +166,68 @@ def ssm_scan_ref(dt, b_in, c_out, x_in, a_mat):
     y, h = ssm_scan_chunk_ref(*(t.transpose(0, 1) for t in
                                 (dt, b_in, c_out, x_in)), a_mat, h0)
     return y.transpose(0, 1).contiguous(), h
+
+
+def ssm_scan_chunk_bwd_ref(dt, b_in, c_out, x_in, a_mat, h0, dy, dh):
+    """The selective scan's gradient in time-major layout, step by step.
+
+    The forward recurrence again for every ``h_{t-1}``, then the reverse
+    walk ``g_t = dy_t C_t + exp(dt_{t+1} A) g_{t+1}`` (``g_t``: the loss's
+    gradient with respect to ``h_t``), seeded with ``dh`` (its gradient
+    with respect to h_final); with ``w_t = g_t h_{t-1} exp(dt_t A)`` and
+    ``du_t = <g_t, B_t>``, the step's terms are ``dC_t = sum_i dy_t h_t``,
+    ``dB_t = sum_i g_t dt_t x_t``, ``dx_t = du_t dt_t``, ``d(dt)_t = du_t
+    x_t + <w_t, A>`` and ``dA += w_t dt_t`` (over batch and time).
+
+    dt, x_in, dy (C, B, di); b_in, c_out (C, B, ds); a_mat (di, ds); h0,
+    dh (B, di, ds).  Returns (ddt, db, dc, dx, da, dh0) of the inputs'
+    shapes, float32 (float64 for float64 inputs).  The plain version of ``csrc/ssm_scan_bwd.cu``
+    (written out, not autograd of :func:`ssm_scan_chunk_ref`).
+    """
+    a = _wide(a_mat)
+    hs = [_wide(h0)]
+    for t in range(dt.shape[0]):
+        dt_t = _wide(dt[t])
+        hs.append(hs[-1] * torch.exp(dt_t[:, :, None] * a)
+                  + (dt_t * _wide(x_in[t]))[:, :, None]
+                  * _wide(b_in[t])[:, None, :])
+    g_next = _wide(dh).clone()
+    da = torch.zeros_like(a)
+    ddt, db, dc, dx = ([None] * dt.shape[0] for _ in range(4))
+    for t in reversed(range(dt.shape[0])):
+        dt_t, x_t, dy_t = _wide(dt[t]), _wide(x_in[t]), _wide(dy[t])
+        b_t, c_t = _wide(b_in[t]), _wide(c_out[t])
+        decay = torch.exp(dt_t[:, :, None] * a)
+        g = dy_t[:, :, None] * c_t[:, None, :] + g_next
+        dc[t] = (dy_t[:, :, None] * hs[t + 1]).sum(1)
+        db[t] = (g * (dt_t * x_t)[:, :, None]).sum(1)
+        du = (g * b_t[:, None, :]).sum(-1)
+        w = g * hs[t] * decay
+        da = da + (w * dt_t[:, :, None]).sum(0)
+        ddt[t] = du * x_t + (w * a).sum(-1)
+        dx[t] = du * dt_t
+        g_next = decay * g
+
+    def stack(parts, like):
+        return (torch.stack(parts) if parts else
+                torch.zeros(like.shape, dtype=a.dtype, device=like.device))
+
+    return (stack(ddt, dt), stack(db, b_in), stack(dc, c_out), stack(dx, x_in),
+            da, g_next)
+
+
+def ssm_scan_bwd_ref(dt, b_in, c_out, x_in, a_mat, dy, dh):
+    """The gradient of :func:`ssm_scan_ref` (from ``h0 = 0``): dt, x_in, dy
+    (B, S, di); b_in, c_out (B, S, ds); a_mat (di, ds); dh (B, di, ds) ->
+    (ddt, db, dc, dx, da), float32, by :func:`ssm_scan_chunk_bwd_ref`."""
+    bsz, _, di = dt.shape
+    h0 = torch.zeros((bsz, di, a_mat.shape[1]), dtype=_wide(a_mat).dtype,
+                     device=dt.device)
+    ddt, db, dc, dx, da, _ = ssm_scan_chunk_bwd_ref(
+        *(t.transpose(0, 1) for t in (dt, b_in, c_out, x_in)), a_mat, h0,
+        dy.transpose(0, 1), dh)
+    return (*(t.transpose(0, 1).contiguous() for t in (ddt, db, dc, dx)),
+            da)
 
 
 def auction_rounds(top2_fn, prices, eps, max_rounds: int,

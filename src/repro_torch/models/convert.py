@@ -1,8 +1,10 @@
-"""The reference's parameter tree -> the port's :class:`Model`.
+"""The reference's parameter tree <-> the port's :class:`Model`.
 
 Parity with ``repro.models`` goes through here: the port draws its own
 weights (departure P8), so the tests hand the reference's ``init_params``
 tree, as nested dicts of numpy arrays, to :func:`params_from_jax`.
+:func:`params_to_numpy` is the way back, the reference's stacked leaves
+(checkpoints write them).
 """
 
 from __future__ import annotations
@@ -37,3 +39,19 @@ def params_from_jax(cfg, tree: dict, *, device=None) -> Model:
             a = arrays[path] if block is None else arrays[path][block]
             p.copy_(torch.tensor(a))
     return model
+
+
+def params_to_numpy(model: Model) -> dict:
+    """``{reference path: numpy array}`` of ``model``'s parameters, each
+    block leaf stacked on a leading ``n_blocks`` axis (``model_defs``'
+    shapes), the paths in the reference's flattening order (sorted)."""
+    parts: dict = {}
+    for path, block, p in model.leaves():
+        a = p.detach().cpu().numpy()
+        if block is None:
+            parts[path] = a
+        else:
+            parts.setdefault(path, []).append(a)
+    return {path: (np.stack(parts[path]) if isinstance(parts[path], list)
+                   else parts[path])
+            for path in sorted(parts, key=lambda k: k.split("/"))}

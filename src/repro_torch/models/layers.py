@@ -36,7 +36,8 @@ class PD(NamedTuple):
 
 def register(module: nn.Module, defs: dict, *, device, dtype) -> None:
     """Give ``module`` one uninitialised parameter per ``PD`` of ``defs``,
-    under the definition's name (serving only: no gradient)."""
+    under the definition's name, without a gradient: serving records none;
+    ``train.train_step``'s step turns the model's gradients on."""
     for name, pd in defs.items():
         module.register_parameter(name, nn.Parameter(
             torch.empty(pd.shape, device=device, dtype=dtype),

@@ -7,9 +7,13 @@ card one launch of the hand-written kernel (``kernels/csrc/ssm_scan.cu``),
 under ``ops.forced_path("ref")`` or on the CPU its plain version.  The
 reference's ``scan_chunk`` (timesteps unrolled per ``lax.scan`` step, and
 ``chunk = 1`` where it does not divide S) changes nothing in the math and
-has no counterpart: the launch covers any S.  Decode keeps (conv window,
-ssm state) and takes one step in plain torch.  The scan, its state and its
-inputs are float32 whatever the compute dtype.
+has no counterpart: the launch covers any S.  In training the same call
+is differentiable: ``ops.ssm_scan`` is an autograd Function whose backward
+is one launch of ``kernels/csrc/ssm_scan_bwd.cu``, so every gradient that
+flows through the scan (``in_proj``'s x half, the conv, ``x_proj``,
+``dt_w``, ``dt_b``, ``a_log``) reaches its parameter.  Decode keeps (conv
+window, ssm state) and takes one step in plain torch.  The scan, its
+state and its inputs are float32 whatever the compute dtype.
 """
 
 from __future__ import annotations

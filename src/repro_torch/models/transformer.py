@@ -1,5 +1,7 @@
 """The model stack: parameter metadata -> the module and its initialisation,
-and the three execution modes (forward, prefill, decode) over the blocks.
+the three execution modes (forward, prefill, decode) over the blocks, and
+the training loss ``lm_loss`` (its vocab projection in checkpointed
+chunks, each block under ``torch.utils.checkpoint`` when ``cfg.remat``).
 
 Counterpart of ``repro/models/transformer.py`` for the SSM family
 (``mixer="mamba"``: falcon-mamba-7b), the dense attention family
@@ -34,6 +36,7 @@ import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import resolve_device
 from repro_torch.models import layers as L
@@ -330,17 +333,36 @@ def _apply_layer(cfg, layer: Layer, x, positions, *, mode="train",
     return x
 
 
+def _run_block(cfg, block, x, positions, enc_out, mode="train", cache=None,
+               kv_len=None, b=0):
+    """One block's layers in order; block ``b`` of the cache."""
+    for key, layer in block.items():
+        x = _apply_layer(
+            cfg, layer, x, positions, mode=mode, kv_len=kv_len,
+            enc_out=enc_out, cache=None if cache is None else {
+                n: t[b] for n, t in cache[key].items()})
+    return x
+
+
 def _run_blocks(cfg, blocks, x, positions, *, mode="train", cache=None,
-                kv_len=None, enc_out=None):
+                kv_len=None, enc_out=None, remat=None):
     """The blocks in order (``model.blocks``, or ``model.enc.blocks``).
     With ``cache`` (``cache_defs``' stacked layout), block ``b``'s layers
-    write their entries into index ``b`` of it, in place."""
+    write their entries into index ``b`` of it, in place.  ``remat``
+    (default: ``cfg.remat`` in mode ``"train"``, as the reference's) runs
+    each block under ``torch.utils.checkpoint``, so that the backward
+    recomputes a block's activations instead of keeping them; it only
+    matters where a gradient is being recorded."""
+    if remat is None:
+        remat = cfg.remat and mode == "train"
+    remat = remat and torch.is_grad_enabled()
     for b, block in enumerate(blocks):
-        for key, layer in block.items():
-            x = _apply_layer(
-                cfg, layer, x, positions, mode=mode, kv_len=kv_len,
-                enc_out=enc_out, cache=None if cache is None else {
-                    n: t[b] for n, t in cache[key].items()})
+        if remat:
+            x = checkpoint(_run_block, cfg, block, x, positions, enc_out,
+                           mode, cache, kv_len, b, use_reentrant=False)
+        else:
+            x = _run_block(cfg, block, x, positions, enc_out, mode, cache,
+                           kv_len, b)
     return x
 
 
@@ -392,11 +414,12 @@ def _inputs(cfg, model: Model, tokens, positions, extra_embeds, enc_frames):
 
 
 def forward_hidden(cfg, model: Model, tokens, *, positions=None,
-                   extra_embeds=None, enc_frames=None):
+                   extra_embeds=None, enc_frames=None, remat=None):
     """Token stream -> final hidden states (B, S, D)."""
     x, positions, enc_out = _inputs(cfg, model, tokens, positions,
                                     extra_embeds, enc_frames)
-    x = _run_blocks(cfg, model.blocks, x, positions, enc_out=enc_out)
+    x = _run_blocks(cfg, model.blocks, x, positions, enc_out=enc_out,
+                    remat=remat)
     return _norm(cfg, model, "final_norm", x)
 
 
@@ -415,6 +438,53 @@ def logits_from_hidden(cfg, model: Model, h):
 def forward(cfg, model: Model, tokens, **kw):
     return logits_from_hidden(cfg, model,
                               forward_hidden(cfg, model, tokens, **kw))
+
+
+def _chunk_nll(cfg, model: Model, hc, tc, mc):
+    """(the summed masked next-token NLL, the mask's sum) of one chunk."""
+    logits = logits_from_hidden(cfg, model, hc)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, tc[..., None].long())[..., 0]
+    return ((lse - gold) * mc).sum(), mc.sum()
+
+
+def lm_loss(cfg, model: Model, batch: dict, loss_chunk: int = 512):
+    """Mean next-token CE; the vocab projection + CE run in seq chunks so
+    fp32 logits never materialize at (B, S, V).
+
+    ``batch``: ``tokens`` (B, S), and optionally ``labels`` (default the
+    tokens), ``mask`` (B, S), ``positions``, ``extra_embeds`` and
+    ``enc_frames`` (see :func:`forward_hidden`).  Position t predicts
+    label t + 1.  The ``(S - 1) // c`` whole chunks of ``c = min(loss_chunk,
+    S - 1)`` positions each run under ``torch.utils.checkpoint`` where a
+    gradient is recorded, so that the backward recomputes a chunk's
+    float32 logits instead of keeping them; the remainder runs directly,
+    as in the reference.  Returns the float32 mean over the mask's
+    weight (at least 1)."""
+    tokens = batch["tokens"]
+    h = forward_hidden(cfg, model, tokens, positions=batch.get("positions"),
+                       extra_embeds=batch.get("extra_embeds"),
+                       enc_frames=batch.get("enc_frames"))
+    targets = batch.get("labels", tokens)
+    mask = batch.get("mask")
+    s = h.shape[1]
+    h_in, t_in = h[:, :-1], targets[:, 1:].to(h.device)
+    m_in = (torch.ones(t_in.shape, device=h.device) if mask is None
+            else mask[:, 1:].to(device=h.device, dtype=torch.float32))
+    c = min(loss_chunk, s - 1)
+    trim = (s - 1) // c * c
+    tot = cnt = torch.zeros((), device=h.device)
+    for i in range(0, trim, c):
+        args = (cfg, model, h_in[:, i:i + c], t_in[:, i:i + c],
+                m_in[:, i:i + c])
+        nll, m = (checkpoint(_chunk_nll, *args, use_reentrant=False)
+                  if torch.is_grad_enabled() else _chunk_nll(*args))
+        tot, cnt = tot + nll, cnt + m
+    if trim < s - 1:  # the remainder: small, direct
+        nll, m = _chunk_nll(cfg, model, h_in[:, trim:], t_in[:, trim:],
+                            m_in[:, trim:])
+        tot, cnt = tot + nll, cnt + m
+    return tot / cnt.clamp_min(1.0)
 
 
 # ---------------------------------------------------------------------------

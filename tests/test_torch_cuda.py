@@ -28,9 +28,10 @@ from repro_torch.kernels.gather import cdist_gather as cuda_cdist_gather
 from repro_torch.kernels.gather import gather_rows as cuda_gather_rows
 from repro_torch.kernels.ref import (bid_top2_gather_ref, bid_top2_ref,
                                      cdist_gather_ref, cdist_ref,
-                                     gather_rows_ref, ssm_scan_chunk_ref,
-                                     ssm_scan_ref)
-from repro_torch.kernels.ssm_scan import ssm_scan_chunk
+                                     gather_rows_ref, ssm_scan_chunk_bwd_ref,
+                                     ssm_scan_chunk_ref, ssm_scan_ref)
+from repro_torch.kernels.ssm_scan import (ssm_scan_bwd, ssm_scan_chunk,
+                                          ssm_scan_train)
 from repro_torch.models import layers as L
 from repro_torch.models import registry as model_registry
 from repro_torch.models import transformer as MT
@@ -236,7 +237,8 @@ def test_cuda_wide_rows_take_gather_then_unfused_kernel(cuda):
     moved = {k: v - n0[k] for k, v in _build.launches.items()}
     assert moved == {"gather_rows": 2, "cdist": 1, "bid_top2": 1,
                      "cdist_gather": 0, "bid_top2_gather": 0, "ssm_scan": 0,
-                     "auction_phase": 0, "auction_phase_dense": 0}
+                     "ssm_scan_bwd": 0, "auction_phase": 0,
+                     "auction_phase_dense": 0}
     assert torch.equal(dist, cdist_gather_ref(x, idx, c))
     for g, w in zip(bids, bid_top2_gather_ref(x, idx, c, p)):
         assert torch.equal(g, w)
@@ -1295,6 +1297,134 @@ def test_cuda_generate_reduced_equals_forced_plain_path(cuda):
     np.testing.assert_array_equal(
         sampled, server.generate(prompts, 8, temperature=1.0, seed=1))
     assert not np.array_equal(sampled, got)
+
+
+def _grad_close(got, want, rel=1e-4):
+    """Within ``rel`` of the gradient's max |.| (the kernel sums over
+    d_inner, batch and time in another order than the plain walk)."""
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    assert err <= rel * scale + 1e-7, (err, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bsz,s,di,ds", [(2, 64, 512, 16), (2, 37, 200, 64),
+                                         (1, 100, 130, 5), (3, 16, 64, 16),
+                                         (1, 9, 70, 32), (2, 33, 96, 2)])
+def test_cuda_ssm_scan_bwd_vs_plain(cuda, bsz, s, di, ds):
+    """The backward kernel against ``ssm_scan_chunk_bwd_ref`` in both
+    layouts (the time-major one from a nonzero h0, with its dh0): every
+    gradient within 1e-4 of its max |.|; d_state 16 and MAX_STATE (64), S
+    past the last full 16-step tile and under one, d_inner past the last
+    full CTA.  The saving forward's y and h are bitwise the serving
+    launch's, its saved states those of the plain scan a tile at a time;
+    a second backward is bitwise the first (no float atomics)."""
+    args = _ssm_inputs((bsz, s), di, ds, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(s * di)
+    dy = torch.randn((bsz, s, di), generator=gen, device=cuda)
+    dh = torch.randn((bsz, di, ds), generator=gen, device=cuda)
+    y, h, tiles = _counted("ssm_scan", ssm_scan_train, *args)
+    y0, h0_ = K.ssm_scan(*args)
+    assert torch.equal(y, y0) and torch.equal(h, h0_)
+    want_tiles = ssm_scan_train(*(t.cpu() for t in args))[2]
+    torch.testing.assert_close(tiles.cpu(), want_tiles, rtol=1e-4, atol=1e-4)
+    got = _counted("ssm_scan_bwd", ssm_scan_bwd, *args, tiles, dy, dh)
+    again = ssm_scan_bwd(*args, tiles, dy, dh)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    tm = [t.transpose(0, 1) for t in (*args[:4], dy)]
+    zero = torch.zeros_like(dh)
+    want = ssm_scan_chunk_bwd_ref(*tm[:4], args[4], zero, tm[4], dh)
+    for g, w in zip(got, [*(t.transpose(0, 1) for t in want[:4]),
+                          *want[4:]]):
+        assert g.shape == w.shape
+        _grad_close(g, w)
+    tmc = [t.contiguous() for t in tm]
+    h_init = torch.randn((bsz, di, ds), generator=gen, device=cuda)
+    _, _, tiles = ssm_scan_train(*tmc[:4], args[4], h_init, time_major=True)
+    got = ssm_scan_bwd(*tmc[:4], args[4], tiles, tmc[4], dh,
+                       time_major=True)
+    want = ssm_scan_chunk_bwd_ref(*tmc[:4], args[4], h_init, tmc[4], dh)
+    for g, w in zip(got, want):
+        _grad_close(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("full", [False, True])
+def test_cuda_mamba_layer_grads_equal_forced_plain_path(cuda, full):
+    """Every parameter gradient of one Mamba layer (and the input's)
+    through the kernels (one ssm_scan and one ssm_scan_bwd launch) against
+    the forced plain path (none), within 1e-4 of each gradient's max |.|;
+    float32 compute, reduced and at falcon-mamba-7b's width (d_inner 8192,
+    B = 2, S = 256)."""
+    cfg = _falcon(reduced=not full, compute_dtype="float32")
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    layer = Mamba(cfg, device=cuda)
+    defs = mamba_defs(cfg)
+    for name, p in layer.named_parameters():
+        MT._init_leaf(name, defs[name], p, gen)
+    layer.requires_grad_(True)
+    seq = 256 if full else 45
+    x = torch.randn((2, seq, cfg.d_model), generator=gen, device=cuda)
+    w = torch.randn((2, seq, cfg.d_model), generator=gen, device=cuda)
+
+    def grads():
+        layer.zero_grad(set_to_none=True)
+        xi = x.clone().requires_grad_(True)
+        out, (_, h) = layer(xi)
+        ((out * w).sum() + h.sum()).backward()
+        return [xi.grad] + [p.grad for p in layer.parameters()]
+
+    n0 = dict(_build.launches)
+    got = grads()
+    assert _build.launches["ssm_scan"] == n0["ssm_scan"] + 1
+    assert _build.launches["ssm_scan_bwd"] == n0["ssm_scan_bwd"] + 1
+    n1 = dict(_build.launches)
+    with ops.forced_path("ref"):
+        want = grads()
+    assert _build.launches == n1
+    for g, wt in zip(got, want):
+        _grad_close(g, wt)
+
+
+@pytest.mark.cuda
+def test_cuda_train_steps_equal_forced_plain_path(cuda):
+    """Two train steps of the reduced falcon-mamba-7b (remat on): each
+    launches ssm_scan twice a layer (the forward and the recompute) and
+    ssm_scan_bwd once; the losses within 1e-5 relative and the updated
+    parameters within 1e-4 of the forced plain path's; a third run of the
+    kernel path is bitwise the first."""
+    from repro_torch.train import OptConfig, adamw_init, make_train_step
+    cfg = _falcon()
+    tokens = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (4, 40))).to(cuda)
+    step = make_train_step(cfg, None, OptConfig(lr=1e-3, warmup_steps=1),
+                           microbatches=2, loss_chunk=16)
+
+    def run():
+        model = MT.init_params(cfg, device=cuda, generator=torch.Generator(
+            device=cuda).manual_seed(0))
+        opt = adamw_init(model)
+        losses = []
+        for _ in range(2):
+            n0 = dict(_build.launches)
+            model, opt, m = step(model, opt, {"tokens": tokens})
+            losses.append(m["loss"].item())
+            moved = {k: v - n0[k] for k, v in _build.launches.items()}
+            yield moved
+        yield losses, [p.detach().clone() for p in model.parameters()]
+
+    *moves, (losses, params) = run()
+    for moved in moves:  # two microbatches a step
+        assert moved["ssm_scan"] == 2 * 2 * cfg.n_layers, moved
+        assert moved["ssm_scan_bwd"] == 2 * cfg.n_layers, moved
+    with ops.forced_path("ref"):
+        *_, (want_losses, want_params) = run()
+    np.testing.assert_allclose(losses, want_losses, rtol=1e-5)
+    for p, q in zip(params, want_params):
+        _grad_close(p, q)
+    *_, (again, again_params) = run()
+    assert again == losses
+    assert all(torch.equal(p, q) for p, q in zip(params, again_params))
 
 
 # ---------------------------------------------------------------------------

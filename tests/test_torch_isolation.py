@@ -46,7 +46,10 @@ def test_import_pulls_in_neither_jax_nor_repro():
             "repro_torch.models.transformer, repro_torch.models.layers, "
             "repro_torch.models.mamba, repro_torch.models.moe, "
             "repro_torch.models.mla, repro_torch.models.convert, "
-            "repro_torch.serve.generate\n"
+            "repro_torch.serve.generate, repro_torch.kernels.ssm_scan, "
+            "repro_torch.train.optimizer, repro_torch.train.train_step, "
+            "repro_torch.train.checkpoint, repro_torch.train.compression, "
+            "repro_torch.launch.train\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "assert not bad, bad\n")
