@@ -61,12 +61,12 @@ git-ignored ``build/``), then runs these phases, one or more lines each:
    read just after, then a profile of the first few batches of one chunk,
    then a window of 20 LAPs in the middle of a third call profiled (no
    copy between host and card and no wait on the card in a LAP);
-4. the same path at n = PLAIN_N (4096) against the plain kernels, and the
+4. the same path at n = PLAIN_N (2048) against the plain kernels, and the
    default spec's flat route at that n against the forced plain path (the
    Python loop over ``top2``): labels bitwise equal, both times; likewise
    phase 7's calls (a), (b) and (d) at that n, and the categorical stream
    core with ``chunk_size >= n`` against the flat core; the hierarchical
-   route ``plan=(8, 16)``, dense and with ``chunk_size=2048``, against the
+   route ``plan=(8, 16)``, dense and with ``chunk_size=1024``, against the
    forced plain path (labels bitwise), and ``batched=False`` against the
    stacked levels (labels equal, or the first LAP that differs and why);
 5. the kernel entry point ``repro_torch.kernels`` at full size, driven
@@ -124,7 +124,7 @@ git-ignored ``build/``), then runs these phases, one or more lines each:
    post-delta rows, equal labels on a second run, an over-threshold
    delta's fallback bitwise that repartition; (d) ``dispatch_repartition``
    on (a)'s session, ``wait()`` bitwise ``repartition``, with the host
-   time it frees; (e) a warm repartition and an update at n = 8 192 on
+   time it frees; (e) a warm repartition and an update at n = 4 096 on
    the flat route and ``plan=(8, 16)``, labels bitwise the forced plain
    path's; (f) the ``greedy`` and ``scipy`` solvers on the main data's
    first LAP beside the auction;
@@ -265,7 +265,10 @@ git-ignored ``build/``), then runs these phases, one or more lines each:
    full size, 6 steps straight against 3, a checkpoint and a resume: the
    last loss bitwise equal; (d) ``--grad-compression --dp 2`` on the one
    card.  Phase 2 holds ``ssm_scan_bwd`` to ``ssm_scan_bwd_ref`` at (a)'s
-   layer shape (2, 4 096, 8 192, 16) and times it;
+   layer shape (2, 4 096, 8 192, 16) and times it, its two grids apart
+   and in turns with the previous design (commit SSM_BWD_PARENT's source,
+   built outside the tree), and holds both and the float32 plain walk to
+   the plain walk in float64;
 
 then one JSON line describing every kernel, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises, exits non-zero and
@@ -284,6 +287,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import ctypes
 import dataclasses
 import functools
 import hashlib
@@ -296,6 +300,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -333,7 +338,7 @@ from repro_torch.kernels.ref import (  # noqa: E402
     bid_top2_gather_ref, bid_top2_ref, cdist_gather_ref, cdist_ref,
     gather_rows_ref, ssm_scan_bwd_ref, ssm_scan_chunk_ref, ssm_scan_ref)
 from repro_torch.kernels.ssm_scan import (  # noqa: E402
-    ssm_scan_bwd, ssm_scan_chunk, ssm_scan_train)
+    ssm_scan_bwd, ssm_scan_chunk, ssm_scan_train, workspace_floats)
 from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.models import layers as ML  # noqa: E402
 from repro_torch.models import moe as MOE  # noqa: E402
@@ -1910,9 +1915,10 @@ def constrained_routes(dev, n: int, card: str, masked_run: dict) -> dict:
 
 # Phase 4's rows.  Its Python loops set its time, linearly in the rows:
 # at 16 384 rows phase 4 took 313 s of a 1 074 s run of this script on
-# an H100, at 8 192 204 s of 1 213 s on a slow host (PERF.md): 4 096
-# keeps the script inside its limit there.
-PLAIN_N = 4096
+# an H100, at 8 192 204 s of 1 213 s on a slow host, at 4 096 105 s of
+# 1 087 s on a slower one (PERF.md): 2 048 keeps the script well inside
+# its limit there.
+PLAIN_N = 2048
 
 
 def against_plain(dev):
@@ -2440,8 +2446,9 @@ SESSION_EPOCHS = 3      # warm repartitions of each session
 DELTA_SHARE = 0.01      # the update's delta: rows removed, as many added
 DELTA_SEED = 9          # which rows leave
 DEFAULT_DIGEST = "65b9e33e025c4278"  # the default route's labels, runs 61-87
-PLAIN_SESSION_N = 8192  # (e): warm solves and updates against the plain path
-#                          (16 384 until phase 16 came: 89 s of loops)
+PLAIN_SESSION_N = 4096  # (e): warm solves and updates against the plain path
+#                          (16 384 until phase 16 came: 89 s of loops; 8 192
+#                          until the script took 1 087 s on a slow host)
 HOST_WORK = (24, 1024)   # (d): float64 matmuls of this order, the host work
 
 
@@ -3080,9 +3087,116 @@ SSM_TRAIN_SHAPE = (2, 4096, 8192, 16)  # phase 16's layer: B, S, di, ds
 SSM_BWD_PLAIN_REPS = dict(reps=1, warmup=0)  # the plain walk: 4096 steps, 2 s
 SSM_BWD_REL = 1e-4  # of each gradient's max |.|: the sums' order differs
 SSM_BWD_FLOPS = 20  # a state and step: h again, g, the five terms, decay
+# The backward kernel's previous design (a CTA a tile summing the tile's
+# partials on the walk), timed beside the current one as a yardstick: its
+# source at commit SSM_BWD_PARENT, from `git show` in a git checkout, else
+# from SSM_BWD_PARENT_COPY (a git-ignored copy placed there by hand).
+SSM_BWD_PARENT = "f7e50f5"
+SSM_BWD_SOURCE = "src/repro_torch/kernels/csrc/ssm_scan_bwd.cu"
+SSM_BWD_PARENT_COPY = os.path.join(ROOT, "build", "baseline",
+                                   f"ssm_scan_bwd-{SSM_BWD_PARENT}.cu")
 
 
-def check_and_measure_ssm_scan_bwd(dev) -> dict:
+def start_parent_bwd_build() -> dict:
+    """Start nvcc on the previous design's ssm_scan_bwd.cu in a temporary
+    directory outside the tree (with the port's flags); returns what
+    :func:`parent_bwd` needs, or the reason it cannot be built."""
+    src = None
+    if os.path.exists(os.path.join(ROOT, ".git")):
+        got = subprocess.run(
+            ["git", "-C", ROOT, "show", f"{SSM_BWD_PARENT}:{SSM_BWD_SOURCE}"],
+            capture_output=True, text=True, timeout=60)
+        src = got.stdout if got.returncode == 0 else None
+    if src is None and os.path.exists(SSM_BWD_PARENT_COPY):
+        with open(SSM_BWD_PARENT_COPY) as f:
+            src = f.read()
+    if src is None:
+        return {"reason": f"not measured: no git history and no "
+                          f"{os.path.relpath(SSM_BWD_PARENT_COPY, ROOT)}"}
+    nvcc = _build._nvcc()
+    tmp = tempfile.mkdtemp(prefix="ssm_scan_bwd_parent_")
+    cu, lib = os.path.join(tmp, "ssm_scan_bwd.cu"), os.path.join(tmp, "lib.so")
+    with open(cu, "w") as f:
+        f.write(src)
+    proc = subprocess.Popen([nvcc, *_build.NVCC_FLAGS, "-o", lib,
+                             cu], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return {"proc": proc, "lib": lib, "dir": tmp}
+
+
+def parent_bwd(build: dict):
+    """The previous design's ssm_scan_bwd as a callable of the wrapper's
+    arguments (B, S, .) layout, allocating its scratch and zeroed counters
+    as its wrapper did, and its scratch in bytes; or (None, reason)."""
+    if "proc" not in build:
+        return None, build["reason"]
+    out, _ = build["proc"].communicate()
+    try:
+        if build["proc"].returncode:
+            return None, f"not measured: nvcc exited " \
+                         f"{build['proc'].returncode}: {out[-2000:]}"
+        lib = ctypes.CDLL(build["lib"])
+    finally:
+        shutil.rmtree(build["dir"], ignore_errors=True)
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    fn, ws = lib.ssm_scan_bwd_f32, lib.ssm_scan_bwd_workspace_f32
+    fn.argtypes = (P,) * 6 + (I,) + (P,) * 10 + (I,) * 4 + (L,) * 4 + (P,)
+    ws.argtypes = (I, I, I, I, P, P)
+    fn.restype = ws.restype = ctypes.c_int
+
+    def call(dt, b_in, c_out, x_in, a_mat, h_tiles, dy, dh):
+        bsz, s, di = dt.shape
+        ds = a_mat.shape[1]
+        part, count = ctypes.c_int64(), ctypes.c_int64()
+        check(ws(bsz, s, di, ds, ctypes.addressof(part),
+                 ctypes.addressof(count)) == 0, "parent workspace query")
+        work = torch.empty((part.value,), dtype=torch.float32,
+                           device=dt.device)
+        counters = torch.zeros((count.value,), dtype=torch.int32,
+                               device=dt.device)
+        outs = [torch.empty_like(t) for t in (dt, b_in, c_out, x_in)]
+        da = torch.empty_like(a_mat)
+        dh0 = torch.empty_like(dh)
+        st, sb = (di, s * di), (ds, s * ds)  # (time, batch) strides
+        err = fn(*(t.data_ptr() for t in (dt, b_in, c_out, x_in, a_mat,
+                                          h_tiles)), h_tiles.shape[1],
+                 *(t.data_ptr() for t in (dy, dh, outs[0], outs[1], outs[2],
+                                          outs[3], da, dh0, work, counters)),
+                 bsz, s, di, ds, *st, *sb,
+                 torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"parent ssm_scan_bwd launch: cudaError {err}")
+        return (*outs, da, dh0), 4 * (part.value + count.value)
+    return call, None
+
+
+SSM_BWD_F64_SHAPE = (1, 4096, 512, 16)  # falcon's S and d_state, 512 channels
+
+
+def ssm_bwd_f64_errors(dev, parent) -> dict:
+    """Each gradient's largest error over its max |.| against the plain
+    walk in float64 at SSM_BWD_F64_SHAPE: the kernel's, the previous
+    design's (``parent``, or None) and the float32 plain walk's.  The
+    previous design forms exp(dt A) with expf, as the float32 walk does,
+    so those two agree more closely with each other than with float64."""
+    bsz, s, di, ds = SSM_BWD_F64_SHAPE
+    gen = torch.Generator().manual_seed(64)
+    args = ssm_inputs(gen, SSM_BWD_F64_SHAPE, dev)
+    dy = torch.randn((bsz, s, di), generator=gen).to(dev)
+    dh = torch.randn((bsz, di, ds), generator=gen).to(dev)
+    tiles = ssm_scan_train(*args)[2]
+    wide = ssm_scan_bwd_ref(*(t.double() for t in (*args, dy, dh)))
+    runs = {"kernel": ssm_scan_bwd(*args, tiles, dy, dh),
+            "plain_f32": ssm_scan_bwd_ref(*args, dy, dh)}
+    if parent is not None:
+        runs["previous"] = parent(*args, tiles, dy, dh)[0]
+    return {what: {n: (g.double() - w).abs().max().item()
+                   / w.abs().max().item()
+                   for n, g, w in zip(("ddt", "db", "dc", "dx", "da"), got,
+                                      wide)}
+            for what, got in runs.items()}
+
+
+def check_and_measure_ssm_scan_bwd(dev, parent_build: dict) -> dict:
     """The backward scan at phase 16's layer shape (falcon-mamba-7b's
     width at S = 4 096) against ``ssm_scan_bwd_ref``: every gradient
     within SSM_BWD_REL of its max |.|, a second launch bitwise the first;
@@ -3091,7 +3205,10 @@ def check_and_measure_ssm_scan_bwd(dev) -> dict:
     and the bound: the bytes (dt, x, dy read, d(dt), dx written, the
     saved states read; B, C and their gradients) against SSM_BWD_FLOPS
     float32 operations a state and step, and its expf floor (one a state
-    and step) at the data sheet's clock."""
+    and step) at the data sheet's clock; its scratch.  Beside it the
+    previous design (``parent_build``, :func:`start_parent_bwd_build`),
+    checked against the same plain walk and timed in turns with it; all
+    three against the plain walk in float64 (:func:`ssm_bwd_f64_errors`)."""
     bsz, s, di, ds = SSM_TRAIN_SHAPE
     gen = torch.Generator().manual_seed(16)
     args = ssm_inputs(gen, SSM_TRAIN_SHAPE, dev)
@@ -3113,6 +3230,16 @@ def check_and_measure_ssm_scan_bwd(dev) -> dict:
         rels[name] = errs[name] / w.abs().max().item()
     check(max(rels.values()) <= SSM_BWD_REL,
           f"ssm_scan_bwd against its plain version: {rels}")
+    parent, why = parent_bwd(parent_build)
+    parent_rel, parent_scratch = None, None
+    if parent is not None:
+        old, parent_scratch = parent(*args, tiles, dy, dh)
+        parent_rel = max((g - w).abs().max().item() / w.abs().max().item()
+                         for g, w in zip(old, want))
+        check(parent_rel <= SSM_BWD_REL,
+              f"the previous ssm_scan_bwd against the plain walk: "
+              f"{parent_rel}")
+        del old
     del want, again
     n = bsz * s * di * ds
     n_bytes = 4 * (5 * bsz * s * di + 4 * bsz * s * ds
@@ -3120,13 +3247,28 @@ def check_and_measure_ssm_scan_bwd(dev) -> dict:
                    + 2 * bsz * di * ds)
     b, by = bound_ms(n_bytes, SSM_BWD_FLOPS * n)
     fn = lambda: ssm_scan_bwd(*args, tiles, dy, dh)  # noqa: E731
+    old_fn = (None if parent is None
+              else functools.partial(parent, *args, tiles, dy, dh))
+    # in turns: the previous design, this one, this one, the previous
+    parent_ms = [] if old_fn is None else [time_ms(old_fn)]
+    ms_turns = [time_ms(fn), time_ms(fn)]
+    if old_fn is not None:
+        parent_ms.append(time_ms(old_fn))
     row = {"name": "ssm_scan_bwd", "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/ssm_scan_bwd.cu",
            "replaces": "src/repro/models/mamba.py:114 (the gradient of "
                        "mamba_apply's lax.scan; ssm_scan.py:55 has none)",
            "shape": "B={} S={} di={} ds={}".format(*SSM_TRAIN_SHAPE),
            "max_abs_err": max(errs.values()), "max_rel_err": rels,
-           "ms": time_ms(fn), "device_ms": device_ms(fn, "ssm_scan_bwd"),
+           "ms": ms_turns[0], "ms_again": ms_turns[1],
+           "device_ms": device_ms(fn, "ssm_scan_bwd"),
+           "walk_device_ms": device_ms(fn, "ssm_scan_bwd_kernel<"),
+           "sums_device_ms": device_ms(fn, "ssm_scan_bwd_kernel_sums"),
+           "scratch_bytes": 4 * workspace_floats(bsz, s, di, ds),
+           "parent": SSM_BWD_PARENT, "parent_ms": parent_ms or why,
+           "parent_scratch_bytes": parent_scratch,
+           "parent_max_rel_err": parent_rel,
+           "f64_rel_err": ssm_bwd_f64_errors(dev, parent),
            "plain_ms": time_ms(lambda: ssm_scan_bwd_ref(*args, dy, dh),
                                **SSM_BWD_PLAIN_REPS),
            "bound_ms": b, "bound_by": by,
@@ -3138,7 +3280,13 @@ def check_and_measure_ssm_scan_bwd(dev) -> dict:
     log(f"ssm_scan_bwd {row['shape']}: each gradient within "
         f"{SSM_BWD_REL} of its max |.| of ssm_scan_bwd_ref ({rels}), "
         f"max_abs_err {row['max_abs_err']:.3e}; repeatable bit for bit; "
-        f"kernel {row['ms']:.4f} ms (device {row['device_ms']} ms), plain "
+        f"kernel {row['ms']:.4f}, {row['ms_again']:.4f} ms (device "
+        f"{row['device_ms']} ms: the walk {row['walk_device_ms']}, the "
+        f"sums {row['sums_device_ms']}), scratch {row['scratch_bytes']} "
+        f"bytes; the previous design ({SSM_BWD_PARENT}) in turns "
+        f"{row['parent_ms']} ms, scratch {parent_scratch} bytes, within "
+        f"{parent_rel} of the plain walk; against the plain walk in "
+        f"float64 at {SSM_BWD_F64_SHAPE}: {row['f64_rel_err']}; plain "
         f"{row['plain_ms']:.1f} ms, bound {b:.4f} ms ({by}), expf floor "
         f"{row['expf_floor_ms']:.4f} ms at {BOOST_SM_MHZ} MHz; the forward "
         f"saving its states every 16 steps {row['saving_forward_ms']:.4f} "
@@ -5167,7 +5315,8 @@ def train_timed(cfg, model, dev, tokens, steps: int, what: str,
     check(all(math.isfinite(x) for x in [first] + losses)
           and losses[-1] < first, f"({what}) losses {first}, {losses}")
     prof = call_kernel_ms(None, None, dev, "ssm_scan", call=lambda: step(
-        model, opt, batch), names=("ssm_scan_kernel", "ssm_scan_bwd_kernel"))
+        model, opt, batch), names=("ssm_scan_kernel", "ssm_scan_bwd_kernel",
+                      "ssm_scan_bwd_kernel_sums"))
     wall = statistics.median(walls)
     out = {"first_step_s": first_s, "first_loss": first, "losses": losses,
            "step_s": walls, "step_s_median": wall,
@@ -5345,6 +5494,7 @@ def main():
     log(smi)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device "
         f"{torch.cuda.get_device_name(0)}")
+    parent_build = start_parent_bwd_build()  # beside the port's own build
     _build.build_all()
     log(f"kernel build {_build.build_seconds:.2f} s into {_build.BUILD_DIR}")
     for name, out in _build.build_log.items():
@@ -5376,7 +5526,7 @@ def main():
     hier_checks["mesh_laps"] = check_mesh_laps(dev)
     errs = check_entry_kernels(dev, torch.Generator().manual_seed(4))
     entry_rows = measure_entry_kernels(dev, errs)
-    bwd_row = check_and_measure_ssm_scan_bwd(dev)
+    bwd_row = check_and_measure_ssm_scan_bwd(dev, parent_build)
     rows = solve_rows + [dense_row] + entry_rows + [bwd_row]
     log_rows(rows)
 

@@ -43,7 +43,7 @@ _SYMBOLS = {
     "cdist_gather": ("cdist_gather_f32", (_P, _P, _I, _P, _P, _L, _L, _I, _I,
                                           _P)),
     "ssm_scan": ("ssm_scan_f32", (_P,) * 9 + (_I,) * 5 + (_L,) * 4 + (_P,)),
-    "ssm_scan_bwd": ("ssm_scan_bwd_f32", (_P,) * 6 + (_I,) + (_P,) * 10
+    "ssm_scan_bwd": ("ssm_scan_bwd_f32", (_P,) * 6 + (_I,) + (_P,) * 9
                      + (_I,) * 4 + (_L,) * 4 + (_P,)),
     "auction_phase": ("auction_phase_f32",
                       (_P,) * 14 + (_I, _I, _I, _I, _I, _P)),
@@ -54,9 +54,10 @@ _SYMBOLS = {
 # span's pair counts as a launch of "bid_top2"; the phase kernels' timed
 # instantiations are for measurement only and count as launches of
 # "auction_phase" / "auction_phase_dense".  The backward scan's workspace
-# query launches nothing.
+# query launches nothing; its kernel function launches two grids (the walk
+# and the sums over channel blocks), one launch of "ssm_scan_bwd".
 _MORE_SYMBOLS = {
-    "ssm_scan_bwd_workspace_f32": (_I, _I, _I, _I, _P, _P),
+    "ssm_scan_bwd_workspace_f32": (_I, _I, _I, _I, _P),
     "bid_top2_span_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "auction_phase_timed_f32": (_P,) * 14 + (_I,) * 5 + (_P, _I, _I, _P),
     "auction_phase_dense_timed_f32": (_P,) * 12 + (_I,) * 5 + (_P, _I, _I,

@@ -123,7 +123,8 @@ def ssm_scan_bwd(dt, b_in, c_out, x_in, a_mat, h_tiles, dy, dh, *,
     (ddt, db, dc, dx, da, dh0), the gradients with respect to dt, b_in,
     c_out, x_in, a_mat and h0, float32.  Layouts as :func:`ssm_scan`, or
     time-major as :func:`ssm_scan_chunk`.  One launch of
-    ``csrc/ssm_scan_bwd.cu``; on the CPU its plain version
+    ``csrc/ssm_scan_bwd.cu`` (two grids: the walk, then the sums over
+    channel blocks); on the CPU its plain version
     ``ref.ssm_scan_chunk_bwd_ref`` (which recomputes every state from
     ``h0 = h_tiles[:, 0]`` and does not read the others)."""
     if not dt.is_cuda:
@@ -143,15 +144,8 @@ def ssm_scan_bwd(dt, b_in, c_out, x_in, a_mat, h_tiles, dy, dh, *,
     stream = _build.check_operands(
         "ssm_scan_bwd", dt=dt, b_in=b_in, c_out=c_out, x_in=x_in,
         a_mat=a_mat, h_tiles=h_tiles, dy=dy, dh=dh)
-    part, count = ctypes.c_int64(), ctypes.c_int64()
-    err = _build.function("ssm_scan_bwd", "ssm_scan_bwd_workspace_f32")(
-        bsz, s, di, ds, ctypes.addressof(part), ctypes.addressof(count))
-    if err:
-        raise ValueError(f"ssm_scan_bwd takes 1 <= S and d_state <= "
-                         f"{MAX_STATE}, got S={s}, d_state={ds}")
-    work = torch.empty((part.value,), dtype=torch.float32, device=dt.device)
-    counters = torch.zeros((count.value,), dtype=torch.int32,
-                           device=dt.device)
+    work = torch.empty((workspace_floats(bsz, s, di, ds),),
+                       dtype=torch.float32, device=dt.device)
     ddt, dx = torch.empty_like(dt), torch.empty_like(x_in)
     db, dc = torch.empty_like(b_in), torch.empty_like(c_out)
     da = torch.empty((di, ds), dtype=torch.float32, device=dt.device)
@@ -159,6 +153,19 @@ def ssm_scan_bwd(dt, b_in, c_out, x_in, a_mat, h_tiles, dy, dh, *,
     st, sb = _strides(dt, b_in, time_major)
     _build.launch("ssm_scan_bwd", *(t.data_ptr() for t in (
         dt, b_in, c_out, x_in, a_mat, h_tiles)), n_tiles,
-        *(t.data_ptr() for t in (dy, dh, ddt, db, dc, dx, da, dh0, work,
-                                 counters)), bsz, s, di, ds, *st, *sb, stream)
+        *(t.data_ptr() for t in (dy, dh, ddt, db, dc, dx, da, dh0, work)),
+        bsz, s, di, ds, *st, *sb, stream)
     return ddt, db, dc, dx, da, dh0
+
+
+def workspace_floats(bsz, s, di, ds) -> int:
+    """The float32 scratch one :func:`ssm_scan_bwd` launch takes: every
+    CTA's partial of dB and dC for each step, and dA's part of each batch
+    (the kernel's second grid sums them)."""
+    n = ctypes.c_int64()
+    err = _build.function("ssm_scan_bwd", "ssm_scan_bwd_workspace_f32")(
+        bsz, s, di, ds, ctypes.addressof(n))
+    if err:
+        raise ValueError(f"ssm_scan_bwd takes 1 <= S and 1 <= d_state <= "
+                         f"{MAX_STATE}, got S={s}, d_state={ds}")
+    return n.value

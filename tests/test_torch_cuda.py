@@ -1308,17 +1308,24 @@ def _grad_close(got, want, rel=1e-4):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("bsz,s,di,ds", [(2, 64, 512, 16), (2, 37, 200, 64),
-                                         (1, 100, 130, 5), (3, 16, 64, 16),
-                                         (1, 9, 70, 32), (2, 33, 96, 2)])
+@pytest.mark.parametrize("bsz,s,di,ds", [
+    (2, 64, 512, 16), (2, 37, 200, 64), (1, 100, 130, 5), (3, 16, 64, 16),
+    (1, 9, 70, 32), (2, 33, 96, 2),
+    # every instantiation (d_state 1, 2, 3-4, 5-8, 9-16, 17-32, 33-64),
+    # d_inner past the last full CTA, S = 1 and 16 k + 1, B = 3, and
+    # falcon-mamba-7b's d_inner: 128 channel blocks to sum
+    (2, 17, 300, 1), (1, 1, 40, 3), (2, 48, 129, 8), (3, 33, 200, 16),
+    (2, 1, 96, 16), (1, 20, 33, 64), (2, 64, 8192, 16)])
 def test_cuda_ssm_scan_bwd_vs_plain(cuda, bsz, s, di, ds):
     """The backward kernel against ``ssm_scan_chunk_bwd_ref`` in both
     layouts (the time-major one from a nonzero h0, with its dh0): every
-    gradient within 1e-4 of its max |.|; d_state 16 and MAX_STATE (64), S
-    past the last full 16-step tile and under one, d_inner past the last
-    full CTA.  The saving forward's y and h are bitwise the serving
-    launch's, its saved states those of the plain scan a tile at a time;
-    a second backward is bitwise the first (no float atomics)."""
+    gradient within 1e-4 of its max |.|; every d_state the kernel
+    instantiates for, up to MAX_STATE (64), S past the last full 16-step
+    tile and under one, d_inner past the last full CTA, and the sums over
+    all of falcon-mamba-7b's channel blocks.  The saving forward's y and h
+    are bitwise the serving launch's, its saved states those of the plain
+    scan a tile at a time; a second backward is bitwise the first (no
+    float atomics)."""
     args = _ssm_inputs((bsz, s), di, ds, cuda)
     gen = torch.Generator(device=cuda).manual_seed(s * di)
     dy = torch.randn((bsz, s, di), generator=gen, device=cuda)
