@@ -226,7 +226,13 @@ git-ignored ``build/``), then runs these phases, one or more lines each:
    step's logits against ``forward`` on the extended sequence and the
    prefill's last logits against ``forward``'s, within twice bfloat16's
    own spread; (e) greedy twice equal, 16 sampled steps in range and
-   unlike greedy;
+   unlike greedy; (g) deepseek-v2-236b through a (1, 4) ``model`` mesh of
+   the one card: the first MoE layer in float32 (each position's 40
+   experts and its quarter of the 2 shared experts' width) against
+   ``mesh=None`` within 1e-4 of max |out|, and a prefill of the 2
+   prompts against its own without the mesh, the last logits within
+   twice bfloat16's own spread, each prefill timed twice in turns after a
+   warm-up;
 15. the model stack: the front ends at full width and depth, random
    weights drawn on the card from a seed, served by ``Generator`` (no
    kernel of the repo runs: the reference's M-RoPE, encoder and
@@ -269,6 +275,26 @@ git-ignored ``build/``), then runs these phases, one or more lines each:
    and in turns with the previous design (commit SSM_BWD_PARENT's source,
    built outside the tree), and holds both and the float32 plain walk to
    the plain walk in float64;
+17. the launch layer (budget 60 s, its time printed): (a) every config's
+   ``Model`` on ``meta`` with its parameter count and bytes, equal to
+   ``abstract_params``'; (b) granite-moe-3b at full width and depth (3
+   903 186 432 parameters) through ``make_host_mesh(1, 4,
+   device="cuda")`` against ``mesh=None`` on the same weights and batch
+   (B = 2, S = 2 048): the first MoE layer in float32 within 1e-4 of max
+   |out|; after a warm-up of each, ``lm_loss`` and its gradients in
+   bfloat16 within twice bfloat16's own spread (their distance from the
+   float32-compute loss and gradients), the gradients by their global
+   norm; a warm-up step and ``make_train_step`` steps with and without
+   the mesh in turns, each timed, the peak under 70 GiB; (c) five
+   ``launch.dryrun.run_cell`` cells on ``meta`` in child processes that
+   see no card, started at the phase's start: smollm-360m ``train_4k``, deepseek-v2-236b
+   ``prefill_32k`` at 2x16x16, falcon-mamba-7b ``long_500k``,
+   qwen2.5-14b ``decode_32k`` and ``aba-pipeline``, each record a line of
+   its own; (c') the ``aba_1m`` cell run on the card: 2^20 x 192 rows of
+   ``make("lowrank", ..., seed=0)`` (drawn in a thread from the phase's
+   start), k = 8 192, ``fixed_rounds=320``, through ``sharded_core`` over
+   the production mesh's 16 data shards, every position ``cuda:0``:
+   exact balance, its wall and launches;
 
 then one JSON line describing every kernel, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises, exits non-zero and
@@ -301,6 +327,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
 
@@ -339,6 +366,7 @@ from repro_torch.kernels.ref import (  # noqa: E402
     gather_rows_ref, ssm_scan_bwd_ref, ssm_scan_chunk_ref, ssm_scan_ref)
 from repro_torch.kernels.ssm_scan import (  # noqa: E402
     ssm_scan_bwd, ssm_scan_chunk, ssm_scan_train, workspace_floats)
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.models import layers as ML  # noqa: E402
 from repro_torch.models import moe as MOE  # noqa: E402
@@ -5005,6 +5033,74 @@ def mla_against_expanded(cfg, model, tp) -> dict:
     return f
 
 
+MESH_PREFILL_ARCH = "deepseek-v2-236b"  # (g): the config with shared experts
+MODEL_MESH = (1, 4)  # (g), phase 17 (b): make_host_mesh(1, 4) of the one card
+MESH_TURNS = ("mesh", "none", "none", "mesh")  # (g), phase 17 (b): timed
+
+
+def first_moe_against_mesh(cfg, model, tokens, mesh, what: str) -> dict:
+    """The first MoE layer in float32 on the normed embeddings of
+    ``tokens``, through ``mesh``'s ``model`` axis against ``mesh=None``:
+    within MOE_RTOL of max |out|, each timed."""
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    layer = next(lay for blk in model.blocks for lay in blk.values()
+                 if lay.spec.mlp == "moe")
+    with torch.no_grad():
+        x = MT._norm(cfg32, layer, "ln2", MT.embed_tokens(cfg32, model,
+                                                          tokens))
+        want = MOE.moe_ref(cfg32, layer.mlp, x)
+        got = MT._moe_call(cfg32, layer.mlp, x, mesh)
+        c = {"max_abs_err": (got - want).abs().max().item(),
+             "scale": want.abs().max().item(),
+             "mesh_ms": time_ms(lambda: MT._moe_call(cfg32, layer.mlp, x,
+                                                     mesh), 3, 1),
+             "none_ms": time_ms(lambda: MOE.moe_ref(cfg32, layer.mlp, x),
+                                3, 1)}
+    del x, got, want
+    log(f"({what}) the first MoE layer in float32 through the {mesh.shape} "
+        f"mesh: within {c['max_abs_err']:.3e} of mesh=None (max |out| "
+        f"{c['scale']:.4f}; tolerance {MOE_RTOL} of it); {c['mesh_ms']:.2f} "
+        f"ms against {c['none_ms']:.2f} ms")
+    check(c["max_abs_err"] <= MOE_RTOL * c["scale"],
+          f"({what}) the MoE layer through the mesh: {c}")
+    return c
+
+
+def mesh_prefill(cfg, model, tp) -> dict:
+    """(g): deepseek-v2-236b through a MODEL_MESH mesh of the one card:
+    the first MoE layer in float32 against ``mesh=None``; one prefill of
+    the prompts against its own without the mesh, the last logits within
+    SPREAD_FACTOR times bfloat16's spread (the prefill's distance from the
+    float32-compute prefill), each timed."""
+    mesh = make_host_mesh(*MODEL_MESH, device="cuda")
+    g = {"layer": first_moe_against_mesh(cfg, model, tp, mesh, "g")}
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    max_len = tp.shape[1]
+    meshes = {"mesh": mesh, "none": None}
+    logits, walls = {}, {"mesh": [], "none": []}
+    with torch.no_grad():
+        for name in ("mesh", "none") + MESH_TURNS:  # a warm-up each first
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits[name] = MT.prefill(cfg, model, tp, max_len,
+                                      mesh=meshes[name])[0]
+            torch.cuda.synchronize()
+            walls[name].append(time.perf_counter() - t0)
+        logits["float32"] = MT.prefill(cfg32, model, tp, max_len)[0]
+    err = (logits["mesh"] - logits["none"]).abs().max().item()
+    spread = (logits["none"] - logits["float32"]).abs().max().item()
+    g |= {"logit_err": err, "logit_spread": spread,
+          "prefill_s": {k: v[1:] for k, v in walls.items()}}
+    log(f"(g) prefills of {tuple(tp.shape)} tokens in turns after a warm-up "
+        f"each: through the mesh {', '.join(f'{w:.4f}' for w in walls['mesh'][1:])}"
+        f" s, without {', '.join(f'{w:.4f}' for w in walls['none'][1:])} s; "
+        f"the last logits within {err:.4e} of its own (bfloat16's spread "
+        f"{spread:.4e}, tolerance {SPREAD_FACTOR} x)")
+    check(math.isfinite(err) and err <= SPREAD_FACTOR * spread,
+          f"(g) the prefill through the mesh: {err} against spread {spread}")
+    return g
+
+
 def moe_stack(dev, card: str) -> dict:
     """Phase 14: granite-moe-3b at full depth, deepseek-v2-236b at 3 of
     its 60 layers and jamba-v0.1-52b at one block of 8, at full width."""
@@ -5039,7 +5135,11 @@ def moe_stack(dev, card: str) -> dict:
         run["d"]["capacity_factor"] = no_drop
         run["e"] = greedy_and_sampled(cfg, server, prompts, tokens,
                                       MOE_SAMPLED_STEPS)
-        del model, server, tp
+        del server
+        torch.cuda.empty_cache()
+        if arch == MESH_PREFILL_ARCH:
+            run["g"] = mesh_prefill(cfg, model, tp)
+        del model, tp
         torch.cuda.empty_cache()
         run["seconds"] = time.perf_counter() - t0
         out[arch] = run
@@ -5456,6 +5556,259 @@ def training(dev, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the launch layer
+# ---------------------------------------------------------------------------
+
+LAUNCH_BUDGET_S = 60.0
+LAUNCH_ARCH = "granite-moe-3b-a800m"
+LAUNCH_PARAMS = 3_903_186_432  # its ModelConfig, all 32 layers
+# (b): no depth cut: parameters, gradients and both AdamW moments take 16 B
+# a parameter, 62.45 GB (58.16 GiB) at all 32 layers before activations,
+# under TRAIN_PEAK_GIB
+LAUNCH_BATCH = (2, 2048)  # B, S
+# (c): run_cell's cells, one child process a group, both started at the
+# phase's start
+DRYRUN_GROUPS = ((("deepseek-v2-236b", "prefill_32k", True),),
+                 (("smollm-360m", "train_4k", False),
+                  ("falcon-mamba-7b", "long_500k", False),
+                  ("qwen2.5-14b", "decode_32k", False),
+                  ("aba-pipeline", "aba_1m", False)))
+DRYRUN_TIMEOUT_S = 600
+
+
+def start_dryrun_cells() -> list:
+    """One child process a group of DRYRUN_GROUPS, each running its cells
+    through ``launch.dryrun.run_cell`` on ``meta`` tensors and printing
+    their records as one JSON line; the children see no card."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.path.join(ROOT, "src"))
+    procs = []
+    for cells in DRYRUN_GROUPS:
+        code = (f"CELLS = {cells!r}\n"
+                "import json, time\n"
+                "t0 = time.perf_counter()\n"
+                "from repro_torch.launch.dryrun import run_cell\n"
+                "recs = [run_cell(a, s, multi_pod=m) for a, s, m in CELLS]\n"
+                "print(json.dumps({'wall_s': time.perf_counter() - t0, "
+                "'records': recs}))\n")
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", code], cwd=ROOT, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    return procs
+
+
+def stop_children(procs):
+    for proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def finish_dryrun_cells(procs) -> list:
+    """The children's records, each logged on a line of its own: every
+    cell ``ok``, the ABA cell with its model FLOPs and no count."""
+    recs = []
+    for proc in procs:
+        out, err = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+        check(proc.returncode == 0, f"(c) a dry-run child failed: "
+              f"{err[-3000:]}")
+        child = json.loads(out.strip().splitlines()[-1])
+        for rec in child["records"]:
+            rec.pop("trace", None)
+            rec["child_wall_s"] = child["wall_s"]
+            log(json.dumps({"dryrun": rec}))
+            recs.append(rec)
+    for rec in recs:
+        check(rec["status"] == "ok", f"(c) {rec['arch']} {rec['shape']} "
+              f"{rec['mesh']}: {rec.get('error')}")
+        counted = rec["arch"] != "aba-pipeline"
+        check((rec["flops_per_device"] is not None) == counted
+              and rec["model_flops_total"] > 0,
+              f"(c) {rec['arch']} {rec['shape']}: {rec}")
+        log(f"(c) {rec['arch']} {rec['shape']} {rec['mesh']}: "
+            + (f"{rec['flops_per_device']:.4e} FLOPs and "
+               f"{rec['bytes_per_device']:.4e} bytes a device, counted in "
+               f"{rec['count_s']} s, dominant {rec['dominant']}, model "
+               f"FLOPs {rec['model_flops_total']:.4e}" if counted else
+               f"model FLOPs {rec['model_flops_total']:.4e}, not counted: "
+               f"{rec['reason']}"))
+    return recs
+
+
+def abstract_models() -> dict:
+    """(a): every config's ``Model`` on ``meta``: its parameters' shapes
+    those of ``abstract_params``, their count and bytes."""
+    out = {}
+    for arch in model_registry.ALIASES:
+        cfg = model_registry.get_config(arch)
+        model = MT.Model(cfg, device="meta")
+        abstract = MT.abstract_params(cfg)
+        for path, b, p in model.leaves():
+            want = abstract[path].shape
+            check(tuple(p.shape) == (want if b is None else want[1:])
+                  and p.is_meta, f"(a) {arch} {path}: {tuple(p.shape)}")
+        count = sum(p.numel() for p in model.parameters())
+        nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+        check(count == MT.n_params(cfg) == sum(
+            math.prod(sd.shape) for sd in abstract.values()),
+            f"(a) {arch}: {count} parameters")
+        out[arch] = {"params": count, "bytes": nbytes}
+        log(f"(a) {arch}: {count} parameters, {nbytes / 2**30:.2f} GiB "
+            f"{cfg.param_dtype} on meta")
+    return out
+
+
+def grads_now(model) -> list:
+    """The parameters' gradients, taken off the model."""
+    out = [p.grad for p in model.parameters()]
+    model.zero_grad(set_to_none=True)
+    return out
+
+
+def global_rel(got: list, want: list) -> float:
+    """||got - want|| / ||want|| over all the tensors together."""
+    num = sum(((g - w).double() ** 2).sum() for g, w in zip(got, want))
+    den = sum((w.double() ** 2).sum() for w in want)
+    return math.sqrt(num.item() / den.item())
+
+
+def moe_over_model_axis(dev) -> dict:
+    """(b): granite-moe-3b at full width and depth through a MODEL_MESH
+    mesh of the one card against ``mesh=None``."""
+    cfg, model, b = draw_model(dev, LAUNCH_ARCH, LAUNCH_PARAMS, "b")
+    mesh = make_host_mesh(*MODEL_MESH, device="cuda")
+    tokens = torch.from_numpy(lm_token_stream(
+        *LAUNCH_BATCH, cfg.vocab_size, seed=171)[0]).long().to(dev)
+    batch = {"tokens": tokens}
+    b["layer"] = first_moe_against_mesh(cfg, model, tokens, mesh, "b")
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    model.requires_grad_(True)
+    losses, walls = {}, {}
+
+    def loss_and_grads(name, c, me):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = MT.lm_loss(c, model, batch, mesh=me)
+        loss.backward()
+        losses[name] = loss.item()
+        walls[name] = time.perf_counter() - t0
+        return grads_now(model)
+
+    for me in (mesh, None):  # warm-ups, untimed
+        MT.lm_loss(cfg, model, batch, mesh=me).backward()
+        grads_now(model)
+    g_none = loss_and_grads("none", cfg, None)
+    grad_err = global_rel(loss_and_grads("mesh", cfg, mesh), g_none)
+    g_32 = loss_and_grads("float32", cfg32, None)
+    grad_spread = global_rel(g_none, g_32)
+    del g_none, g_32
+    model.requires_grad_(False)
+    torch.cuda.empty_cache()
+    loss_err = abs(losses["mesh"] - losses["none"])
+    loss_spread = abs(losses["none"] - losses["float32"])
+    b |= {"losses": losses, "loss_and_grad_s": walls, "loss_err": loss_err,
+          "loss_spread": loss_spread, "grad_err": grad_err,
+          "grad_spread": grad_spread}
+    log(f"(b) lm_loss and its gradients (B, S = {LAUNCH_BATCH}) through the "
+        f"mesh: loss {losses['mesh']:.6f} against {losses['none']:.6f} "
+        f"(float32 compute {losses['float32']:.6f}); the gradients within "
+        f"{grad_err:.4e} of mesh=None by their global norm (bfloat16's "
+        f"spread {grad_spread:.4e}, tolerance {SPREAD_FACTOR} x); forward and "
+        f"backward {walls['mesh']:.3f} s against {walls['none']:.3f} s, "
+        f"after a warm-up of each")
+    check(all(math.isfinite(v) for v in losses.values())
+          and loss_err <= SPREAD_FACTOR * loss_spread
+          and grad_err <= SPREAD_FACTOR * grad_spread,
+          f"(b) the loss and gradients through the mesh: {b}")
+
+    opt = adamw_init(model)
+    steps = {"none": make_train_step(cfg, None, TRAIN_OPT),
+             "mesh": make_train_step(cfg, mesh, TRAIN_OPT)}
+    model, opt, m = steps["none"](model, opt, batch)  # warm-up
+    warm = m["loss"].item()
+    torch.cuda.reset_peak_memory_stats()
+    turns = []
+    for name in MESH_TURNS:
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model, opt, m = steps[name](model, opt, batch)
+        loss = m["loss"].item()
+        turns.append({"mesh": name, "step_s": time.perf_counter() - t0,
+                      "loss": loss, "launches": {
+                          k: v for k, v in counts().items()
+                          if k in _build.launches}})
+    peak = torch.cuda.max_memory_allocated()
+    b |= {"warm_up_loss": warm, "steps": turns, "max_memory_allocated": peak}
+    log(f"(b) train steps after a warm-up (loss {warm:.4f}), in turns: "
+        + ", ".join(f"{t['mesh']} {t['step_s']:.3f} s (loss "
+                    f"{t['loss']:.4f})" for t in turns)
+        + f"; peak {peak / 2**30:.2f} GiB")
+    check(all(math.isfinite(t["loss"]) for t in turns)
+          and turns[-1]["loss"] < warm
+          and peak < TRAIN_PEAK_GIB * 2**30,
+          f"(b) the train steps: {turns}, peak {peak}")
+    del model, opt, tokens
+    torch.cuda.empty_cache()
+    return b
+
+
+def aba_1m_on_card(dev, x) -> dict:
+    """(c'): the ``aba_1m`` cell run on the card over the production mesh's
+    data shards, every position ``dev``."""
+    mesh, fn, (spec,), cell = dryrun.lower_aba_cell(
+        "aba_1m", multi_pod=False, device=dev)
+    check(tuple(x.shape) == spec.shape and x.dtype == spec.dtype,
+          f"(c') rows {tuple(x.shape)} {x.dtype} against {spec}")
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    labels = fn(x)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    sizes = torch.bincount(labels.long(), minlength=cell["k"])
+    used = {k: v for k, v in counts().items() if k in _build.launches}
+    c = {"n": cell["n"], "d": cell["d"], "k": cell["k"],
+         "fixed_rounds": cell["rounds"], "shards": mesh.shape["data"],
+         "wall_s": wall, "sizes_min": int(sizes.min()),
+         "sizes_max": int(sizes.max()), "launches": used}
+    log(f"(c') aba_1m on the card: {cell['n']} x {cell['d']} rows into k = "
+        f"{cell['k']} over {c['shards']} data shards in {wall:.3f} s; sizes "
+        f"{c['sizes_min']}..{c['sizes_max']}; launches {used}")
+    check(c["sizes_min"] == c["sizes_max"] == cell["n"] // cell["k"]
+          and labels.shape == (cell["n"],), f"(c') not balanced: {c}")
+    return c
+
+
+def launch_layer(dev, card: str) -> dict:
+    """Phase 17: the launch layer."""
+    t_start = time.perf_counter()
+    torch.cuda.empty_cache()
+    out = {"live_at_start_bytes": torch.cuda.memory_allocated(),
+           "card": card}
+    cell = dryrun.ABA_CELLS["aba_1m"]
+    rows = {}
+    drawer = threading.Thread(target=lambda: rows.__setitem__(
+        "x", make("lowrank", cell["n"], cell["d"], seed=0)))
+    procs = start_dryrun_cells()
+    drawer.start()
+    try:
+        out["a"] = abstract_models()
+        out["b"] = moe_over_model_axis(dev)
+        drawer.join()
+        out["c_prime"] = aba_1m_on_card(dev, torch.from_numpy(rows.pop("x"))
+                                        .to(dev))
+        out["c"] = finish_dryrun_cells(procs)
+    finally:
+        drawer.join()
+        stop_children(procs)
+    out["live_at_end_bytes"] = torch.cuda.memory_allocated()
+    out["seconds"] = time.perf_counter() - t_start
+    log(f"phase 17: {out['seconds']:.1f} s (budget {LAUNCH_BUDGET_S} s)")
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=PRESETS["diabetes"][0],
@@ -5641,6 +5994,13 @@ def main():
             r["launches"] = per_step["ssm_scan_bwd"]
             r["launches_in"] = (f"phase 16: make_train_step on {TRAIN_ARCH},"
                                 " one a Mamba layer a step")
+    phase("phase 17: the launch layer")
+    launch_run = launch_layer(dev, smi)
+    for r in rows:
+        r["launches_phase17"] = {
+            f"(b) {LAUNCH_ARCH} a step through the mesh":
+                launch_run["b"]["steps"][0]["launches"][r["name"]],
+            "(c') aba_1m": launch_run["c_prime"]["launches"][r["name"]]}
     phase("done")
 
     log(json.dumps({"main_path": main_run, "against_plain": plain_run,
@@ -5653,7 +6013,7 @@ def main():
                     "mesh_pipeline_baselines": mesh_run_,
                     "model_stack": model_run, "dense_stack": dense_run,
                     "moe_stack": moe_run, "front_ends": front_run,
-                    "training": train_run}))
+                    "training": train_run, "launch_layer": launch_run}))
     log(smi)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

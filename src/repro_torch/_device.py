@@ -15,23 +15,33 @@ float32 reference.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
 DTYPE = torch.float32
+
+
+class ShapeDtype(NamedTuple):
+    """A shape and a dtype, with no data: the port's
+    ``jax.ShapeDtypeStruct`` (the dry-run's abstract arguments)."""
+    shape: tuple
+    dtype: torch.dtype
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 
 def resolve_device(device=None) -> torch.device:
-    """``None`` -> ``cuda``; raise if a CUDA device is asked for but absent."""
+    """``None`` -> ``cuda``; raise if a CUDA device is asked for but absent.
+    ``"meta"`` (shapes without data: the dry-run's) passes as asked."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "repro_torch runs on a CUDA device by default and none is "
             "available; pass device='cpu' to run the plain PyTorch path")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev
 

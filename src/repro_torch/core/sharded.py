@@ -23,18 +23,19 @@ per-level prices ``(S, G_l, k_l)``, ``moment_sum`` ``(S, d)`` and
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 
 import torch
 
-from repro_torch._device import DTYPE, as_float, resolve_device
+from repro_torch._device import DTYPE, ShapeDtype, as_float, resolve_device
 from repro_torch.core.aba import aba_core, aba_stream
 from repro_torch.core.assignment import AuctionConfig
 from repro_torch.core.hierarchical import (default_plan, hierarchical_core,
                                            plan_price_shapes)
 from repro_torch.sharding.specs import resolve_data_axes, shard_devices
 
-__all__ = ["sharded_price_shapes", "sharded_core"]
+__all__ = ["sharded_price_shapes", "sharded_core", "sharded_aba_lowerable"]
 
 
 def sharded_price_shapes(plan: tuple[int, ...],
@@ -177,3 +178,14 @@ def sharded_core(x, k: int, mesh, *, data_axes="auto", max_k: int = 512,
                      "moment_count": torch.stack(mcnts)}
     return out
 
+
+
+def sharded_aba_lowerable(mesh, n: int, d: int, k: int, **kw):
+    """``(fn, spec)`` of the dry-run's ABA data step: ``fn(x)`` is
+    :func:`sharded_core` over ``mesh`` with ``k`` and ``kw``, ``spec`` the
+    (n, d) float32 rows it takes.  No lowering: the port runs ``fn`` on
+    real rows, and its batch scan reads the device, so it does not run on
+    ``meta`` tensors (``launch.dryrun`` records the cell without a
+    count)."""
+    fn = functools.partial(sharded_core, k=k, mesh=mesh, **kw)
+    return fn, ShapeDtype((n, d), DTYPE)

@@ -2,7 +2,13 @@
 
 Counterpart of ``repro/kernels/ops.py``.  The rule is the tensor's device:
 a CUDA tensor takes the hand-written kernel (``"cuda"``), a CPU tensor the
-plain PyTorch version (``"ref"``).  The :func:`forced_path` context selects
+plain PyTorch version (``"ref"``), a ``meta`` tensor (the dry-run's, which
+holds no data) the count (``"meta"``): ``ssm_scan`` and its backward
+return empty outputs of the kernels' shapes and dtypes and add the
+kernel's operations and bytes (the counts of its bound in ``PERF.md`` §6)
+to each counter registered by :func:`meta_counter`; the ABA dispatchers
+raise there, since the batch scan around them reads the device
+(``core/aba.py``'s ``.tolist()``).  The :func:`forced_path` context selects
 the plain version on the card too; it exists so that ``chip_smoke.py`` can
 run the whole path against the plain versions, the counterpart of JAX's
 ``force=``.  The wrappers under the dispatchers take their plain version
@@ -62,6 +68,7 @@ from repro_torch.kernels.ssm_scan import ssm_scan_train as _ssm_scan_train
 _GATHER_FUSE_MAX_D = 512  # the reference's full-row limit of the fused kernels
 
 _forced: str | None = None
+_meta_counters: list = []
 
 
 @contextlib.contextmanager
@@ -77,16 +84,42 @@ def forced_path(path: str):
         _forced = prev
 
 
+@contextlib.contextmanager
+def meta_counter(counter):
+    """Within the block the ``meta`` path calls ``counter.add_kernel(name,
+    flops, n_bytes)`` once a kernel it stands in for."""
+    _meta_counters.append(counter)
+    try:
+        yield counter
+    finally:
+        _meta_counters.remove(counter)
+
+
+def _count_meta(name: str, flops: int, n_bytes: int) -> None:
+    for counter in _meta_counters:
+        counter.add_kernel(name, flops, n_bytes)
+
+
 def resolve_path(t: torch.Tensor) -> str:
-    """``"cuda"`` for a CUDA tensor, ``"ref"`` for a CPU tensor or inside
-    :func:`forced_path`.  The single copy of the rule; every dispatcher
-    branches on it."""
+    """``"meta"`` for a ``meta`` tensor, ``"cuda"`` for a CUDA tensor,
+    ``"ref"`` for a CPU tensor or inside :func:`forced_path`.  The single
+    copy of the rule; every dispatcher branches on it."""
+    if t.is_meta:
+        return "meta"
     if _forced == "ref" or not t.is_cuda:
         return "ref"
     return "cuda"
 
 
-gather_path = resolve_path  # the row gather follows the same rule
+def gather_path(t: torch.Tensor) -> str:
+    """:func:`resolve_path` for the ABA dispatchers, which raise on a
+    ``meta`` tensor: their callers read the device between launches."""
+    path = resolve_path(t)
+    if path == "meta":
+        raise ValueError(
+            "the ABA kernels cannot run on meta tensors: the batch scan "
+            "around them reads the device (core/aba.py's .tolist())")
+    return path
 
 
 def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -108,13 +141,13 @@ def cdist(x: torch.Tensor, c: torch.Tensor, *,
         if x.dim() != 2:
             raise ValueError(f"cdist(idx=) needs flat (n, d) x, got "
                              f"{tuple(x.shape)}")
-        if resolve_path(x) == "ref" or x.shape[1] > _GATHER_FUSE_MAX_D:
+        if gather_path(x) == "ref" or x.shape[1] > _GATHER_FUSE_MAX_D:
             return cdist(gather_rows(x, idx), c)
         return _gather.cdist_gather(x, idx, c)
     lead = x.shape[:-2]
     if lead:
         x = x.reshape(-1, x.shape[-1])
-    out = cdist_ref(x, c) if resolve_path(x) == "ref" else _cdist(x, c)
+    out = cdist_ref(x, c) if gather_path(x) == "ref" else _cdist(x, c)
     return out.reshape(*lead, -1, out.shape[-1]) if lead else out
 
 
@@ -131,10 +164,10 @@ def bid_top2(x: torch.Tensor, c: torch.Tensor, prices: torch.Tensor, *,
         if x.dim() != 2:
             raise ValueError(f"bid_top2(idx=) needs flat (n, d) x, got "
                              f"{tuple(x.shape)}")
-        if resolve_path(x) == "ref" or x.shape[1] > _GATHER_FUSE_MAX_D:
+        if gather_path(x) == "ref" or x.shape[1] > _GATHER_FUSE_MAX_D:
             return bid_top2(gather_rows(x, idx), c, prices)
         return _gather.bid_top2_gather(x, idx, c, prices)
-    if resolve_path(x) == "ref":
+    if gather_path(x) == "ref":
         return bid_top2_ref(x, c, prices)
     return _bid_top2(x, c, prices)
 
@@ -143,7 +176,7 @@ def bid_top2_span(x: torch.Tensor, c: torch.Tensor):
     """``(bid_top2(x, c, 0), bid_top2(-x, c, 2 ||c||^2))`` on a stacked
     ``(G, m, d) x (G, k, d)``: one launch on the card at any G, the two
     plain calls on the plain path."""
-    if resolve_path(x) == "ref":
+    if gather_path(x) == "ref":
         return bid_top2_span_ref(x, c)
     return _bid_top2_span(x, c)
 
@@ -154,7 +187,7 @@ def auction_phase(x: torch.Tensor, c: torch.Tensor, is_real, prices, eps,
     """One epsilon phase of the factored auction on a (G, n, d) stack (see
     ``kernels.auction_phase.auction_phase``); returns (assign, prices), and
     with ``return_rounds`` the (1, G) rounds of each group."""
-    if resolve_path(x) == "ref":
+    if gather_path(x) == "ref":
         return auction_phase_ref(x, c, is_real, prices, eps, max_rounds,
                                   fixed_rounds, skip, seed_top2,
                                   return_rounds)
@@ -170,7 +203,7 @@ def auction_phase_dense(cost: torch.Tensor, prices, eps, max_rounds: int,
     phase (see ``kernels.auction_phase.auction_phase_dense``); returns the
     last phase's (assign, prices), and with ``return_rounds`` the (P, G)
     rounds of every phase and group."""
-    if resolve_path(cost) == "ref":
+    if gather_path(cost) == "ref":
         return auction_phase_dense_ref(cost, prices, eps, max_rounds,
                                        fixed_rounds, skip, seed_top2,
                                        return_rounds)
@@ -178,15 +211,49 @@ def auction_phase_dense(cost: torch.Tensor, prices, eps, max_rounds: int,
                                 skip, seed_top2, return_rounds)
 
 
+def _ssm_meta_forward(dt, b_in, a_mat, save: bool):
+    """The ``meta`` path of the forward: empty y (B, S, di) and h (B, di,
+    ds), float32, and the counts of the kernel's bound: dt, x, y and B, C
+    once, A, the final h; 7 operations a state and step and one a channel
+    and step.  The saving launch also writes h every 16 steps."""
+    bsz, s, di = dt.shape
+    ds = a_mat.shape[1]
+    n_bytes = 4 * (3 * bsz * s * di + 2 * bsz * s * ds + di * ds
+                   + bsz * di * ds)
+    if save:
+        n_bytes += 4 * bsz * -(-s // 16) * di * ds
+    _count_meta("ssm_scan", 7 * bsz * s * di * ds + bsz * s * di, n_bytes)
+    return (torch.empty((bsz, s, di), dtype=torch.float32, device="meta"),
+            torch.empty((bsz, di, ds), dtype=torch.float32, device="meta"))
+
+
+def _ssm_meta_backward(dt, b_in, a_mat):
+    """The ``meta`` path of the backward: empty gradients of the five
+    inputs' shapes, and the counts of ``ssm_scan_bwd``'s bound: dt, x, dy
+    read and d(dt), dx written; B, C and their gradients; the states saved
+    every 16 steps; A, dA, dh and dh0; 20 operations a state and step."""
+    bsz, s, di = dt.shape
+    ds = a_mat.shape[1]
+    n_bytes = 4 * (5 * bsz * s * di + 4 * bsz * s * ds
+                   + bsz * -(-s // 16) * di * ds + 2 * di * ds
+                   + 2 * bsz * di * ds)
+    _count_meta("ssm_scan_bwd", 20 * bsz * s * di * ds, n_bytes)
+    return tuple(torch.empty(shape, dtype=torch.float32, device="meta")
+                 for shape in (dt.shape, b_in.shape, b_in.shape, dt.shape,
+                               a_mat.shape))
+
+
 class SSMScan(torch.autograd.Function):
     """:func:`ssm_scan` with its gradient.  ``path`` is the dispatch's
-    (``"cuda"`` or ``"ref"``); ``save`` whether a backward will follow,
-    decided by the caller, since grad is off inside ``forward``."""
+    (``"cuda"``, ``"ref"`` or ``"meta"``); ``save`` whether a backward will
+    follow, decided by the caller, since grad is off inside ``forward``."""
 
     @staticmethod
     def forward(ctx, path, save, dt, b_in, c_out, x_in, a_mat):
         states = None
-        if path == "ref":
+        if path == "meta":
+            out = _ssm_meta_forward(dt, b_in, a_mat, save)
+        elif path == "ref":
             out = ssm_scan_ref(dt, b_in, c_out, x_in, a_mat)
         elif save:
             y, h, states = _ssm_scan_train(dt, b_in, c_out, x_in, a_mat)
@@ -205,7 +272,9 @@ class SSMScan(torch.autograd.Function):
         dy = torch.zeros_like(dt) if dy is None else dy.contiguous()
         dh = (dt.new_zeros((bsz, di, ds)) if dh is None
               else dh.contiguous())
-        if ctx.path == "ref":
+        if ctx.path == "meta":
+            grads = _ssm_meta_backward(dt, b_in, a_mat)
+        elif ctx.path == "ref":
             grads = ssm_scan_bwd_ref(dt, b_in, c_out, x_in, a_mat, dy, dh)
         else:
             grads = _ssm_scan_bwd(dt, b_in, c_out, x_in, a_mat, states, dy,

@@ -26,8 +26,20 @@ kv_lora | qk_rope)``), the Mamba state and the cross-attention's ``xk``,
 ``xv`` (``(n_blocks, B, enc_len, H, hd)``, written by the prefill and
 only read after).  Weights are cast to ``cfg.compute_dtype`` at use, as
 the reference does; the SSM state, the scan, the MoE router and
-attention's scores stay float32.  The MoE runs without a mesh (the
-reference's ``_moe_call`` with ``mesh=None``).
+attention's scores stay float32.
+
+``mesh=`` (a :class:`~repro_torch.sharding.Mesh` with a ``"model"``
+axis, and ``"data"`` / ``"pod"`` axes) reaches the MoE only: its module
+runs ``_moe_call`` (``moe.moe_call``), which splits the batch over the
+data positions and runs each shard's experts over the ``model`` axis,
+as the reference's ``shard_map`` does.  The reference's other uses of its mesh are sharding
+constraints (``_constrain``, ``layers.py::_flash_shard`` and
+``_flash_out_anchor``, ``mamba.py::_anchor``), which do not change the
+arithmetic, so they have no counterpart here.  The dry-run's abstract
+layer is :func:`abstract_params`, :func:`param_pspecs`,
+:func:`abstract_cache` and :func:`cache_pspecs`: shape-and-dtype records
+and partition tuples keyed by the reference's leaf paths
+(:func:`flatten_defs`).
 """
 
 from __future__ import annotations
@@ -38,12 +50,13 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch._device import resolve_device
+from repro_torch._device import ShapeDtype, resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
 from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
 from repro_torch.models.config import LayerSpec, ModelConfig
+from repro_torch.sharding.specs import to_pspec
 
 # ---------------------------------------------------------------------------
 # parameter metadata
@@ -137,6 +150,20 @@ def n_params(cfg: ModelConfig) -> int:
     """Parameters of the model, counted from ``model_defs`` (no allocation)."""
     return sum(math.prod(pd.shape) for pd in flatten_defs(model_defs(cfg))
                .values())
+
+
+def abstract_params(cfg: ModelConfig) -> dict:
+    """``{leaf path: ShapeDtype}`` of the reference's stacked leaves, in
+    ``cfg.param_dtype``."""
+    dtype = getattr(torch, cfg.param_dtype)
+    return {path: ShapeDtype(tuple(pd.shape), dtype)
+            for path, pd in flatten_defs(model_defs(cfg)).items()}
+
+
+def param_pspecs(cfg: ModelConfig, axis_names) -> dict:
+    """``{leaf path: partition tuple}`` of the leaves' logical tags."""
+    return {path: to_pspec(pd.axes, axis_names)
+            for path, pd in flatten_defs(model_defs(cfg)).items()}
 
 
 # ---------------------------------------------------------------------------
@@ -282,8 +309,12 @@ def _cross_kv(cfg, p, enc_out):
         b, t, cfg.n_kv_heads, cfg.head_dim) for w in (p.wk, p.wv))
 
 
+# the reference's transformer._moe_call: the MoE MLP over a mesh
+_moe_call = MOE.moe_call
+
+
 def _apply_layer(cfg, layer: Layer, x, positions, *, mode="train",
-                 cache=None, kv_len=None, enc_out=None):
+                 cache=None, kv_len=None, enc_out=None, mesh=None):
     """One layer.  ``cache`` is the layer's slice of the stacked cache:
     ``mode="prefill"`` writes the layer's entry into it (attention's RoPE'd
     k and v, or MLA's latents, at positions ``0 .. S - 1``; the Mamba
@@ -326,7 +357,8 @@ def _apply_layer(cfg, layer: Layer, x, positions, *, mode="train",
         y, _ = layer.xattn(h, positions, spec=spec, kv_override=kv)
         x = x + y
     if spec.mlp != "none":
-        y = layer.mlp(_norm(cfg, layer, "ln2", x))
+        h = _norm(cfg, layer, "ln2", x)
+        y = layer.mlp(h, mesh=mesh) if spec.mlp == "moe" else layer.mlp(h)
         if cfg.post_block_norm:
             y = _norm(cfg, layer, "ln2_post", y)
         x = x + y
@@ -334,18 +366,18 @@ def _apply_layer(cfg, layer: Layer, x, positions, *, mode="train",
 
 
 def _run_block(cfg, block, x, positions, enc_out, mode="train", cache=None,
-               kv_len=None, b=0):
+               kv_len=None, b=0, mesh=None):
     """One block's layers in order; block ``b`` of the cache."""
     for key, layer in block.items():
         x = _apply_layer(
             cfg, layer, x, positions, mode=mode, kv_len=kv_len,
-            enc_out=enc_out, cache=None if cache is None else {
+            enc_out=enc_out, mesh=mesh, cache=None if cache is None else {
                 n: t[b] for n, t in cache[key].items()})
     return x
 
 
 def _run_blocks(cfg, blocks, x, positions, *, mode="train", cache=None,
-                kv_len=None, enc_out=None, remat=None):
+                kv_len=None, enc_out=None, remat=None, mesh=None):
     """The blocks in order (``model.blocks``, or ``model.enc.blocks``).
     With ``cache`` (``cache_defs``' stacked layout), block ``b``'s layers
     write their entries into index ``b`` of it, in place.  ``remat``
@@ -359,10 +391,10 @@ def _run_blocks(cfg, blocks, x, positions, *, mode="train", cache=None,
     for b, block in enumerate(blocks):
         if remat:
             x = checkpoint(_run_block, cfg, block, x, positions, enc_out,
-                           mode, cache, kv_len, b, use_reentrant=False)
+                           mode, cache, kv_len, b, mesh, use_reentrant=False)
         else:
             x = _run_block(cfg, block, x, positions, enc_out, mode, cache,
-                           kv_len, b)
+                           kv_len, b, mesh)
     return x
 
 
@@ -414,12 +446,13 @@ def _inputs(cfg, model: Model, tokens, positions, extra_embeds, enc_frames):
 
 
 def forward_hidden(cfg, model: Model, tokens, *, positions=None,
-                   extra_embeds=None, enc_frames=None, remat=None):
+                   extra_embeds=None, enc_frames=None, mesh=None,
+                   remat=None):
     """Token stream -> final hidden states (B, S, D)."""
     x, positions, enc_out = _inputs(cfg, model, tokens, positions,
                                     extra_embeds, enc_frames)
     x = _run_blocks(cfg, model.blocks, x, positions, enc_out=enc_out,
-                    remat=remat)
+                    remat=remat, mesh=mesh)
     return _norm(cfg, model, "final_norm", x)
 
 
@@ -448,7 +481,7 @@ def _chunk_nll(cfg, model: Model, hc, tc, mc):
     return ((lse - gold) * mc).sum(), mc.sum()
 
 
-def lm_loss(cfg, model: Model, batch: dict, loss_chunk: int = 512):
+def lm_loss(cfg, model: Model, batch: dict, mesh=None, loss_chunk: int = 512):
     """Mean next-token CE; the vocab projection + CE run in seq chunks so
     fp32 logits never materialize at (B, S, V).
 
@@ -464,7 +497,7 @@ def lm_loss(cfg, model: Model, batch: dict, loss_chunk: int = 512):
     tokens = batch["tokens"]
     h = forward_hidden(cfg, model, tokens, positions=batch.get("positions"),
                        extra_embeds=batch.get("extra_embeds"),
-                       enc_frames=batch.get("enc_frames"))
+                       enc_frames=batch.get("enc_frames"), mesh=mesh)
     targets = batch.get("labels", tokens)
     mask = batch.get("mask")
     s = h.shape[1]
@@ -530,6 +563,23 @@ def cache_defs(cfg: ModelConfig, batch: int, max_len: int,
     return _stack(out, cfg.n_blocks)
 
 
+def abstract_cache(cfg, batch: int, max_len: int, enc_len: int = 0) -> dict:
+    """``{leaf path: ShapeDtype}`` of the cache (``"L0/k"``, ...): the SSM
+    state ``h`` float32, the rest in the compute dtype."""
+    return {path: ShapeDtype(tuple(pd.shape), torch.float32
+                             if path.endswith("/h") else _cdt(cfg))
+            for path, pd in flatten_defs(
+                cache_defs(cfg, batch, max_len, enc_len)).items()}
+
+
+def cache_pspecs(cfg, batch: int, max_len: int, axis_names,
+                 enc_len: int = 0) -> dict:
+    """``{leaf path: partition tuple}`` of the cache."""
+    return {path: to_pspec(pd.axes, axis_names)
+            for path, pd in flatten_defs(
+                cache_defs(cfg, batch, max_len, enc_len)).items()}
+
+
 def init_cache(cfg, batch: int, max_len: int, enc_len: int = 0, *,
                device=None) -> dict:
     """Zeros in ``cache_defs``' layout: the SSM state ``h`` float32, the
@@ -540,7 +590,8 @@ def init_cache(cfg, batch: int, max_len: int, enc_len: int = 0, *,
         for key, e in cache_defs(cfg, batch, max_len, enc_len).items()}
 
 
-def decode_step(cfg, model: Model, cache, kv_len, tokens, *, positions=None):
+def decode_step(cfg, model: Model, cache, kv_len, tokens, *, positions=None,
+                mesh=None):
     """One token for every sequence.  tokens: (B, 1); ``kv_len`` (an int:
     the tokens seen so far) is where attention writes its key.  Positions
     default to ``kv_len``, in every stream under M-RoPE (the reference's
@@ -558,13 +609,14 @@ def decode_step(cfg, model: Model, cache, kv_len, tokens, *, positions=None):
     else:
         positions = torch.as_tensor(positions, device=tokens.device)
     x = _run_blocks(cfg, model.blocks, embed_tokens(cfg, model, tokens),
-                    positions, mode="decode", cache=new, kv_len=kv_len)
+                    positions, mode="decode", cache=new, kv_len=kv_len,
+                    mesh=mesh)
     return logits_from_hidden(cfg, model, _norm(cfg, model, "final_norm",
                                                 x)), new
 
 
 def prefill(cfg, model: Model, tokens, max_len: int, *, positions=None,
-            enc_frames=None, extra_embeds=None):
+            enc_frames=None, extra_embeds=None, mesh=None):
     """Process the prompt, build the cache.  Returns (last-pos logits,
     cache); ``max_len`` sizes attention's and MLA's cache (zeros past the
     prompt), not the SSM state; the cross-attention's entries hold the
@@ -577,6 +629,6 @@ def prefill(cfg, model: Model, tokens, max_len: int, *, positions=None,
     cache = init_cache(cfg, b, max_len, 0 if enc_out is None
                        else enc_out.shape[1], device=tokens.device)
     x = _run_blocks(cfg, model.blocks, x, positions, mode="prefill",
-                    cache=cache, enc_out=enc_out)
+                    cache=cache, enc_out=enc_out, mesh=mesh)
     h = _norm(cfg, model, "final_norm", x[:, -1:])
     return logits_from_hidden(cfg, model, h), cache

@@ -1,21 +1,99 @@
-"""Data-parallel placement of anticlustering sessions, in PyTorch.
+"""Logical axis -> mesh axis rules, and the data-parallel placement of
+anticlustering sessions, in PyTorch.
 
-Counterpart of the placement half of ``repro/sharding/specs.py``:
-:data:`DATA_AXIS_CANDIDATES` and :func:`resolve_data_axes` are copied with
-their messages.  :class:`Mesh` stands in for ``jax.sharding.Mesh``: a
-named grid of ``torch.device`` s.  The port's mesh route
+Counterpart of ``repro/sharding/specs.py``.  Every parameter and
+activation dim is tagged with a logical axis (MaxText-style, reduced
+vocabulary):
+
+  fsdp   ZeRO-3 weight sharding over the data-parallel axes ('pod','data')
+  tp     tensor parallel over 'model' (heads / ff / vocab / experts / d_inner)
+  dp     batch dim of activations over ('pod','data')
+  sp     long sequences (decode KV caches) over 'model' (flash-decode style)
+  None   replicated
+
+Axes missing from the mesh (e.g. 'pod' on the single-pod mesh) are
+dropped.  A partition spec is a plain tuple whose entries are None, an
+axis name or a tuple of names, as ``tuple(PartitionSpec(...))`` gives
+them; :class:`NamedSharding` pairs one with its mesh.  No partitioner
+reads them: the dry-run (``repro_torch.launch.dryrun``) sizes each
+argument's share of a device from them.
+
+:data:`DATA_AXIS_CANDIDATES` and :func:`resolve_data_axes` are copied
+with their messages.  :class:`Mesh` stands in for ``jax.sharding.Mesh``:
+a named grid of ``torch.device`` s.  The port's mesh route
 (:mod:`repro_torch.core.sharded`) runs one solve a data-parallel shard, on
 the device at that shard's position, with no collective; a mesh may name
 one device at several positions (its shards then run one after another
-there).  The logical-axis rules of the model stack are not ported here.
+there).
 """
 
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
+
+LOGICAL = {
+    "fsdp": ("pod", "data"),
+    "dp": ("pod", "data"),
+    "tp": ("model",),
+    "sp": ("model",),
+    None: (),
+}
+
+
+def _resolve(tag, axis_names):
+    axes = tuple(a for a in LOGICAL[tag] if a in axis_names)
+    if not axes:
+        return None
+    return axes if len(axes) > 1 else axes[0]
+
+
+def to_pspec(tags: tuple, axis_names) -> tuple:
+    """('fsdp', 'tp') -> (('pod', 'data'), 'model') on the 3-axis mesh."""
+    return tuple(_resolve(t, axis_names) for t in tags)
+
+
+class NamedSharding(NamedTuple):
+    """A mesh and a partition spec over its axes (the port's
+    ``jax.sharding.NamedSharding``)."""
+    mesh: "Mesh"
+    spec: tuple
+
+
+def logical_to_sharding(tags: tuple, mesh) -> NamedSharding:
+    return NamedSharding(mesh, to_pspec(tags, mesh.axis_names))
+
+
+def _is_tags(x) -> bool:
+    return isinstance(x, tuple) and all(isinstance(t, (str, type(None)))
+                                        for t in x)
+
+
+def tree_pspecs(tag_tree, axis_names):
+    """Map a nested dict (or list) of logical-tag tuples to partition
+    specs."""
+    if _is_tags(tag_tree):
+        return to_pspec(tag_tree, axis_names)
+    if isinstance(tag_tree, dict):
+        return {k: tree_pspecs(v, axis_names) for k, v in tag_tree.items()}
+    return type(tag_tree)(tree_pspecs(v, axis_names) for v in tag_tree)
+
+
+def spec_shards(spec: tuple, mesh) -> list[int]:
+    """The shards of each dim under ``spec`` on ``mesh``: the product of
+    the sizes of the axes its entry names (1 where None)."""
+    out = []
+    for entry in spec:
+        names = () if entry is None else (
+            (entry,) if isinstance(entry, str) else entry)
+        out.append(math.prod(mesh.shape[a] for a in names))
+    return out
+
+
+# --- data-parallel placement of anticlustering sessions ---------------------
 
 DATA_AXIS_CANDIDATES = ("pod", "data")
 

@@ -23,8 +23,8 @@ own ``ndim`` would skip the decay on all those block leaves.
 The update writes the model's parameters and the moments in place (the
 reference returns new trees; in place keeps one copy of 16 bytes a
 parameter on the card) and returns them.  ``opt_abstract`` and
-``opt_pspecs`` (the dry-run's abstract state and its shardings) are not
-ported yet: ``ROADMAP.md`` Queue 1 item 1.5.
+``opt_pspecs`` are the dry-run's abstract state and its partition specs,
+over ``transformer.abstract_params``' and ``param_pspecs``' leaf paths.
 """
 
 from __future__ import annotations
@@ -34,6 +34,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch._device import ShapeDtype
 from repro_torch.models.transformer import flatten_defs, model_defs
 
 
@@ -79,6 +80,21 @@ def adamw_init(model) -> dict:
 
     return {"m": zeros(), "v": zeros(),
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+def opt_abstract(abstract_params: dict) -> dict:
+    """The state's shapes and dtypes: float32 moments at every leaf's
+    shape, an int32 step."""
+    moments = {path: ShapeDtype(sd.shape, torch.float32)
+               for path, sd in abstract_params.items()}
+    return {"m": moments, "v": dict(moments),
+            "step": ShapeDtype((), torch.int32)}
+
+
+def opt_pspecs(param_pspecs: dict) -> dict:
+    """The moments take their weights' partition specs (ZeRO: they follow
+    the weights' FSDP sharding); the step is replicated."""
+    return {"m": param_pspecs, "v": param_pspecs, "step": ()}
 
 
 def grads_of(model) -> dict:

@@ -9,10 +9,11 @@ microbatch's.  The step turns the model's gradients on, updates it and the
 optimizer state in place (:func:`~repro_torch.train.optimizer.adamw_update`)
 and clears the gradients after.
 
-The reference's ``mesh`` only constrains shardings (the arithmetic is the
-same without it), so here the step runs on the model's device; a mesh with
-a ``model`` axis wider than 1 (tensor parallelism, and the MoE over it) is
-``ROADMAP.md`` Queue 1 item 1.5 and raises.
+``mesh`` goes to ``lm_loss``, ``prefill`` and ``decode_step``, where it
+reaches the MoE only (``transformer._moe_call``: each data shard's
+experts over the ``model`` axis); the reference's other uses of its mesh
+constrain shardings and leave the arithmetic as it is without one.  The
+rest of the step runs on the model's device.
 """
 
 from __future__ import annotations
@@ -23,17 +24,9 @@ from repro_torch.models import transformer as T
 from repro_torch.train.optimizer import OptConfig, adamw_update, grads_of
 
 
-def _check_mesh(mesh):
-    if mesh is not None and mesh.shape.get("model", 1) > 1:
-        raise NotImplementedError(
-            "tensor parallelism over a 'model' axis is not ported yet: "
-            "ROADMAP.md Queue 1 item 1.5")
-
-
 def make_train_step(cfg, mesh=None, opt_cfg: OptConfig = OptConfig(),
                     microbatches: int = 1, loss_chunk: int = 512):
     """Build the train step for a model config (see the module's doc)."""
-    _check_mesh(mesh)
 
     def train_step(model, opt_state, batch):
         model.requires_grad_(True)
@@ -46,7 +39,8 @@ def make_train_step(cfg, mesh=None, opt_cfg: OptConfig = OptConfig(),
         loss = None
         for i in range(microbatches):
             micro = {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
-            part = T.lm_loss(cfg, model, micro, loss_chunk=loss_chunk)
+            part = T.lm_loss(cfg, model, micro, mesh=mesh,
+                             loss_chunk=loss_chunk)
             part.backward()
             part = part.detach()
             loss = part if loss is None else loss + part
@@ -66,11 +60,11 @@ def make_serve_step(cfg, mesh=None):
     """One decode step for a running batch: (model, cache, kv_len, tokens)
     -> (next_tokens (B, 1), logits, cache).  Greedy head (sampling lives in
     ``repro_torch.serve.generate``)."""
-    _check_mesh(mesh)
 
     @torch.no_grad()
     def serve_step(model, cache, kv_len, tokens):
-        logits, cache = T.decode_step(cfg, model, cache, kv_len, tokens)
+        logits, cache = T.decode_step(cfg, model, cache, kv_len, tokens,
+                                      mesh=mesh)
         nxt = logits[:, -1, :].argmax(-1).to(torch.int32)
         return nxt[:, None], logits, cache
 
@@ -80,11 +74,10 @@ def make_serve_step(cfg, mesh=None):
 def make_prefill_step(cfg, mesh, max_len: int):
     """``prefill_step(model, tokens, extra=None, enc_frames=None) ->
     (last-position logits, cache)`` at ``max_len``."""
-    _check_mesh(mesh)
 
     @torch.no_grad()
     def prefill_step(model, tokens, extra=None, enc_frames=None):
         return T.prefill(cfg, model, tokens, max_len, extra_embeds=extra,
-                         enc_frames=enc_frames)
+                         enc_frames=enc_frames, mesh=mesh)
 
     return prefill_step

@@ -49,7 +49,8 @@ def test_import_pulls_in_neither_jax_nor_repro():
             "repro_torch.serve.generate, repro_torch.kernels.ssm_scan, "
             "repro_torch.train.optimizer, repro_torch.train.train_step, "
             "repro_torch.train.checkpoint, repro_torch.train.compression, "
-            "repro_torch.launch.train\n"
+            "repro_torch.launch.train, repro_torch.launch.dryrun, "
+            "repro_torch.launch.cost, repro_torch.launch.inputs\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "assert not bad, bad\n")

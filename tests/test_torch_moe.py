@@ -11,13 +11,19 @@ and the ranks, kept pairs and slots exactly, the latter
 against a plain count over the reference's choices; with renorm on and
 off, with and without a shared expert, with ``silu`` and ``gelu``, and
 with ``capacity_factor=0.5``, where pairs are dropped.  The layer's output
-within rtol / atol 1e-4 in float32.  The tie rule: with the router zeroed
+within rtol / atol 1e-4 in float32.  Over the ``model`` axis, at 2 and 4
+positions and on a (2, 2) mesh, against the reference's ``shard_map`` on
+4 host devices in a child process, within 1e-4 of max |out|.  The tie rule: with the router zeroed
 the reference picks experts ``0 .. k-1`` for every token, and so does the
 port.  Every draw comes from a ``default_rng`` of the test's own.
 """
 
 import dataclasses
 import math
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -29,9 +35,12 @@ import jax.numpy as jnp
 from repro.models import moe as jax_moe
 from repro.models import registry as jax_registry
 
+from repro_torch.launch import make_host_mesh
 from repro_torch.models import moe
 from repro_torch.models import registry
+from repro_torch.models import transformer as T
 
+ROOT = Path(__file__).resolve().parents[1]
 CPU = "cpu"
 ARCHS = ("granite-moe-3b-a800m", "deepseek-v2-236b", "jamba-v0.1-52b")
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -191,9 +200,144 @@ def test_moe_defs_and_capacity_equal_reference(arch, reduced):
         k: v[0] for k, v in got.items()}
 
 
-def test_mesh_axis_is_not_ported_yet():
-    cfg, _ = _configs()
-    layer = _layer(cfg, _weights(cfg, np.random.default_rng(0)))
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        moe.moe_apply_local(cfg, layer, torch.zeros(1, 2, cfg.d_model),
-                            axis="model")
+# --- the MoE over the ``model`` axis ----------------------------------------
+
+_JAX_MESH = """
+import dataclasses
+import numpy as np
+import jax
+import jax.numpy as jnp
+from jax.sharding import Mesh
+from repro.models import registry
+from repro.models import transformer as JT
+
+d = dict(np.load(IN))
+jcfg = registry.get_config("granite-moe-3b-a800m", reduced=True)
+jcfg = dataclasses.replace(jcfg, moe=dataclasses.replace(jcfg.moe,
+                                                         **MOE_OVER))
+w = {k[2:]: jnp.asarray(v) for k, v in d.items() if k.startswith("w/")}
+out = {}
+for name, (dp, tp, b) in MESH_CASES.items():
+    devs = np.asarray(jax.devices()[:dp * tp]).reshape(dp, tp)
+    mesh = Mesh(devs, ("data", "model"))
+    out[name] = np.asarray(JT._moe_call(jcfg, w, jnp.asarray(d["x/" + name]),
+                                        mesh))
+np.savez(OUT, **out)
+print("ok")
+"""
+
+# shared experts (their "tp" split) and a capacity that drops pairs
+MESH_MOE = dict(n_shared=1, capacity_factor=1.25, renorm=False)
+# name: (data positions, model positions, batch)
+MESH_CASES = {"tp2": (1, 2, 2), "tp4": (1, 4, 2), "dp2-tp2": (2, 2, 4),
+              "dp2-tp2-replicated": (2, 2, 3)}
+
+
+@pytest.fixture(scope="module")
+def mesh_run(tmp_path_factory):
+    """The reference's ``_moe_call`` (its ``shard_map`` over ``model``) on
+    4 host devices in a child process, whose environment alone forces
+    them; returns (port config, layer, inputs, the reference's outputs)."""
+    tmp = tmp_path_factory.mktemp("moe_mesh")
+    cfg, _ = _configs(**MESH_MOE)
+    rng = np.random.default_rng(31)
+    w = _weights(cfg, rng)
+    xs = {name: rng.normal(size=(b, 12, cfg.d_model)).astype(np.float32)
+          for name, (_, _, b) in MESH_CASES.items()}
+    np.savez(tmp / "in.npz", **{"w/" + k: v for k, v in w.items()},
+             **{"x/" + k: v for k, v in xs.items()})
+    code = (f"IN = {str(tmp / 'in.npz')!r}\nOUT = {str(tmp / 'out.npz')!r}\n"
+            f"MOE_OVER = {MESH_MOE!r}\nMESH_CASES = {MESH_CASES!r}\n"
+            + _JAX_MESH)
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=4",
+               PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    return cfg, _layer(cfg, w), xs, dict(np.load(tmp / "out.npz"))
+
+
+def _within(got, want):
+    err = np.abs(got - want).max()
+    assert err <= 1e-4 * np.abs(want).max(), err
+
+
+@pytest.mark.parametrize("name", ["tp2", "tp4"])
+def test_moe_apply_local_over_model_equals_reference_shard_map(mesh_run,
+                                                               name):
+    """Each position's experts and its ``fs / tp`` slice of the shared
+    experts, summed over the positions: within 1e-4 of max |out| of the
+    reference's ``shard_map`` on a (1, tp) mesh."""
+    cfg, layer, xs, want = mesh_run
+    tp = MESH_CASES[name][1]
+    got = moe.moe_apply_local(cfg, layer, torch.from_numpy(xs[name]),
+                              axis="model", devices=[CPU] * tp)
+    _within(got.numpy(), want[name])
+
+
+@pytest.mark.parametrize("name", ["dp2-tp2", "dp2-tp2-replicated"])
+def test_moe_call_on_a_two_by_two_mesh_equals_reference(mesh_run, name):
+    """``_moe_call`` over a (2, 2) mesh: the batch of 4 splits into two
+    data shards, each routing its own tokens with its own capacity; the
+    batch of 3 does not divide, so it is replicated, as in the
+    reference."""
+    cfg, layer, xs, want = mesh_run
+    got = T._moe_call(cfg, layer, torch.from_numpy(xs[name]),
+                      make_host_mesh(2, 2, device=CPU))
+    _within(got.numpy(), want[name])
+    if name == "dp2-tp2":  # the shards' capacity differs from one batch's
+        whole = moe.moe_ref(cfg, layer, torch.from_numpy(xs[name]))
+        assert not np.allclose(whole.numpy(), want[name], rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_one_model_position_equals_no_mesh_bitwise():
+    cfg, _ = _configs(**MESH_MOE)
+    layer = _layer(cfg, _weights(cfg, np.random.default_rng(32)))
+    x = torch.from_numpy(np.random.default_rng(33).normal(
+        size=(2, 10, cfg.d_model)).astype(np.float32))
+    assert torch.equal(moe.moe_apply_local(cfg, layer, x, axis="model",
+                                           devices=[CPU]),
+                       moe.moe_ref(cfg, layer, x))
+
+
+def test_model_axis_must_divide_experts_and_shared_width():
+    cfg, _ = _configs(**MESH_MOE)
+    layer = _layer(cfg, _weights(cfg, np.random.default_rng(34)))
+    x = torch.zeros(1, 2, cfg.d_model)
+    with pytest.raises(ValueError, match="does not divide"):
+        moe.moe_apply_local(cfg, layer, x, axis="model", devices=[CPU] * 3)
+    wide = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, n_experts=16, d_expert=30))
+    with pytest.raises(ValueError, match="shared width 30"):
+        moe.moe_apply_local(wide, moe.MoE(wide, device=CPU), x,
+                            axis="model", devices=[CPU] * 4)
+
+
+def test_the_stack_runs_each_moe_module_with_its_mesh():
+    """``_apply_layer`` calls the layer's :class:`MoE` module with the
+    mesh, so that its forward hooks see each MoE layer's input and its own
+    ``cfg`` (which a caller may swap, as the card's capacity checks do)
+    sets the routing; the output equals ``_moe_call``'s."""
+    cfg = registry.get_config("granite-moe-3b-a800m", reduced=True)
+    model = T.init_params(cfg, generator=torch.Generator().manual_seed(35),
+                          device=CPU)
+    tokens = torch.from_numpy(np.random.default_rng(36).integers(
+        0, cfg.vocab_size, (2, 8)))
+    mesh = make_host_mesh(1, 2, device=CPU)
+    seen = []
+    mods = [m for m in model.modules() if isinstance(m, moe.MoE)]
+    hooks = [m.register_forward_hook(
+        lambda mod, args, kw, out: seen.append(
+            (kw.get("mesh"), out, T._moe_call(mod.cfg, mod, args[0],
+                                              kw.get("mesh")))),
+        with_kwargs=True) for m in mods]
+    try:
+        T.forward(cfg, model, tokens, mesh=mesh)
+    finally:
+        for h in hooks:
+            h.remove()
+    assert len(seen) == len(mods) == cfg.n_layers
+    for me, out, want in seen:
+        assert me is mesh and torch.equal(out, want)

@@ -263,8 +263,13 @@ def test_serve_and_prefill_steps_wrap_the_stack():
     assert torch.equal(step_logits, want_logits)
     assert nxt.dtype == torch.int32 and torch.equal(
         nxt[:, 0], want_logits[:, -1].argmax(-1).int())
-    with pytest.raises(NotImplementedError):
-        make_train_step(cfg, make_host_mesh(1, 2, device="cpu"))
+    # a dense config: a mesh reaches only the MoE, so the steps through a
+    # (1, 2) mesh are bitwise the steps without one
+    mesh = make_host_mesh(1, 2, device="cpu")
+    got, got_cache = make_prefill_step(cfg, mesh, 12)(model, tokens)
+    assert torch.equal(got, logits)
+    assert torch.equal(make_serve_step(cfg, mesh)(
+        model, got_cache, 9, logits.argmax(-1))[1], step_logits)
 
 
 # ---------------------------------------------------------------------------
