@@ -50,7 +50,10 @@ git-ignored ``build/``), then runs these phases, one or more lines each:
    on the first LAP of the mesh router's request (n = 128); then the
    kernel entry point's
    ``cdist``, ``cdist_gather``, ``bid_top2_gather`` and ``ssm_scan`` at the
-   shapes phase 5 gives them (``ssm_scan`` also with its expf count and
+   shapes phase 5 gives them (``bid_top2_gather`` also at m = 65 536, each
+   shape timed in turns with its previous design and beside the library
+   call, with its stages' SM cycles from its timed instantiation;
+   ``ssm_scan`` also with its expf count and
    their special-function floor at the data sheet's clock and at the SM
    clock read while calls of it run);
 3. the main path: ``anticluster(x, k=256, chunk_size="auto")`` on the
@@ -359,8 +362,9 @@ from repro_torch.kernels import auction_phase as phase_kernel  # noqa: E402
 from repro_torch.kernels.bid_top2 import bid_top2 as cuda_bid_top2  # noqa: E402
 from repro_torch.kernels.cdist import cdist as cuda_cdist  # noqa: E402
 from repro_torch.kernels.gather import (  # noqa: E402
-    bid_top2_gather as cuda_bid_top2_gather, cdist_gather as cuda_cdist_gather,
-    gather_rows as cuda_gather_rows)
+    STAGES as GATHER_STAGES, bid_top2_gather as cuda_bid_top2_gather,
+    bid_top2_gather_prev, bid_top2_gather_timed,
+    cdist_gather as cuda_cdist_gather, gather_rows as cuda_gather_rows)
 from repro_torch.kernels.ref import (  # noqa: E402
     bid_top2_gather_ref, bid_top2_ref, cdist_gather_ref, cdist_ref,
     gather_rows_ref, ssm_scan_bwd_ref, ssm_scan_chunk_ref, ssm_scan_ref)
@@ -445,6 +449,29 @@ def device_ms(fn, name: str, reps: int = 20) -> float | None:
         if us:
             return us / reps / 1e3
     return None
+
+
+def launch_device_ms(fn, name: str, reps: int = 20):
+    """Mean device time of one launch of the kernel named ``name``, from the
+    profiler, and the launches it recorded of the ``reps`` calls made: the
+    recorded time over the recorded launches, so a run that drops events
+    (phase 5's have) still reads right.  (None, 0) where three profiled runs
+    record none."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        hits = [e for e in prof.key_averages()
+                if _is_kernel(e) and name in e.key]
+        n = sum(e.count for e in hits)
+        if n:
+            return sum(_self_device_us(e) for e in hits) / n / 1e3, n
+    return None, 0
 
 
 def _self_device_us(evt) -> float:
@@ -2927,9 +2954,12 @@ def check_entry_kernels(dev, gen) -> dict:
                   "bid_top2_gather " + what)
             equal(got, cuda_bid_top2(cuda_gather_rows(x, index), c, p),
                   "bid_top2_gather vs bid_top2(gather_rows) " + what)
+            equal(got, bid_top2_gather_prev(x, index, c, p),
+                  "bid_top2_gather vs its previous design " + what)
     log(f"cdist n={n} k=256, cdist_gather and bid_top2_gather on {CHUNK_ROWS} "
         f"clipped int64/int32 indices, d={d}/32/200, integer inputs: bitwise "
-        f"equal to the plain versions and to the kernels on gather_rows")
+        f"equal to the plain versions and to the kernels on gather_rows "
+        f"(bid_top2_gather also to its previous design)")
 
     x = torch.randn((n, d), generator=gen).to(dev)
     c = torch.randn((256, d), generator=gen).to(dev)
@@ -2947,11 +2977,31 @@ def check_entry_kernels(dev, gen) -> dict:
     equal(cuda_bid_top2_gather(x, idx, c, p),
           cuda_bid_top2(cuda_gather_rows(x, idx), c, p),
           "bid_top2_gather floats")
+    for index in (idx, idx.int()):  # and c staged by the threads
+        got = cuda_bid_top2_gather(x, index, c, p)
+        for cc in (c, off_grid(c)):
+            equal(cuda_bid_top2_gather(x, index, cc, p), got,
+                  f"bid_top2_gather floats, {index.dtype}, c at "
+                  f"{cc.data_ptr() % 16}")
+            equal(bid_top2_gather_prev(x, index, cc, p), got,
+                  f"bid_top2_gather's previous design, {index.dtype}")
+    wide_idx = torch.randint(-100, n + 100, (GATHER_WIDE_M,),
+                             generator=gen).to(dev)
+    got = cuda_bid_top2_gather(x, wide_idx, c, p)
+    equal(got, cuda_bid_top2(cuda_gather_rows(x, wide_idx), c, p),
+          f"bid_top2_gather floats at m={GATHER_WIDE_M}")
+    equal(got, bid_top2_gather_prev(x, wide_idx, c, p),
+          f"bid_top2_gather's previous design at m={GATHER_WIDE_M}")
+    top2_err(got, bid_top2_gather_ref(x, wide_idx, c, p),
+             f"bid_top2_gather at m={GATHER_WIDE_M}")
     log(f"Gaussian floats: cdist max_abs_err {errs['cdist']:.3e}, "
         f"cdist_gather {errs['cdist_gather']:.3e} (tol 1e-5*(|x|^2+|c|^2)"
         f"+1e-6), bid_top2_gather {errs['bid_top2_gather']:.3e} (bid_top2's "
         f"tol, argmax equal where the gap > 1e-4*scale); both fused kernels "
-        f"bitwise equal to the unfused kernel on gather_rows")
+        f"bitwise equal to the unfused kernel on gather_rows; "
+        f"bid_top2_gather bitwise its previous design with int64 and int32 "
+        f"indices, with c on and off the 16-byte grid, and at "
+        f"m={GATHER_WIDE_M}")
 
     args = ssm_inputs(gen, SSM_SHAPE, dev)
     y, h = K.ssm_scan(*args)
@@ -3070,20 +3120,7 @@ def measure_entry_kernels(dev, errs) -> list:
         lambda: torch.addmm(xn[clipped][:, None] + cn,
                             torch.index_select(x, 0, clipped), c.T,
                             alpha=-2.0), b_cg, by_cg))
-    b_bg, by_bg = bound_ms(8 * mi + 4 * (mi * d + k * d + k) + mi * 16,
-                           2 * mi * k * d + 2 * k * d + 2 * mi * k)
-    rows.append(timed_row(
-        "bid_top2_gather", "bid_top2_gather.cu",
-        "src/repro/kernels/gather.py:129", f"n={n} m={mi} k={k} d={d} "
-        f"(int64 idx)", errs, lambda: cuda_bid_top2_gather(x, idx, c, p),
-        "bid_top2_kernel", lambda: bid_top2_gather_ref(x, idx, c, p),
-        lambda: torch.topk(torch.addmm(cn - p, torch.index_select(
-            x, 0, clipped), c.T, alpha=-2.0), 2, dim=1), b_bg, by_bg))
-    c_staged = off_grid(c)
-    rows[-1]["staged_device_ms"] = device_ms(
-        lambda: cuda_bid_top2_gather(x, idx, c_staged, p), "bid_top2_kernel")
-    log(f"bid_top2_gather with c off the 16-byte grid (staged by the "
-        f"threads): device {rows[-1]['staged_device_ms']} ms")
+    rows.append(measure_bid_top2_gather(dev, x, c, p, idx, errs))
     bsz, s, di, ds = SSM_SHAPE
     b_ss, by_ss = bound_ms(4 * (3 * bsz * s * di + 2 * bsz * s * ds + di * ds
                                 + bsz * di * ds),
@@ -3346,6 +3383,115 @@ def sm_clock_mhz(fn) -> tuple[int | None, int]:
     check(smi.returncode == 0, f"nvidia-smi exited {smi.returncode}")
     clock, max_clock = (int(v) for v in out.split(","))
     return (clock if busy else None), max_clock
+
+
+GATHER_WIDE_M = 65536  # bid_top2_gather's second shape: 8 tiles a CTA
+# the kernels' names in the profiler: this design's, and the previous
+# design's (bid_top2.cuh's kernel, which the unfused bid_top2 launches too)
+GATHER_KERNEL = "bid_top2_gather_kernel"
+GATHER_PREV_KERNEL = "bid_top2_kernel"
+
+
+def gather_bound(m, k, d) -> tuple[float, str]:
+    """bid_top2_gather's bound: m int64 indices, the m rows, c and p read,
+    three (m,) outputs written; an FMA a row, column and feature, a
+    column's norm, and the top-2 step of each row and column."""
+    return bound_ms(8 * m + 4 * (m * d + k * d + k) + m * 16,
+                    2 * m * k * d + 2 * k * d + 2 * m * k)
+
+
+def stage_cycles(stamps) -> dict:
+    """Per stage of the timed instantiation, the median and the maximum
+    over CTAs of its SM cycles (``tiles``: of the tiles a CTA took)."""
+    out = {"ctas": stamps.shape[0]}
+    for i, name in enumerate(GATHER_STAGES):
+        col = stamps[:, i].double()
+        out[name] = {"median": float(col.median()), "max": float(col.max())}
+    return out
+
+
+def measure_bid_top2_gather(dev, x, c, p, idx, errs) -> dict:
+    """bid_top2_gather on phase 5's chunk and on GATHER_WIDE_M indices:
+    this design and the previous one in turns (this, previous, previous,
+    this) by CUDA events and then by the profiler's device time a launch
+    (:func:`launch_device_ms`), beside
+    the bound, the plain version and the library call (``index_select`` +
+    ``addmm`` + ``topk(2)``, timed in the same run), with c off the 16-byte
+    grid (staged by the threads), and the stages' cycles per CTA from the
+    timed instantiation."""
+    n, d = x.shape
+    k = c.shape[0]
+    cn = (c * c).sum(1)
+    c_staged = off_grid(c)
+    wide_idx = torch.randperm(n, generator=torch.Generator().manual_seed(
+        32))[:GATHER_WIDE_M].to(dev)
+    out = {}
+    for m, index in ((idx.shape[0], idx), (GATHER_WIDE_M, wide_idx)):
+        clipped = index.clamp(0, n - 1)
+
+        def new():
+            return cuda_bid_top2_gather(x, index, c, p)
+
+        def prev():
+            return bid_top2_gather_prev(x, index, c, p)
+
+        def library():  # yardstick only
+            return torch.topk(torch.addmm(cn - p, torch.index_select(
+                x, 0, clipped), c.T, alpha=-2.0), 2, dim=1)
+
+        ms = [time_ms(new), time_ms(prev), time_ms(prev), time_ms(new)]
+        readings = [launch_device_ms(new, GATHER_KERNEL),
+                    launch_device_ms(prev, GATHER_PREV_KERNEL),
+                    launch_device_ms(prev, GATHER_PREV_KERNEL),
+                    launch_device_ms(new, GATHER_KERNEL)]
+        dms = [t for t, _ in readings]
+        for _ in range(3):  # warm
+            _, stamps = bid_top2_gather_timed(x, index, c, p)
+        torch.cuda.synchronize()
+        b, by = gather_bound(m, k, d)
+        r = {"shape": f"n={n} m={m} k={k} d={d} (int64 idx)",
+             "ms_turns": ms, "device_ms_turns": dms,
+             "device_launches_recorded": [n for _, n in readings],
+             "ms": min(ms[0], ms[3]), "prev_ms": min(ms[1], ms[2]),
+             "device_ms": min((t for t in (dms[0], dms[3]) if t is not None),
+                              default=None),
+             "prev_device_ms": min((t for t in (dms[1], dms[2])
+                                    if t is not None), default=None),
+             "bound_ms": b, "bound_by": by,
+             "library_ms": time_ms(library),
+             "library_device_ms": device_ms(library, ""),
+             "staged_device_ms": launch_device_ms(
+                 lambda: cuda_bid_top2_gather(x, index, c_staged, p),
+                 GATHER_KERNEL)[0],
+             "prev_staged_device_ms": launch_device_ms(
+                 lambda: bid_top2_gather_prev(x, index, c_staged, p),
+                 GATHER_PREV_KERNEL)[0],
+             "stage_cycles": stage_cycles(stamps.cpu())}
+        r["bound_share"] = (b / r["device_ms"] if r["device_ms"] else None)
+        out[m] = r
+        sc = r["stage_cycles"]
+        log(f"bid_top2_gather {r['shape']}: in turns (this, previous, "
+            f"previous, this) event ms {', '.join(f'{t:.4f}' for t in ms)}; "
+            f"device ms {dms}; bound {b:.6f} ms ({by}), share "
+            f"{r['bound_share']}; c off the 16-byte grid device "
+            f"{r['staged_device_ms']} (previous {r['prev_staged_device_ms']});"
+            f" index_select + addmm + topk(2) {r['library_ms']:.4f} ms "
+            f"(device {r['library_device_ms']}, per call); device "
+            f"launches recorded of 20 {r['device_launches_recorded']}")
+        log(f"bid_top2_gather {r['shape']} stages (SM cycles a CTA, median "
+            f"/ max over {sc['ctas']} CTAs): " + ", ".join(
+                f"{name} {sc[name]['median']:.0f} / {sc[name]['max']:.0f}"
+                for name in GATHER_STAGES))
+    main = out[idx.shape[0]]
+    row = {"name": "bid_top2_gather", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/bid_top2_gather.cu",
+           "replaces": "src/repro/kernels/gather.py:129",
+           "max_abs_err": errs["bid_top2_gather"],
+           "plain_ms": time_ms(lambda: bid_top2_gather_ref(x, idx, c, p)),
+           "launches_in": "phase 5: the repro_torch.kernels entry point "
+                          "(no anticluster path runs this kernel)",
+           **main, f"m{GATHER_WIDE_M}": out[GATHER_WIDE_M]}
+    return row
 
 
 def timed_row(name, source, replaces, shape, errs, fn, kernel, plain,

@@ -53,12 +53,17 @@ _SYMBOLS = {
 # further C functions of a source's library: symbol -> argument types.  The
 # span's pair counts as a launch of "bid_top2"; the phase kernels' timed
 # instantiations are for measurement only and count as launches of
-# "auction_phase" / "auction_phase_dense".  The backward scan's workspace
-# query launches nothing; its kernel function launches two grids (the walk
-# and the sums over channel blocks), one launch of "ssm_scan_bwd".
+# "auction_phase" / "auction_phase_dense", as the gather-bid kernel's timed
+# instantiation and its previous design count as launches of
+# "bid_top2_gather".  The backward scan's workspace query launches nothing;
+# its kernel function launches two grids (the walk and the sums over channel
+# blocks), one launch of "ssm_scan_bwd".
 _MORE_SYMBOLS = {
     "ssm_scan_bwd_workspace_f32": (_I, _I, _I, _I, _P),
     "bid_top2_span_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "bid_top2_gather_prev_f32": _SYMBOLS["bid_top2_gather"][1],
+    "bid_top2_gather_timed_f32": _SYMBOLS["bid_top2_gather"][1][:-1]
+    + (_P, _P, _P),
     "auction_phase_timed_f32": (_P,) * 14 + (_I,) * 5 + (_P, _I, _I, _P),
     "auction_phase_dense_timed_f32": (_P,) * 12 + (_I,) * 5 + (_P, _I, _I,
                                                                _P),

@@ -1,7 +1,8 @@
-// The fused auction bidding reduction shared by bid_top2.cu (rows read in
-// place) and bid_top2_gather.cu (rows read through a clipped index), and
-// the top-2 arithmetic that auction_phase.cu shares with them.  See
-// bid_top2.cu for what it replaces, what bounds it and its design.
+// The fused auction bidding reduction of bid_top2.cu (rows read in place;
+// through a clipped index it is bid_top2_gather.cu's previous design, kept
+// there for measurement), and the top-2 arithmetic that auction_phase.cu
+// and bid_top2_gather.cu's own kernel share with it.  See bid_top2.cu for
+// what it replaces, what bounds it and its design.
 //
 // Per row i of group g it returns the best value v1, its column j1 and the
 // second-best value v2 of
@@ -38,6 +39,26 @@ __device__ __forceinline__ void push(Top2& t, float v, int j) {
   t.v2 = first ? t.v1 : (v > t.v2 ? v : t.v2);
   t.j1 = first ? j : t.j1;
   t.v1 = first ? v : t.v1;
+}
+
+// push with its picks forced to selects (PTX selp), where the compiler
+// turns push's nested conditional into a branch a row: the same
+// comparisons and the same picks, so the same bits for every input.
+__device__ __forceinline__ void push_selp(Top2& t, float v, int j) {
+  float v1, v2;
+  int j1;
+  asm("{\n\t.reg .pred first, second;\n\t"
+      "setp.gt.f32 first, %3, %4;\n\t"       // v > v1
+      "setp.gt.f32 second, %3, %5;\n\t"      // v > v2
+      "selp.f32 %1, %3, %5, second;\n\t"     // v > v2 ? v : v2
+      "selp.f32 %1, %4, %1, first;\n\t"      // first ? v1 : that
+      "selp.b32 %2, %6, %7, first;\n\t"      // first ? j : j1
+      "selp.f32 %0, %3, %4, first;\n\t}"     // first ? v : v1
+      : "=f"(v1), "=&f"(v2), "=r"(j1)
+      : "f"(v), "f"(t.v1), "f"(t.v2), "r"(j), "r"(t.j1));
+  t.v1 = v1;
+  t.v2 = v2;
+  t.j1 = j1;
 }
 
 // A value from its dot-product chain acc = x_i . c_j (sequential fmaf over d
@@ -94,8 +115,10 @@ struct Shape {
 // once a column.  Of 1, 2 and 4 rows a CTA with a column a lane, and 4
 // rows with two, 4 rows and a column ran fastest on the H100 (PERF.md).
 using Narrow = Shape<4, 1, 8>;
-// Many rows (a streaming chunk's 8192): 32 rows a CTA, 8 columns a lane, so
-// c is staged 16 times less often and a lane merges 8 columns per shuffle.
+// Many rows (a stack of more than 2 048, counting the span's two slots):
+// 32 rows a CTA, 8 columns a lane, so c is staged 16 times less often and
+// a lane merges 8 columns per shuffle.  The fused gather kernel has its
+// own tile (bid_top2_gather.cu); only its previous design takes this one.
 using Wide = Shape<4, 8, 1>;
 // The most CTAs the narrow tile may take before the wide one is used.
 constexpr int64_t kNarrowMaxCtas = 512;

@@ -6,9 +6,13 @@ Counterparts of ``repro/kernels/gather.py``'s ``gather_rows_pallas``,
 clipped to ``[0, n - 1]``, as the TPU kernels clip it.  A CUDA tensor
 launches the kernel (or raises); a CPU tensor runs the plain version in
 ``repro_torch.kernels.ref``.  Launches are counted in ``_build.launches``.
+:func:`bid_top2_gather_prev` and :func:`bid_top2_gather_timed` are for
+measurement only and take CUDA tensors only.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -54,7 +58,57 @@ def bid_top2_gather(x: torch.Tensor, idx: torch.Tensor, c: torch.Tensor,
     (n, d), (m,), (k, d), (k,) -> (v1, j1, v2), each (m,)."""
     if not x.is_cuda:
         return bid_top2_gather_ref(x, idx, c, prices)
+    return _bid_gather("bid_top2_gather_f32", x, idx, c, prices)
+
+
+def bid_top2_gather_prev(x, idx, c, prices):
+    """:func:`bid_top2_gather` through the previous design (bid_top2.cuh's
+    kernel staging its rows through the index), kept as the yardstick the
+    kernel is timed against; bitwise the same outputs."""
+    _cuda_only(x, "bid_top2_gather_prev")
+    return _bid_gather("bid_top2_gather_prev_f32", x, idx, c, prices)
+
+
+# the timed instantiation's stamps a CTA, in SM clock cycles (``tiles``: a
+# count)
+STAGES = ("issue", "c_landed", "c_laid_out", "rows_landed", "fma_and_push",
+          "merge_and_store", "cta", "tiles")
+
+
+def bid_top2_gather_timed(x, idx, c, prices):
+    """:func:`bid_top2_gather` through the kernel's timed instantiation.
+    Also returns ``stamps`` (CTAs, 8) int64, one row a CTA (``STAGES``):
+    the SM cycles spent issuing c and its first two tiles' indices and
+    rows, waiting for c, laying c out with its bias, and, summed over its
+    tiles, waiting for their rows, in the FMA loop and the pushes, in the
+    merge and store; the whole CTA's cycles; the tiles it took."""
+    _cuda_only(x, "bid_top2_gather_timed")
+    tiles = -(-idx.shape[0] // 32) if idx.dim() == 1 else 0  # CTAs at most
+    stamps = torch.zeros((max(tiles, 1), len(STAGES)), dtype=torch.int64,
+                         device=x.device)
+    grid = ctypes.c_int(0)
+    out = _bid_gather("bid_top2_gather_timed_f32", x, idx, c, prices,
+                      stamps.data_ptr(), ctypes.addressof(grid))
+    return out, stamps[:grid.value]
+
+
+def _cuda_only(x, kernel):
+    if not x.is_cuda:
+        raise ValueError(f"{kernel} measures the CUDA kernel and has no "
+                         f"plain version; it takes CUDA tensors")
+
+
+# the widest rows the fused bidding kernel takes: its ring holds two tiles
+# of 32 whole rows in shared memory (``ops.bid_top2`` sends d > 512 to
+# gather_rows and the unfused kernel, as the reference does)
+BID_GATHER_MAX_D = 768
+
+
+def _bid_gather(symbol, x, idx, c, prices, *more):
     n, d, m, stream = _check("bid_top2_gather", x, idx, c=c, prices=prices)
+    if d > BID_GATHER_MAX_D:
+        raise ValueError(f"bid_top2_gather takes at most {BID_GATHER_MAX_D} "
+                         f"features, got {d}")
     k = c.shape[0]
     if prices.shape != (k,) or k < 1:
         raise ValueError(f"bid_top2_gather: prices {tuple(prices.shape)} "
@@ -65,7 +119,7 @@ def bid_top2_gather(x: torch.Tensor, idx: torch.Tensor, c: torch.Tensor,
     _build.launch("bid_top2_gather", x.data_ptr(), idx.data_ptr(),
                   idx.dtype == torch.int64, c.data_ptr(),
                   prices.data_ptr(), v1.data_ptr(), j1.data_ptr(),
-                  v2.data_ptr(), n, m, k, d, stream)
+                  v2.data_ptr(), n, m, k, d, *more, stream, symbol=symbol)
     return v1, j1, v2
 
 

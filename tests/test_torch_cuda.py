@@ -23,7 +23,11 @@ from repro_torch.kernels import auction_phase as phase_kernel
 from repro_torch.kernels.bid_top2 import bid_top2 as cuda_bid_top2
 from repro_torch.kernels.bid_top2 import bid_top2_span as cuda_bid_top2_span
 from repro_torch.kernels.cdist import cdist as cuda_cdist
+from repro_torch.kernels.gather import STAGES as GATHER_STAGES
 from repro_torch.kernels.gather import bid_top2_gather as cuda_bid_gather
+from repro_torch.kernels.gather import (
+    bid_top2_gather_prev as cuda_bid_gather_prev,
+    bid_top2_gather_timed as cuda_bid_gather_timed)
 from repro_torch.kernels.gather import cdist_gather as cuda_cdist_gather
 from repro_torch.kernels.gather import gather_rows as cuda_gather_rows
 from repro_torch.kernels.ref import (bid_top2_gather_ref, bid_top2_ref,
@@ -210,19 +214,64 @@ def test_cuda_cdist_gather_vs_plain(cuda, d, idx_dtype):
     assert torch.equal(got, cuda_cdist(cuda_gather_rows(xf, idx), cf))
 
 
+def _off_grid(t, words):
+    """A copy of ``t`` whose data starts ``words`` float32 words past a
+    256-byte boundary: 1 puts it off the 16- and 8-byte grids."""
+    shifted = torch.empty(t.numel() + words, dtype=t.dtype,
+                          device=t.device)[words:]
+    return shifted.view(t.shape).copy_(t)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("k,d", [(256, 22), (513, 32), (37, 200), (1, 5)])
+@pytest.mark.parametrize("m", [1, 33, 3000, 8192, 65541])
+@pytest.mark.parametrize("k", [1, 37, 256, 513])
+@pytest.mark.parametrize("d", [1, 5, 22, 32, 200, 512])
 @pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
-def test_cuda_bid_top2_gather_vs_plain(cuda, k, d, idx_dtype):
-    x, c, p = (t[0].to(cuda) for t in _int_inputs(k * d, 2537, k, d, 1))
-    idx = torch.randint(-50, 2600, (3000,), device=cuda, dtype=idx_dtype)
+@pytest.mark.parametrize("layout", ["aligned", "c_off_grid", "x_off_grid"])
+def test_cuda_bid_top2_gather_vs_plain(cuda, m, k, d, idx_dtype, layout):
+    """Indices out of range on both sides; c off the 16-byte grid (the
+    threads stage it, not the TMA), or x off the 8-byte grid (4-byte
+    copies where d is even); d = 32 pads c's rows, d = 512 stages c in
+    passes and feature tiles.  Four ways: bitwise the plain version on
+    integers, bitwise bid_top2 of gather_rows on floats, a second launch
+    bitwise the first, and the previous design bitwise this one."""
+    x, c, p = (t[0].to(cuda) for t in _int_inputs(k * d + m, 2537, k, d, 1))
+    gen = torch.Generator().manual_seed(m * 7 + k * d)
+    idx = torch.randint(-50, 2600, (m,), generator=gen).to(cuda, idx_dtype)
+    if layout == "c_off_grid":
+        c = _off_grid(c, 1)
+    elif layout == "x_off_grid":
+        x = _off_grid(x, 1)
     got = _counted("bid_top2_gather", cuda_bid_gather, x, idx, c, p)
     for g, w in zip(got, bid_top2_gather_ref(x, idx, c, p)):
         assert torch.equal(g, w)
-    xf = x + torch.randn_like(x)
+    xf = x + torch.randn(x.shape, generator=gen).to(cuda)
+    if layout == "x_off_grid":
+        xf = _off_grid(xf, 1)
     got = _counted("bid_top2_gather", K.bid_top2, xf, c, p, idx=idx)
-    for g, w in zip(got, cuda_bid_top2(cuda_gather_rows(xf, idx), c, p)):
+    again = _counted("bid_top2_gather", cuda_bid_gather, xf, idx, c, p)
+    prev = _counted("bid_top2_gather", cuda_bid_gather_prev, xf, idx, c, p)
+    want = cuda_bid_top2(cuda_gather_rows(xf, idx), c, p)
+    for g, w, a, o in zip(got, want, again, prev):
+        assert torch.equal(g, w) and torch.equal(a, g) and torch.equal(o, g)
+
+
+@pytest.mark.cuda
+def test_cuda_bid_top2_gather_timed(cuda):
+    """The timed instantiation (measurement only) gives the kernel's
+    outputs and one row of stamps a CTA: every tile taken once, each stage
+    a share of the CTA's cycles."""
+    x, c, p = (t[0].to(cuda) for t in _int_inputs(3, 2537, 256, 22, 1))
+    idx = torch.randint(-50, 2600, (65536,), device=cuda)
+    out, stamps = _counted("bid_top2_gather", cuda_bid_gather_timed, x, idx,
+                           c, p)
+    for g, w in zip(out, cuda_bid_gather(x, idx, c, p)):
         assert torch.equal(g, w)
+    assert stamps.shape[1] == len(GATHER_STAGES) == 8
+    assert 1 <= stamps.shape[0] <= 65536 // 32
+    assert int(stamps[:, 7].sum()) == 65536 // 32
+    assert bool((stamps[:, :6] >= 0).all())
+    assert bool((stamps[:, :6].sum(1) <= stamps[:, 6]).all())
 
 
 @pytest.mark.cuda

@@ -8,6 +8,7 @@ kernels themselves are held against those plain versions on the card by
 tests/test_torch_cuda.py and by ``chip_smoke.py``.
 """
 
+import ctypes
 import shutil
 
 import numpy as np
@@ -191,6 +192,37 @@ def test_bid_top2_gather_equals_bid_top2_of_gathered_rows():
             assert torch.equal(g, w)
     with pytest.raises(ValueError):
         ops.bid_top2(x[None], c, p, idx=idx)
+
+
+def test_bid_top2_gather_measurement_entries_take_cuda_tensors_only():
+    """The fused kernel's previous design and its timed instantiation are
+    for measurement only and have no plain version: on CPU tensors they
+    raise and count nothing.  Their C functions live in the kernel's own
+    library, with its argument types (the timed one adds its stamps and
+    the grid it reports), and each C symbol the loader knows is defined in
+    a source of csrc/."""
+    from repro_torch.kernels.gather import (STAGES, bid_top2_gather_prev,
+                                            bid_top2_gather_timed)
+    x, c, p = _t(*_idx_inputs(13, 30, 9, 6, False))
+    idx = torch.tensor([0, -3, 29, 30])
+    before = dict(_build.launches)
+    for fn in (bid_top2_gather_prev, bid_top2_gather_timed):
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(x, idx, c, p)
+    assert _build.launches == before
+    main = _build._SYMBOLS["bid_top2_gather"][1]
+    assert _build._MORE_SYMBOLS["bid_top2_gather_prev_f32"] == main
+    assert (_build._MORE_SYMBOLS["bid_top2_gather_timed_f32"]
+            == main[:-1] + (ctypes.c_void_p,) * 3)
+    assert len(STAGES) == 8 and STAGES[-2:] == ("cta", "tiles")
+    sources = "".join(f.read_text() for f in _build._CSRC.glob("*.cu"))
+    symbols = [sym for sym, _ in _build._SYMBOLS.values()]
+    for sym in symbols + list(_build._MORE_SYMBOLS):
+        assert f'extern "C" int {sym}(' in sources, sym
+    gather_src = (_build._CSRC / "bid_top2_gather.cu").read_text()
+    for sym in ("bid_top2_gather_f32", "bid_top2_gather_prev_f32",
+                "bid_top2_gather_timed_f32"):
+        assert f'extern "C" int {sym}(' in gather_src
 
 
 def test_entry_point_exports_the_reference_names():
